@@ -1,0 +1,80 @@
+"""The PyTorch port stands without JAX: in a fresh interpreter, importing
+every module of the port and running its CLI loads no jax module, and
+chip_smoke.py imports none either and refuses to run without a card."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+from test_torch_host import INPUT0
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROGRAM = """
+import importlib, pkgutil, sys
+import lanczosplusplus_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+from lanczosplusplus_tpu_torch.cli import lanczos_main
+lanczos_main.run(["-f", sys.argv[1], "--device", "cpu"])
+jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+assert not jax_mods, jax_mods
+print("NO_JAX_OK")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_runs_without_importing_jax(tmp_path):
+    path = tmp_path / "input0.inp"
+    path.write_text(INPUT0)
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM, str(path)],
+                          capture_output=True, text=True, env=_env(),
+                          cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "Energy=-4.472136" in proc.stdout
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert names
+    assert not [n for n in names if n.split(".")[0] in
+                ("jax", "lanczosplusplus_tpu")]
+
+
+@pytest.mark.parametrize("where", ["no_card", "script_alone"])
+def test_chip_smoke_fails_without_card_or_package(tmp_path, where):
+    """No card, or a directory holding chip_smoke.py and nothing else of
+    the repository: a non-zero exit and no result line."""
+    script = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), script)
+    env = dict(os.environ)
+    if where == "no_card":
+        env = _env()
+    else:
+        env.pop("PYTHONPATH", None)
+    code = ("import runpy, torch; "
+            f"torch.cuda.is_available = lambda: {where != 'no_card'}; "
+            f"runpy.run_path({str(script)!r}, run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    expect = ("is_available() is False" if where == "no_card"
+              else "No module named 'lanczosplusplus_tpu_torch'")
+    assert expect in proc.stderr
