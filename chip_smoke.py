@@ -8,12 +8,24 @@ Run from the repository root, with one CUDA card:
 Phases, each printing one line with its numbers:
 
 1. environment: the card, its power limit, torch and CUDA versions;
-2. build: both hand-written CUDA kernels compiled from csrc/;
+2. build: both hand-written CUDA kernels compiled from csrc/, with each
+   kernel's registers, shared memory and spills (which must be 0) and the
+   count of FP64 tensor-core instructions (DMMA) in the machine code;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (TF32 off): factor_matmul at 3432^3 in float64 and
-   float32, its transposed accumulate form, a ragged 300x257 . 123x257;
-   ell_spmv on the 12-site SuperHubbardExtended J-ELL and on a random
-   ELL with dim 1 000 003, K 7;
+   main path's shapes (TF32 off): factor_matmul at 3432^3 (14 sites) and
+   924^3 (12 sites) in float64, each also in its transposed accumulate
+   form, at 3432^3 in float32, and a ragged 300x257 . 123x257 whose odd
+   pitch takes the 8-byte copies; ell_spmv on the 12-site
+   SuperHubbardExtended J-ELL in the K-major layout the path runs and in
+   the contiguous (dim, K) layout, and on a random ELL with dim
+   1 000 003, K 7.  Each case is timed beside its bound (the least time
+   the card could take: operations over 67 TFLOP/s or bytes over 3.35
+   TB/s) and, for factor_matmul, beside the library call for the same
+   product (torch.matmul / addmm_, in the turns library, kernel, kernel,
+   library), which the port itself never calls.  The times are the card's
+   alone: the host queues the work while the card still spins on an
+   earlier kernel (median_ms); "from an idle card" is the same launch
+   with the host's way to it included;
 4-6. the main path through the port's own entry points, with the kernel
    launch counts set to 0 before and read after: input0 through the CLI
    (dense branch), the 14-site half-filled Hubbard chain (dim 11 778 624)
@@ -48,6 +60,9 @@ TOL_F64 = 1e-12       # factor_matmul float64, relative to max|y|
 TOL_F32 = 1e-5        # float32 kernels, relative to max|y|
 TOL_ELL_F64 = 1e-13   # ell_spmv float64, relative to max|y|
 TOL_E0 = 1e-10        # relative energy agreement
+PEAK_FLOPS = 67e12    # H100 SXM data sheet: FP64 tensor cores, and float32
+PEAK_BYTES = 3.35e12  # H100 SXM data sheet: device memory bytes per second
+SPIN_CYCLES = 2_000_000  # about 1.1 ms at the H100's 1.75 GHz
 E0_INPUT0 = -4.472135954999581  # benchmarks/goldens.json e0_input0
 
 INPUT0 = """
@@ -110,15 +125,23 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, reps: int) -> float:
+def median_ms(fn, reps: int, ahead: bool = True) -> float:
     """Median device time of fn() over `reps` runs, by CUDA events,
-    after one warm-up run."""
+    after one warm-up run.  With `ahead`, the card is first given about a
+    millisecond of spinning, so the host has queued all of fn()'s work
+    before the card reaches the first event and the time between the
+    events is the card's alone.  Without it the card starts idle, and the
+    time includes the host's way from the first event to the launch.
+    The spin is ``torch.cuda._sleep``, a private function of PyTorch that
+    its own tests use; there is no public one."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
+        if ahead:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -185,10 +208,38 @@ def main() -> None:
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     lib = build.build()
-    build.load_library()
-    regs = re.findall(r"Used (\d+) registers", build.build_log())
-    say(f"phase 2 build: {time.perf_counter() - t0:.3f} s, {lib.name}, "
-        f"registers per kernel {regs}")
+    say(f"phase 2 build: {time.perf_counter() - t0:.3f} s, {lib.name}")
+    lib_c = build.load_library()
+    for r in build.kernel_resources(build.build_log()):
+        # template arguments of a float64 factor_matmul instantiation:
+        # BM, BN, X k-major, A k-major
+        found = re.search(r"dmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)",
+                          r["name"])
+        if found:
+            bm, bn, xk, ak = map(int, found.groups())
+            bits = K.MatmulPlan(bool(xk), False, bool(ak), False, False,
+                                bm).bits
+            label = (f"factor_matmul f64 {bm}x{bn} tile, X "
+                     f"{'k' if xk else 'row'}-major, A "
+                     f"{'k' if ak else 'row'}-major, dynamic smem "
+                     f"{lib_c.lpp_factor_matmul_f64_smem_bytes(bits)} B")
+        else:
+            kind = re.search(r"(factor_matmul_simt|ell_spmv)_kernelI(\w)"
+                             r"(?:Li(\d+)E)?", r["name"])
+            label = (f"{kind.group(1)} "
+                     f"{'f64' if kind.group(2) == 'd' else 'f32'}"
+                     + (f", {kind.group(3)} entries at a time"
+                        if kind.group(3) else "")
+                     + f", static smem {r['static_smem_bytes']} B")
+        say(f"  {label}: {r['registers']} registers, spill stores "
+            f"{r['spill_store_bytes']} B, loads {r['spill_load_bytes']} B")
+        check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
+              f"{r['name']} spills registers")
+    dmma = build.sass_opcode_counts(lib, "DMMA")
+    say(f"  DMMA instructions in the library's machine code: {dmma} "
+        f"(None: no cuobjdump)")
+    check(dmma is None or sum(dmma.values()) > 0,
+          "the float64 factor_matmul holds no DMMA instruction")
 
     # -- 3. kernels against their plain versions ---------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -197,29 +248,70 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {"factor_matmul": [], "ell_spmv": []}
 
-    def record(kernel, case, got, ref, tol, ms, plain_ms):
+    def record(kernel, case, got, ref, tol, times, bound_ms, bound_by):
+        """`times`: kernel, plain and (or None) library callables."""
         abs_err, rel = rel_err(got, ref)
-        say(f"  {kernel} {case}: max rel err {rel:.3e} (tol {tol:g}), "
-            f"max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
         check(rel <= tol, f"{kernel} {case}: rel err {rel:.3e} > {tol:g}")
-        results[kernel].append(dict(case=case, max_abs_err=abs_err,
-                                    max_rel_err=rel, ms=ms,
-                                    plain_ms=plain_ms))
+        run, plain, library = times
+        reps = 20 if bound_ms > 0.2 else 100
+        turns = {"kernel": [], "library": []}
+        for name in ("library", "kernel", "kernel", "library"):
+            fn = run if name == "kernel" else library
+            if fn is not None:
+                turns[name].append(median_ms(fn, reps))
+        ms = float(np.mean(turns["kernel"]))
+        library_ms = (float(np.mean(turns["library"])) if library is not None
+                      else None)
+        plain_ms = median_ms(plain, reps)
+        # what a caller sees on an idle card: the host's way to the launch
+        # is in it (the method of this script's first version)
+        from_idle_ms = median_ms(run, reps, ahead=False)
+        say(f"  {kernel} {case}: max rel err {rel:.3e} (tol {tol:g}), max "
+            f"abs err {abs_err:.3e}, kernel {ms:.4f} ms (turns "
+            f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f}), bound "
+            f"{bound_ms:.4f} ms by {bound_by} (share {bound_ms / ms:.3f}), "
+            f"library "
+            + ("none" if library_ms is None else
+               f"{library_ms:.4f} ms (turns {turns['library'][0]:.4f}, "
+               f"{turns['library'][1]:.4f})")
+            + f", plain {plain_ms:.4f} ms, kernel from an idle card "
+              f"{from_idle_ms:.4f} ms")
+        results[kernel].append(dict(
+            case=case, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, library_ms=library_ms,
+            from_idle_ms=from_idle_ms))
 
-    for dt, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dt, tol, shapes in (
+            (torch.float64, TOL_F64, ((3432, 3432, 3432), (924, 924, 924),
+                                      (300, 123, 257))),
+            (torch.float32, TOL_F32, ((3432, 3432, 3432), (300, 123, 257)))):
         tag = "f64" if dt == torch.float64 else "f32"
-        for m, n, k in ((3432, 3432, 3432), (300, 123, 257)):
+        for m, n, k in shapes:
             x = torch.randn(m, k, generator=gen, device=dev, dtype=dt)
             a = torch.randn(n, k, generator=gen, device=dev, dtype=dt)
+            bound_ms = 1e3 * 2 * m * n * k / PEAK_FLOPS
+            out = torch.empty(m, n, device=dev, dtype=dt)
+            plan = K.factor_matmul_plan(
+                x.data_ptr(), x.stride(), a.data_ptr(), a.stride(),
+                out.data_ptr(), out.stride(), m, n, sms)
+            path = "SIMT"
+            if dt == torch.float64:
+                wide = plan.x_vec16 and plan.a_vec16
+                path = f"{plan.tile}-tile, {16 if wide else 8}-byte copies"
+                check(wide == (k % 2 == 0),
+                      f"{m}x{k}: 16-byte copies planned: {wide}")
             got = K.factor_matmul(x, a)
             ref = K.factor_matmul_ref(x, a)
             torch.cuda.synchronize()
-            reps = 20 if m > 1000 else 100
-            record("factor_matmul", f"{tag} {m}x{k}.{n}x{k}^T", got, ref,
-                   tol, median_ms(lambda: K.factor_matmul(x, a), reps),
-                   median_ms(lambda: K.factor_matmul_ref(x, a), reps))
-            if m != 3432:
+            record("factor_matmul", f"{tag} {m}x{k}.{n}x{k}^T ({path})", got,
+                   ref, tol,
+                   (lambda: K.factor_matmul(x, a, out=out),
+                    lambda: K.factor_matmul_ref(x, a),
+                    lambda: torch.matmul(x, a.T, out=out)),
+                   bound_ms, "operations")
+            if m != n:
                 continue
             # the dn-factor form of the path: Y += A . X on transposed views
             y0 = torch.randn(m, m, generator=gen, device=dev, dtype=dt)
@@ -228,13 +320,15 @@ def main() -> None:
             ref = y0 + a @ x
             torch.cuda.synchronize()
             y1 = y0.clone()
-            record("factor_matmul", f"{tag} Y+=A.X transposed views", got,
-                   ref, tol,
-                   median_ms(lambda: K.factor_matmul(
-                       x.T, a, out=y1.T, accumulate=True), reps),
-                   median_ms(lambda: y1.T.add_(
-                       K.factor_matmul_ref(x.T, a)), reps))
-            del x, a, y0, y1, got, ref
+            record("factor_matmul",
+                   f"{tag} {m}^3 Y+=A.X transposed views ({path})", got, ref,
+                   tol,
+                   (lambda: K.factor_matmul(x.T, a, out=y1.T,
+                                            accumulate=True),
+                    lambda: y1.T.add_(K.factor_matmul_ref(x.T, a)),
+                    lambda: y1.addmm_(a, x)),
+                   bound_ms, "operations")
+            del x, a, y0, y1, got, ref, out
 
     she_text = super_hubbard_text(12)
     she_inp = parse_input(she_text)
@@ -242,13 +336,19 @@ def main() -> None:
     she_basis = she_model.create_basis(she_model.default_parts(she_inp))
     she_ham = she_model.hamiltonian(she_basis, dtype=torch.float64,
                                     device=dev)
-    ell_cases = [("f64 12-site SuperHubbardExtended J-ELL", she_ham.diag,
-                  she_ham.ell.cols, she_ham.ell.vals, TOL_ELL_F64)]
+    jc, jv = she_ham.ell.cols, she_ham.ell.vals
+    check(jc.stride() == (1, jc.shape[0]) and jv.stride() == jc.stride(),
+          f"the model's J-ELL is not K-major: strides {jc.stride()}")
+    ell_cases = [("f64 12-site SuperHubbardExtended J-ELL, K-major",
+                  she_ham.diag, jc, jv, TOL_ELL_F64),
+                 ("f64 12-site SuperHubbardExtended J-ELL, contiguous",
+                  she_ham.diag, jc.contiguous(), jv.contiguous(),
+                  TOL_ELL_F64)]
     for dt, tol in ((torch.float64, TOL_ELL_F64), (torch.float32, TOL_F32)):
         dim, kk = 1_000_003, 7
         ell_cases.append((
             f"{'f64' if dt == torch.float64 else 'f32'} random dim {dim} "
-            f"K {kk}",
+            f"K {kk}, contiguous",
             torch.randn(dim, generator=gen, device=dev, dtype=dt),
             torch.randint(0, dim, (dim, kk), generator=gen, device=dev,
                           dtype=torch.int32),
@@ -259,10 +359,14 @@ def main() -> None:
         got = K.ell_spmv(diag, cols, vals, x)
         ref = K.ell_spmv_ref(diag, cols, vals, x)
         torch.cuda.synchronize()
+        # per row: K indices and K values, diag and x read, y written
+        row_bytes = cols.shape[1] * (4 + x.element_size()) \
+            + 3 * x.element_size()
         record("ell_spmv", case, got, ref, tol,
-               median_ms(lambda: K.ell_spmv(diag, cols, vals, x), 100),
-               median_ms(lambda: K.ell_spmv_ref(diag, cols, vals, x), 100))
-    del ell_cases, she_ham
+               (lambda: K.ell_spmv(diag, cols, vals, x),
+                lambda: K.ell_spmv_ref(diag, cols, vals, x), None),
+               1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes")
+    del ell_cases, she_ham, jc, jv
 
     # -- 4-6. the main path through the kernels ---------------------------
     K.reset_launches()
@@ -375,9 +479,11 @@ def main() -> None:
         path_case = results[name][0]  # float64 at the main path's shape
         kernels_line.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=path_case["max_abs_err"],
-            ms=path_case["ms"], plain_ms=path_case["plain_ms"],
-            case=path_case["case"], cases=results[name]))
+            launches=launches[name],
+            **{key: path_case[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "share_of_bound", "case")},
+            cases=results[name]))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

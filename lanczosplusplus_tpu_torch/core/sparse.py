@@ -16,7 +16,10 @@ products I (x) A_up and A_dn (x) I, applied to the state viewed as the
 one-spin ELL maps (the CPU form), or, after ``densify_factors``, as two
 GEMMs Y += X . A_up^T and Y += A_dn . X through the hand-written
 ``factor_matmul`` kernel (the accelerator form).  The diagonal plus the
-generic ELL part go through the ``ell_spmv`` kernel.
+generic ELL part go through the ``ell_spmv`` kernel.  A ``Hamiltonian``'s
+generic ELL tensors are stored K-major: (K, dim) contiguous storage seen
+as (dim, K) through a transposed view, so that the kernel's one thread
+per row reads neighbouring addresses for each k.
 """
 
 from __future__ import annotations
@@ -107,7 +110,9 @@ def one_spin_ell(words: np.ndarray, rank_fn, bonds, dtype) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class EllPart:
-    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]]."""
+    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]].
+    ``hamiltonian_from_numpy`` stores both tensors K-major, strides
+    (1, dim)."""
     cols: torch.Tensor  # (dim, K) int32
     vals: torch.Tensor  # (dim, K)
 
@@ -273,7 +278,10 @@ def hamiltonian_from_numpy(diag, ell_cols, ell_vals, up_cols, up_vals,
                            dtype: torch.dtype) -> Hamiltonian:
     """A ``Hamiltonian`` on `device` from host arrays in the JAX package's
     layout (``np.asarray`` of its ``Hamiltonian`` fields).  Any of the ELL
-    or one-spin pairs may be None; indices become int32, values `dtype`."""
+    or one-spin pairs may be None; indices become int32, values `dtype`.
+    The generic ELL pair keeps its (dim, K) shape but is laid out K-major
+    on every device: the host array is transposed once, before the
+    transfer, and only that layout is kept."""
     device = torch.device(device)
 
     def idx(a):
@@ -284,9 +292,13 @@ def hamiltonian_from_numpy(diag, ell_cols, ell_vals, up_cols, up_vals,
         return None if a is None else torch.tensor(
             np.asarray(a), device=device).to(dtype)
 
+    def k_major(a):
+        return np.ascontiguousarray(np.asarray(a).T)
+
     ell = None
     if ell_cols is not None:
-        ell = EllPart(cols=idx(ell_cols), vals=val(ell_vals))
+        ell = EllPart(cols=idx(k_major(ell_cols)).T,
+                      vals=val(k_major(ell_vals)).T)
     fact = None
     if up_cols is not None or dn_cols is not None:
         fact = SpinFactorizedPart(up_cols=idx(up_cols), up_vals=val(up_vals),

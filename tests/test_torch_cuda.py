@@ -78,20 +78,90 @@ def test_factor_matmul_kernel(cuda, dtype, tol, m, n, k):
     torch.cuda.synchronize()
 
 
+def _strided(g, rows, cols, layout, cuda):
+    """A float64 (rows, cols) operand: 'k' has the second axis contiguous,
+    'm' the first, 'k+1'/'m+1' the same behind a base pointer that is 8
+    but not 16 bytes aligned (a [1:] slice of the storage), 'none' has
+    neither axis contiguous."""
+    if layout == "none":
+        return torch.randn(2 * rows, 2 * cols, generator=g, device=cuda,
+                           dtype=torch.float64)[::2, ::2]
+    shape = (rows, cols) if layout[0] == "k" else (cols, rows)
+    off = int(layout.endswith("+1"))
+    flat = torch.randn(rows * cols + off, generator=g, device=cuda,
+                       dtype=torch.float64)[off:]
+    t = flat.view(shape)
+    return t if layout[0] == "k" else t.T
+
+
+# shapes that cross every edge of the 128- and 64-wide tiles and of the
+# 16-deep k slices: k not a multiple of 16 (and odd), m and n not multiples
+# of the tile, one row, one column, enough 128-tiles to take the large tile
+@pytest.mark.parametrize("m,n,k", [(200, 136, 40), (130, 70, 33),
+                                   (1, 200, 50), (70, 1, 18),
+                                   (1500, 1410, 24), (1411, 1500, 17)])
+@pytest.mark.parametrize("xl,al,yl", [("k", "k", "k"), ("m", "k", "m"),
+                                      ("k+1", "m", "k+1"),
+                                      ("m+1", "k+1", "m"),
+                                      ("none", "none", "none"),
+                                      ("m", "m", "k")])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_factor_matmul_f64_edges(cuda, m, n, k, xl, al, yl, accumulate):
+    """Every staging path of the tensor-core kernel (k-major and row-major,
+    16- and 8-byte copies, both store widths, both tile sizes) agrees with
+    the plain version, and writes nothing outside its output."""
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    x = _strided(g, m, k, xl, cuda)
+    a = _strided(g, n, k, al, cuda)
+    y = _strided(g, m, n, yl, cuda)
+    assert x.shape == (m, k) and a.shape == (n, k) and y.shape == (m, n)
+    plan = kernels.factor_matmul_plan(
+        x.data_ptr(), x.stride(), a.data_ptr(), a.stride(), y.data_ptr(),
+        y.stride(), m, n)
+    assert plan.tile == (128 if m > 1400 else 64)
+    assert plan.x_vec16 == (xl in ("k", "m") and (k if xl == "k" else m)
+                            % 2 == 0)
+    y0 = y.clone()
+    ref = kernels.factor_matmul_ref(x, a) + (y0 if accumulate else 0)
+    kernels.factor_matmul(x, a, out=y, accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= 1e-12
+
+
+def test_factor_matmul_f64_leaves_neighbours(cuda):
+    """A ragged product into the middle of a larger buffer changes only
+    its own block."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    big = torch.zeros(300, 300, device=cuda, dtype=torch.float64)
+    x = torch.randn(131, 77, generator=g, device=cuda, dtype=torch.float64)
+    a = torch.randn(67, 77, generator=g, device=cuda, dtype=torch.float64)
+    kernels.factor_matmul(x, a, out=big[10:141, 20:87])
+    torch.cuda.synchronize()
+    ref = torch.zeros_like(big)
+    ref[10:141, 20:87] = x @ a.T
+    assert (big - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
+    assert (big[:10] == 0).all() and (big[141:] == 0).all()
+    assert (big[:, :20] == 0).all() and (big[:, 87:] == 0).all()
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
                                        (torch.float32, 1e-5)])
-def test_ell_spmv_kernel(cuda, dtype, tol):
+@pytest.mark.parametrize("dim,k", [(5003, 7), (1000, 1), (257, 12), (1, 3)])
+@pytest.mark.parametrize("layout", ["k_major", "contiguous"])
+def test_ell_spmv_kernel(cuda, dtype, tol, dim, k, layout):
     g = torch.Generator(device=cuda).manual_seed(1)
-    dim, k = 5003, 7
     diag = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
     cols = torch.randint(0, dim, (dim, k), generator=g, device=cuda,
                          dtype=torch.int32)
     vals = torch.randn(dim, k, generator=g, device=cuda, dtype=dtype)
     x = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
+    ref = kernels.ell_spmv_ref(diag, cols, vals, x)
+    if layout == "k_major":
+        cols, vals = cols.T.contiguous().T, vals.T.contiguous().T
     before = kernels.LAUNCHES["ell_spmv"]
     got = kernels.ell_spmv(diag, cols, vals, x)
     assert kernels.LAUNCHES["ell_spmv"] == before + 1
-    assert _rel(got, kernels.ell_spmv_ref(diag, cols, vals, x)) <= tol
+    assert _rel(got, ref) <= tol
     torch.cuda.synchronize()
 
 
@@ -108,7 +178,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         kernels.factor_matmul(x, x, out=x, accumulate=True)
     cols = torch.zeros(8, 2, device=cuda, dtype=torch.int32)
     with pytest.raises(TypeError):
-        kernels.ell_spmv(z[:, 0], cols, z[:, :2], z[:, 0])
+        kernels.ell_spmv(z[:, 0].contiguous(), cols,
+                         z[:, :2].contiguous(), z[:, 0].contiguous())
     v = torch.zeros(16, 2, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.ell_spmv(v[::2, 0], cols, v[::2], v[::2, 1])

@@ -102,6 +102,30 @@ def test_hamiltonian_from_numpy_reproduces_matvec(name):
                                    expect, rtol=0, atol=1e-12)
 
 
+def test_ell_part_is_stored_k_major():
+    """The generic ELL tensors keep the JAX package's (dim, K) shape and
+    values but lie K-major, strides (1, dim), from the model and from
+    ``hamiltonian_from_numpy`` alike, with the JAX Hamiltonian's dense
+    matrix and matvec."""
+    ham, jham = _both("super6")
+    ref = _jax_arrays(jham)
+    rebuilt = hamiltonian_from_numpy(**ref, device="cpu",
+                                     dtype=torch.float64)
+    dim, k = ref["ell_cols"].shape
+    x = _x(dim, seed=5)
+    expect = np.asarray(jham.matvec(jnp.asarray(x)))
+    for h in (ham, rebuilt):
+        for t, name in ((h.ell.cols, "ell_cols"), (h.ell.vals, "ell_vals")):
+            assert t.shape == (dim, k) and t.stride() == (1, dim)
+            assert t.T.is_contiguous()
+            np.testing.assert_array_equal(t.numpy(), ref[name])
+        assert h.ell.cols.dtype == torch.int32
+        np.testing.assert_allclose(h.to_dense(), jham.to_dense(),
+                                   rtol=0, atol=1e-13)
+        np.testing.assert_allclose(h.matvec(torch.from_numpy(x)).numpy(),
+                                   expect, rtol=0, atol=1e-12)
+
+
 def test_densify_respects_max_bytes():
     ham, _ = _both("super6")
     assert ham.densify_factors(max_bytes=0) is ham
