@@ -1,7 +1,9 @@
 """lanczosplusplus_tpu_torch: exact diagonalization on PyTorch and CUDA.
 
 The port of ``lanczosplusplus_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
-H100, slice 1: the Hubbard-family ground state, ``lanczos -f input.inp``.
+H100, so far for the Hubbard family: the ground state (``lanczos -f
+input.inp``), continued-fraction spectral functions (``-g``) and the
+static observables (``-c``, ``-m``, ``-M``, ``-r``).
 Host code (bases, inputs, geometry, model term lists) is numpy; sector
 Hamiltonians and the Lanczos recurrence are tensors on an explicit
 ``torch.device``; the two hot-path kernels, the dense-factor GEMM and the

@@ -1,20 +1,27 @@
-"""The `lanczos` command line, ground-state part.
+"""The `lanczos` command line.
 
 Counterpart of ``lanczosplusplus_tpu/cli/lanczos_main.py`` (reference:
-src/lanczos.cpp:111-174 getopt loop; src/Engine/LanczosDriver1.h:47-214):
+src/lanczos.cpp:111-174 getopt loop, and the measurement loop mainLoop3
+it calls):
 
   python -m lanczosplusplus_tpu_torch.cli.lanczos_main -f input.inp
+         [-g op] [-c op] [-m spec] [-M spec] [-s "s1,s2"] [-r site]
          [-p precision] [--device cuda|cpu]
 
-It prints ``Energy=`` and one ``E[i]=`` line per computed state, and
-runs the printmatrix/dumpmatrix oracle.  The measurement flags of the
-JAX CLI are accepted and raise ``NotImplementedError`` naming the ROADMAP
-item that ports them, before any work is done.
+It prints ``Energy=`` and one ``E[i]=`` line per computed state, runs the
+printmatrix/dumpmatrix oracle, and then the measurements: ``-m`` brakets,
+``-g`` spectral functions written as ``<input><counter>.comb`` continued
+fractions (site pairs from ComputeDensityOfStates=, TSPSites, TSPCenter=,
+DoAllPairs=), ``-c`` two-point correlators, ``-r`` the reduced density
+matrix and ``-M`` many-point correlators.  ``--kpm`` and ``--ftlm-dos``
+are accepted and raise ``NotImplementedError`` naming the ROADMAP item
+that ports them, before any work is done.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -23,6 +30,9 @@ import torch
 from lanczosplusplus_tpu_torch import __version__
 from lanczosplusplus_tpu_torch.config import Config
 from lanczosplusplus_tpu_torch.engine import Engine
+from lanczosplusplus_tpu_torch.engine.rdm import ReducedDensityMatrix
+from lanczosplusplus_tpu_torch.engine.spectral import (
+    ContinuedFractionCollection)
 from lanczosplusplus_tpu_torch.geometry import Geometry
 from lanczosplusplus_tpu_torch.io_.input_check import validate_input
 from lanczosplusplus_tpu_torch.io_.input_parser import read_input
@@ -30,11 +40,6 @@ from lanczosplusplus_tpu_torch.models import build_model
 
 # flag dest -> (flag, ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "gf": ("-g", "item 7 (spectral slice)"),
-    "cicj": ("-c", "item 8 (static observables)"),
-    "measure": ("-m", "item 8 (static observables)"),
-    "extended_static": ("-M", "item 8 (static observables)"),
-    "split": ("-r", "item 8 (static observables: RDM)"),
     "kpm": ("--kpm", "item 13 (estimators)"),
     "ftlm_beta": ("--ftlm-dos", "item 13 (estimators)"),
 }
@@ -47,19 +52,96 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda; no card "
                         "is an error, not a CPU run)")
-    p.add_argument("-g", dest="gf", action="append")
-    p.add_argument("-c", dest="cicj", action="append")
-    p.add_argument("-m", dest="measure", action="append")
-    p.add_argument("-M", dest="extended_static")
-    p.add_argument("-r", dest="split", type=int)
+    p.add_argument("-g", dest="gf", action="append", default=[],
+                   help="spectral-function operator (c, sz, splus, ...)")
+    p.add_argument("-c", dest="cicj", action="append", default=[],
+                   help="two-point correlation operator")
+    p.add_argument("-m", dest="measure", action="append", default=[],
+                   help="bra|op[site];...|ket measurement spec")
+    p.add_argument("-M", dest="extended_static", default="",
+                   help="many-point spec op?site?spin[?orb];...")
+    p.add_argument("-s", dest="spins", default="0,0")
+    p.add_argument("-r", dest="split", type=int, default=-1,
+                   help="reduced density matrix split site")
     p.add_argument("--kpm", action="store_true", default=None)
     p.add_argument("--ftlm-dos", dest="ftlm_beta", type=float)
     p.add_argument("-V", "--version", action="version", version=__version__)
     return p
 
 
+def max_orbitals(model, nsites) -> int:
+    return max(model.orbitals(s) for s in range(nsites))
+
+
+def _spectral_pairs(inp, n):
+    """(site pairs, TSPCenter or None) the input asks spectral functions
+    for (reference: mainLoop3's pair set-up)."""
+    pairs = []
+    if inp.integer("ComputeDensityOfStates", default=0) > 0:
+        pairs += [(i, i) for i in range(n)]
+    if inp.has("TSPSites"):
+        sites = [int(x) for x in inp.vector("TSPSites")]
+        if len(sites) == 1:
+            sites.append(sites[0])
+        pairs.append((sites[0], sites[1]))
+    center = None
+    if inp.has("TSPCenter"):
+        center = inp.integer("TSPCenter")
+        print(f"TSPCenter={center}")
+        pairs += [(center, i) for i in range(n)]
+    if inp.integer("DoAllPairs", default=0) > 0:
+        if center is not None:
+            raise SystemExit("cannot have both TSPCenter and DoAllPairs")
+        pairs += [(i, j) for i in range(n) for j in range(n)]
+    return pairs, center
+
+
+def _write_spectral(engine, gf_ops, pair_of_sites, center, spins, norb,
+                    filename, batch_gf):
+    """Run every -g operator over the site pairs and write one
+    ``<filename><counter>.comb`` per pair.  With more than one pair all
+    (pair, type) Lanczos decompositions of one destination sector run as a
+    single batched recurrence (``Engine.spectral_functions_batched``);
+    SolverOptions=serialgf restores the reference's one run per pair
+    (mainLoop3's loop over pairs)."""
+    for op_name in gf_ops:
+        batched = {}
+        if batch_gf and spins[0] == spins[1]:
+            for orb1 in range(norb):
+                for orb2 in range(orb1, norb):
+                    batched[(orb1, orb2)] = engine.spectral_functions_batched(
+                        op_name, pair_of_sites, spin=spins[0],
+                        orbs=(orb1, orb2))
+        for counter, (site0, site1) in enumerate(pair_of_sites):
+            print(f"#gf(i={site0}, j={site1})")
+            all_cf = ContinuedFractionCollection()
+            labels = []
+            for orb1 in range(norb):
+                for orb2 in range(orb1, norb):
+                    if spins[0] != spins[1]:
+                        raise SystemExit(
+                            "spectralFunction: off-diagonal spin "
+                            "unsupported")
+                    if (orb1, orb2) in batched:
+                        coll, lab = batched[(orb1, orb2)][counter]
+                    else:
+                        coll, lab = engine.spectral_function(
+                            op_name, site0, site1, spin=spins[0],
+                            orbs=(orb1, orb2))
+                    all_cf.items += coll.items
+                    labels += lab
+            out = f"{filename}{counter}.comb"
+            with open(out, "w") as f:
+                f.write(f"Site0={site0}\nSite1={site1}\n")
+                if center is not None:
+                    f.write(f"TSPCenter={center}\n")
+                all_cf.write(f, index_to_cf=labels)
+            print(f"lanczos_main: Written to {out}", file=sys.stderr)
+
+
 def run(argv=None):
-    """Parse, validate, diagonalize and print; returns the Engine."""
+    """Parse, validate, diagonalize, measure and print; returns the
+    Engine."""
     args = _parser().parse_args(argv)
     for dest, (flag, item) in _NOT_PORTED.items():
         if getattr(args, dest) is not None:
@@ -69,10 +151,6 @@ def run(argv=None):
     np.set_printoptions(precision=args.precision)
     inp = read_input(args.input)
     validate_input(inp)
-    if inp.integer("ComputeDensityOfStates", default=0) > 0:
-        raise NotImplementedError(
-            "ComputeDensityOfStates is not ported yet (ROADMAP Queue 1 "
-            "item 7, spectral slice)")
     config = Config.from_input(inp, device=args.device)
     geometry = Geometry(inp)
     model = build_model(inp, geometry)
@@ -103,6 +181,61 @@ def run(argv=None):
         v = engine.eigenvector(i)
         norm = torch.vdot(v, v).real.item()
         print(f"E[{i}]={engine.energies(i):.{prec}g} norm={norm:.{prec}g}")
+
+    spins = tuple(int(x) for x in args.spins.split(","))
+    if len(spins) == 1:
+        spins = (spins[0], spins[0])
+
+    for spec in args.measure:
+        for token in spec.split(","):
+            val = engine.measure(token)
+            parts = token.split("|")
+            print(f"{parts[0]}|{parts[1]}|{parts[2]} = {val}")
+
+    n = geometry.number_of_sites()
+    gf_ops = list(args.gf)
+    if inp.integer("ComputeDensityOfStates", default=0) > 0:
+        gf_ops.append("c")
+    pair_of_sites, center = _spectral_pairs(inp, n)
+    if gf_ops and not pair_of_sites:
+        print("lanczos_main: -g given but no TSPSites/TSPCenter/"
+              "DoAllPairs in the input; no spectral pairs to run",
+              file=sys.stderr)
+    norb = max_orbitals(model, n)
+    _write_spectral(engine, gf_ops, pair_of_sites, center, spins, norb,
+                    os.path.basename(args.input),
+                    len(pair_of_sites) > 1 and "serialgf" not in solver_opts)
+
+    for op_name in args.cicj:
+        for orb1 in range(norb):
+            for orb2 in range(norb):
+                mat = engine.two_point(op_name, spin=spins,
+                                       orbs=(orb1, orb2))
+                if mat is None:
+                    continue
+                print(np.array_str(np.real_if_close(mat)))
+
+    if args.split >= 0:
+        rdm = ReducedDensityMatrix(engine.basis, engine.eigenvector(0),
+                                   args.split)
+        rdm.print_all(sys.stdout)
+        print(f"EntanglementEntropy={rdm.entanglement_entropy():.10g}")
+
+    if args.extended_static:
+        for spec in args.extended_static.split(","):
+            tokens = spec.split(";")
+            sites, spins_l, orbs, names = [], [], [], []
+            for t in tokens:
+                f = t.split("?")
+                if len(f) < 3:
+                    raise SystemExit("-M option malformed")
+                names.append(f[0])
+                sites.append(int(f[1]))
+                spins_l.append(int(f[2]))
+                orbs.append(int(f[3]) if len(f) == 4 else 0)
+            val = engine.many_point(sites, names, spins_l, orbs)
+            print(f"<gs|{spec}|gs>={val}")
+
     return engine
 
 

@@ -1,10 +1,12 @@
 """Sector Hamiltonians as tensors: diagonal, generic ELL, Kronecker factors.
 
 Counterpart of ``lanczosplusplus_tpu/core/sparse.py``, the parts on the
-ground-state path: ``coo_to_ell``, ``one_spin_ell``, ``EllPart``,
-``SpinFactorizedPart`` in its gather and dense forms, and ``Hamiltonian``
-with ``matvec``, ``densify_factors`` and ``to_dense``.  The reference
-stores each sector Hamiltonian as a CRS matrix (reference:
+ground-state and spectral paths: ``coo_to_ell``, ``one_spin_ell``,
+``EllPart``, ``SpinFactorizedPart`` in its gather and dense forms,
+``Hamiltonian`` with ``matvec``, the batched ``matmat_t`` and ``matmat``,
+``densify_factors``, ``flatten_to_ell``, ``padded`` and ``to_dense``, and
+``flatten_to_ell_host``, ``apply_block_t`` and ``ell_spgemm``.  The
+reference stores each sector Hamiltonian as a CRS matrix (reference:
 src/Engine/DefaultSymmetry.h:54-57, src/Models/HubbardOneOrbital/
 HubbardHelper.h:75-103).
 
@@ -16,10 +18,10 @@ products I (x) A_up and A_dn (x) I, applied to the state viewed as the
 one-spin ELL maps (the CPU form), or, after ``densify_factors``, as two
 GEMMs Y += X . A_up^T and Y += A_dn . X through the hand-written
 ``factor_matmul`` kernel (the accelerator form).  The diagonal plus the
-generic ELL part go through the ``ell_spmv`` kernel.  A ``Hamiltonian``'s
-generic ELL tensors are stored K-major: (K, dim) contiguous storage seen
-as (dim, K) through a transposed view, so that the kernel's one thread
-per row reads neighbouring addresses for each k.
+generic ELL part go through the ``ell_spmv`` kernel.  A batch of states
+is a batch-major (R, dim) block, viewed as (R, size_down, size_up): the
+up GEMM folds (R, size_down) into its rows, the dn GEMM and the ELL
+kernel take the batch in one launch each (``matmat_t``).
 """
 
 from __future__ import annotations
@@ -110,11 +112,9 @@ def one_spin_ell(words: np.ndarray, rank_fn, bonds, dtype) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class EllPart:
-    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]].
-    ``hamiltonian_from_numpy`` stores both tensors K-major, strides
-    (1, dim)."""
-    cols: torch.Tensor  # (dim, K) int32
-    vals: torch.Tensor  # (dim, K)
+    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]]."""
+    cols: torch.Tensor  # (dim, K) int32, contiguous
+    vals: torch.Tensor  # (dim, K), contiguous
 
 
 def _dense_from_ell(cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -143,30 +143,35 @@ class SpinFactorizedPart:
     up_dense: torch.Tensor | None = None  # (size_up, size_up)
     dn_dense: torch.Tensor | None = None  # (size_down, size_down)
 
-    def apply_(self, x2d: torch.Tensor, y2d: torch.Tensor) -> None:
-        """y2d += (I (x) A_up + A_dn (x) I) x2d, in place on y2d.  On CUDA
-        every factor must be dense: the gather form has no kernel on the
-        card yet, so it raises there."""
-        if x2d.is_cuda and ((self.up_cols is not None and
-                             self.up_dense is None) or
-                            (self.dn_cols is not None and
-                             self.dn_dense is None)):
+    def apply_(self, x: torch.Tensor, y: torch.Tensor) -> None:
+        """y += (I (x) A_up + A_dn (x) I) x, in place on y, for one state
+        viewed as (size_down, size_up) or a block of them viewed as
+        (R, size_down, size_up).  On CUDA every factor must be dense: the
+        gather form has no kernel on the card yet, so it raises there.
+        A block takes two launches: the up product with (R, size_down)
+        folded into its rows, the dn product batched over transposed
+        views."""
+        if x.is_cuda and ((self.up_cols is not None and
+                           self.up_dense is None) or
+                          (self.dn_cols is not None and
+                           self.dn_dense is None)):
             raise NotImplementedError(GATHER_ON_CUDA)
         if self.up_dense is not None:
-            # y[d, u] += sum_c x[d, c] A_up[u, c]
-            kernels.factor_matmul(x2d, self.up_dense, out=y2d,
-                                  accumulate=True)
+            # y[b, d, u] += sum_c x[b, d, c] A_up[u, c]
+            szu = x.shape[-1]
+            kernels.factor_matmul(x.view(-1, szu), self.up_dense,
+                                  out=y.view(-1, szu), accumulate=True)
         elif self.up_cols is not None:
             for k in range(self.up_cols.shape[1]):
-                y2d += self.up_vals[:, k] * x2d[:, self.up_cols[:, k]]
+                y += self.up_vals[:, k] * x[..., self.up_cols[:, k]]
         if self.dn_dense is not None:
-            # y[d, u] += sum_c A_dn[d, c] x[c, u], as y^T += x^T . A_dn^T
-            # on transposed views
-            kernels.factor_matmul(x2d.T, self.dn_dense, out=y2d.T,
-                                  accumulate=True)
+            # y[b, d, u] += sum_c A_dn[d, c] x[b, c, u], as
+            # y[b]^T += x[b]^T . A_dn^T on transposed views
+            kernels.factor_matmul(x.transpose(-1, -2), self.dn_dense,
+                                  out=y.transpose(-1, -2), accumulate=True)
         elif self.dn_cols is not None:
             for k in range(self.dn_cols.shape[1]):
-                y2d += self.dn_vals[:, k, None] * x2d[self.dn_cols[:, k], :]
+                y += self.dn_vals[:, k, None] * x[..., self.dn_cols[:, k], :]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,14 +204,28 @@ class Hamiltonian:
         return self.diag.dtype
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """H x for one contiguous (dim,) state."""
+        return self.matmat_t(x)
+
+    def matmat_t(self, xk: torch.Tensor) -> torch.Tensor:
+        """Batch-major SpMM: H applied to every row of the contiguous
+        block xk (R, dim) (or to one (dim,) state).  The diagonal and the
+        generic ELL part are one batched ``ell_spmv`` launch, each dense
+        one-spin factor one ``factor_matmul`` launch over the whole
+        block; batched recurrences keep their states in this layout."""
         if self.ell is not None:
-            y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals, x)
+            y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals, xk)
         else:
-            y = self.diag * x
+            y = self.diag * xk
         if self.factorized is not None:
-            self.factorized.apply_(x.view(self.spin_shape),
-                                   y.view(self.spin_shape))
+            shape = (*xk.shape[:-1], *self.spin_shape)
+            self.factorized.apply_(xk.view(shape), y.view(shape))
         return y
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        """H applied to the columns of x (dim, k): ``matmat_t`` on a
+        batch-major copy, seen transposed again."""
+        return self.matmat_t(x.T.contiguous()).T
 
     def densify_factors(self, max_bytes: int | None = None) -> "Hamiltonian":
         """Materialize the Kronecker one-spin factors as dense matrices
@@ -216,9 +235,10 @@ class Hamiltonian:
         factor too large stays in gather form; on CUDA it raises
         ``NotImplementedError``, since the gather form has no kernel on
         the card.  The ELL maps are kept alongside, so ``to_dense`` keeps
-        working."""
+        working.  A Hamiltonian that is densified already comes back as it
+        is."""
         f = self.factorized
-        if f is None:
+        if f is None or f.up_dense is not None or f.dn_dense is not None:
             return self
         on_cuda = self.device.type == "cuda"
         if max_bytes is None:
@@ -247,6 +267,56 @@ class Hamiltonian:
             self, factorized=dataclasses.replace(f, up_dense=up_d,
                                                  dn_dense=dn_d))
 
+    def flatten_to_ell(self) -> "Hamiltonian":
+        """Merge the Kronecker one-spin parts into the generic ELL block
+        (one (cols, vals) layout for consumers that want a single one);
+        the Kronecker indices expand by broadcasting."""
+        f = self.factorized
+        if f is None:
+            return self
+        szd, szu = self.spin_shape
+        dim = szd * szu
+        blocks_c, blocks_v = [], []
+        if f.up_cols is not None:
+            ku = f.up_cols.shape[1]
+            base = (torch.arange(szd, dtype=torch.int32, device=self.device)
+                    * szu)[:, None, None]
+            blocks_c.append((f.up_cols[None] + base).reshape(dim, ku))
+            blocks_v.append(f.up_vals[None].expand(szd, szu, ku)
+                            .reshape(dim, ku))
+        if f.dn_cols is not None:
+            kd = f.dn_cols.shape[1]
+            iu = torch.arange(szu, dtype=torch.int32,
+                              device=self.device)[None, :, None]
+            blocks_c.append((f.dn_cols[:, None, :] * szu + iu)
+                            .reshape(dim, kd))
+            blocks_v.append(f.dn_vals[:, None, :].expand(szd, szu, kd)
+                            .reshape(dim, kd))
+        if self.ell is not None:
+            blocks_c.append(self.ell.cols)
+            blocks_v.append(self.ell.vals)
+        ell = EllPart(cols=torch.cat(blocks_c, dim=1).to(torch.int32),
+                      vals=torch.cat(blocks_v, dim=1))
+        return Hamiltonian(diag=self.diag, ell=ell, factorized=None,
+                           spin_shape=None)
+
+    def padded(self, multiple: int) -> "Hamiltonian":
+        """Rows padded to a multiple (for even partitions), in flattened
+        ELL form; padding rows are zero with their own column."""
+        h = self.flatten_to_ell()
+        dim = h.dim
+        rem = (-dim) % multiple
+        if rem == 0:
+            return h
+        k = h.ell.cols.shape[1]
+        pad_cols = torch.arange(dim, dim + rem, dtype=torch.int32,
+                                device=self.device)[:, None].expand(rem, k)
+        cols = torch.cat([h.ell.cols, pad_cols], dim=0)
+        vals = torch.cat([h.ell.vals, h.ell.vals.new_zeros((rem, k))], dim=0)
+        diag = torch.cat([h.diag, h.diag.new_zeros((rem,))])
+        return Hamiltonian(diag=diag, ell=EllPart(cols=cols, vals=vals),
+                           factorized=None, spin_shape=None)
+
     def to_dense(self) -> np.ndarray:
         """Dense matrix for oracle tests (reference dumpmatrix path,
         src/Engine/DefaultSymmetry.h:61-94)."""
@@ -273,32 +343,97 @@ class Hamiltonian:
         return m
 
 
+def flatten_to_ell_host(ham: Hamiltonian, multiple: int = 1):
+    """Padded ELL flatten as host arrays (diag, cols, vals), rows padded
+    to `multiple` with zero rows pointing at themselves: the layout of
+    ``Hamiltonian.padded(multiple)``, built with numpy broadcasts for
+    consumers that plan on the host."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    dim = ham.dim
+    blocks_c, blocks_v = [], []
+    if ham.factorized is not None:
+        szd, szu = ham.spin_shape
+        f = ham.factorized
+        if f.up_cols is not None:
+            cu = host(f.up_cols).astype(np.int64)
+            vu = host(f.up_vals)
+            ku = cu.shape[1]
+            base = (np.arange(szd, dtype=np.int64) * szu)[:, None, None]
+            blocks_c.append(np.ascontiguousarray(
+                np.broadcast_to(cu[None], (szd, szu, ku)) + base
+            ).reshape(dim, ku))
+            blocks_v.append(np.ascontiguousarray(np.broadcast_to(
+                vu[None], (szd, szu, ku))).reshape(dim, ku))
+        if f.dn_cols is not None:
+            cd = host(f.dn_cols).astype(np.int64)
+            vd = host(f.dn_vals)
+            kd = cd.shape[1]
+            iu = np.arange(szu, dtype=np.int64)[None, :, None]
+            blocks_c.append(np.ascontiguousarray(
+                cd[:, None, :] * szu + iu).reshape(dim, kd))
+            blocks_v.append(np.ascontiguousarray(np.broadcast_to(
+                vd[:, None, :], (szd, szu, kd))).reshape(dim, kd))
+    if ham.ell is not None:
+        blocks_c.append(host(ham.ell.cols).astype(np.int64))
+        blocks_v.append(host(ham.ell.vals))
+    cols = np.concatenate(blocks_c, axis=1)
+    vals = np.concatenate(blocks_v, axis=1)
+    diag = host(ham.diag)
+    rem = (-dim) % multiple
+    if rem:
+        k = cols.shape[1]
+        pad_cols = np.broadcast_to(
+            np.arange(dim, dim + rem, dtype=np.int64)[:, None], (rem, k))
+        cols = np.concatenate([cols, pad_cols], axis=0)
+        vals = np.concatenate(
+            [vals, np.zeros((rem, k), vals.dtype)], axis=0)
+        diag = np.concatenate([diag, np.zeros((rem,), diag.dtype)])
+    return diag, cols.astype(np.int32), vals
+
+
+def apply_block_t(ham, xk: torch.Tensor) -> torch.Tensor:
+    """Apply a Hamiltonian-like object to a batch-major (R, dim) block:
+    its ``matmat_t`` when it has one, else its ``matvec`` row by row."""
+    if hasattr(ham, "matmat_t"):
+        return ham.matmat_t(xk)
+    return torch.stack([ham.matvec(row) for row in xk])
+
+
+def ell_spgemm(a_cols: torch.Tensor, a_vals: torch.Tensor,
+               b_cols: torch.Tensor, b_vals: torch.Tensor):
+    """SpGEMM of bounded-row ELL operands, C = A @ B, as an ELL with
+    duplicates of width Ka * Kb: two gathers and one elementwise product
+    (duplicates are legal in this layout: every consumer sums over K)."""
+    n, ka = a_cols.shape
+    kb = b_cols.shape[1]
+    mid = a_cols.long()                                  # (n, Ka)
+    c_cols = b_cols[mid].reshape(n, ka * kb)             # rows of B
+    c_vals = (a_vals[:, :, None] * b_vals[mid]).reshape(n, ka * kb)
+    return c_cols, c_vals
+
+
 def hamiltonian_from_numpy(diag, ell_cols, ell_vals, up_cols, up_vals,
                            dn_cols, dn_vals, spin_shape, device,
                            dtype: torch.dtype) -> Hamiltonian:
     """A ``Hamiltonian`` on `device` from host arrays in the JAX package's
     layout (``np.asarray`` of its ``Hamiltonian`` fields).  Any of the ELL
-    or one-spin pairs may be None; indices become int32, values `dtype`.
-    The generic ELL pair keeps its (dim, K) shape but is laid out K-major
-    on every device: the host array is transposed once, before the
-    transfer, and only that layout is kept."""
+    or one-spin pairs may be None; indices become int32, values `dtype`,
+    every tensor contiguous."""
     device = torch.device(device)
 
     def idx(a):
         return None if a is None else torch.tensor(
-            np.asarray(a, dtype=np.int32), device=device)
+            np.ascontiguousarray(a, dtype=np.int32), device=device)
 
     def val(a):
         return None if a is None else torch.tensor(
-            np.asarray(a), device=device).to(dtype)
-
-    def k_major(a):
-        return np.ascontiguousarray(np.asarray(a).T)
+            np.ascontiguousarray(a), device=device).to(dtype)
 
     ell = None
     if ell_cols is not None:
-        ell = EllPart(cols=idx(k_major(ell_cols)).T,
-                      vals=val(k_major(ell_vals)).T)
+        ell = EllPart(cols=idx(ell_cols), vals=val(ell_vals))
     fact = None
     if up_cols is not None or dn_cols is not None:
         fact = SpinFactorizedPart(up_cols=idx(up_cols), up_vals=val(up_vals),

@@ -58,6 +58,15 @@
 //
 // `accumulate` adds the product into Y so the diagonal term and both
 // factor applies can write one output.
+//
+// Batch.  Y[b] (+)= X[b] . A^T for b < batch with one shared factor A: X
+// and Y carry a batch stride besides their two strides, so the batched dn
+// apply of a block of states runs on transposed views of every state at
+// once.  The float64 kernel folds the batch into its tile index (a block's
+// number is b * tiles + tile), so one launch fills the card where a single
+// state's tiles would not; the float32 kernel takes it as blockIdx.z.  A
+// plain 2-D product is the case batch = 1.  16-byte copies then also need
+// an even batch stride.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -251,12 +260,12 @@ template <int BM, int BN, bool XK, bool AK>
 __global__ void __launch_bounds__(
     (DmmaConfig<BM, BN, XK, AK>::NT),
     (DmmaConfig<BM, BN, XK, AK>::MIN_BLOCKS))
-factor_matmul_dmma_kernel(const double* __restrict__ X, long long xs0,
-                          long long xs1, const double* __restrict__ A,
-                          long long as0, long long as1,
-                          double* __restrict__ Y, long long ys0,
-                          long long ys1, int m, int n, int k, int accumulate,
-                          int plan) {
+factor_matmul_dmma_kernel(const double* __restrict__ X, long long xsb,
+                          long long xs0, long long xs1,
+                          const double* __restrict__ A, long long as0,
+                          long long as1, double* __restrict__ Y,
+                          long long ysb, long long ys0, long long ys1, int m,
+                          int n, int k, int accumulate, int plan) {
   using C = DmmaConfig<BM, BN, XK, AK>;
   extern __shared__ __align__(16) double smem[];
 
@@ -268,8 +277,13 @@ factor_matmul_dmma_kernel(const double* __restrict__ X, long long xs0,
   const int wm0 = (warp % C::WARPS_M) * WM;
   const int wn0 = (warp / C::WARPS_M) * WN;
   const int tiles_n = (n + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
+  const int tiles = tiles_n * ((m + BM - 1) / BM);
+  const int b = blockIdx.x / tiles;        // batch member
+  const int tile = blockIdx.x % tiles;
+  X += b * xsb;
+  Y += b * ysb;
+  const int m0 = (tile / tiles_n) * BM;
+  const int n0 = (tile % tiles_n) * BN;
   const bool xvec = plan & PLAN_X_VEC16;
   const bool avec = plan & PLAN_A_VEC16;
   const int slices = (k + BK - 1) / BK;
@@ -372,9 +386,10 @@ factor_matmul_dmma_kernel(const double* __restrict__ X, long long xs0,
 }
 
 template <int BM, int BN, bool XK, bool AK>
-cudaError_t launch_dmma(const double* x, long long xs0, long long xs1,
-                        const double* a, long long as0, long long as1,
-                        double* y, long long ys0, long long ys1, int m, int n,
+cudaError_t launch_dmma(const double* x, long long xsb, long long xs0,
+                        long long xs1, const double* a, long long as0,
+                        long long as1, double* y, long long ysb,
+                        long long ys0, long long ys1, int batch, int m, int n,
                         int k, int accumulate, int plan, cudaStream_t stream) {
   using C = DmmaConfig<BM, BN, XK, AK>;
   auto kernel = factor_matmul_dmma_kernel<BM, BN, XK, AK>;
@@ -384,23 +399,25 @@ cudaError_t launch_dmma(const double* x, long long xs0, long long xs1,
   if (err != cudaSuccess) return err;
   const long long tiles =
       static_cast<long long>((n + BN - 1) / BN) * ((m + BM - 1) / BM);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(tiles), C::NT, C::SMEM_BYTES, stream>>>(
-      x, xs0, xs1, a, as0, as1, y, ys0, ys1, m, n, k, accumulate, plan);
+  if (tiles * batch > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(tiles * batch), C::NT, C::SMEM_BYTES,
+           stream>>>(x, xsb, xs0, xs1, a, as0, as1, y, ysb, ys0, ys1, m, n, k,
+                     accumulate, plan);
   return cudaGetLastError();
 }
 
 template <int BM, int BN>
-cudaError_t launch_dmma_layout(const double* x, long long xs0, long long xs1,
-                               const double* a, long long as0, long long as1,
-                               double* y, long long ys0, long long ys1, int m,
+cudaError_t launch_dmma_layout(const double* x, long long xsb, long long xs0,
+                               long long xs1, const double* a, long long as0,
+                               long long as1, double* y, long long ysb,
+                               long long ys0, long long ys1, int batch, int m,
                                int n, int k, int accumulate, int plan,
                                cudaStream_t stream) {
   const bool xk = plan & PLAN_X_KMAJOR, ak = plan & PLAN_A_KMAJOR;
 #define LPP_GO(XK, AK)                                                     \
   return launch_dmma<BM, BN, XK, AK>(                                      \
-      x, xs0, xs1, a, as0, as1, y, ys0, ys1, m, n, k, accumulate, plan,    \
-      stream)
+      x, xsb, xs0, xs1, a, as0, as1, y, ysb, ys0, ys1, batch, m, n, k,     \
+      accumulate, plan, stream)
   if (xk && ak) LPP_GO(true, true);
   if (xk) LPP_GO(true, false);
   if (ak) LPP_GO(false, true);
@@ -408,11 +425,13 @@ cudaError_t launch_dmma_layout(const double* x, long long xs0, long long xs1,
 #undef LPP_GO
 }
 
-// A 16-byte copy was planned for an operand that cannot take one.
-bool misplanned(const void* p, long long s0, long long s1, bool kmajor) {
+// A 16-byte copy was planned for an operand that cannot take one (`sb`:
+// its batch stride, 0 for the shared factor).
+bool misplanned(const void* p, long long sb, long long s0, long long s1,
+                bool kmajor) {
   const long long contiguous = kmajor ? s1 : s0, pitch = kmajor ? s0 : s1;
   return reinterpret_cast<uintptr_t>(p) % 16 != 0 || contiguous != 1 ||
-         pitch % 2 != 0;
+         pitch % 2 != 0 || sb % 2 != 0;
 }
 
 // ---------------------------------------------------------------------
@@ -464,9 +483,10 @@ __device__ __forceinline__ void load_tile(T (*tile)[ROWS + PAD],
 
 template <typename T>
 __global__ void __launch_bounds__(SNT)
-factor_matmul_simt_kernel(const T* __restrict__ X, long long xs0,
-                          long long xs1, const T* __restrict__ A,
-                          long long as0, long long as1, T* __restrict__ Y,
+factor_matmul_simt_kernel(const T* __restrict__ X, long long xsb,
+                          long long xs0, long long xs1,
+                          const T* __restrict__ A, long long as0,
+                          long long as1, T* __restrict__ Y, long long ysb,
                           long long ys0, long long ys1, int m, int n, int k,
                           int accumulate) {
   __shared__ T Xs[SBK][SBM + PAD];
@@ -477,6 +497,8 @@ factor_matmul_simt_kernel(const T* __restrict__ X, long long xs0,
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * SBM;
   const int n0 = blockIdx.x * SBN;
+  X += blockIdx.z * xsb;  // batch member
+  Y += blockIdx.z * ysb;
 
   T acc[TM][TN];
 #pragma unroll
@@ -519,20 +541,23 @@ factor_matmul_simt_kernel(const T* __restrict__ X, long long xs0,
 
 }  // namespace
 
-// Strides in elements.  `plan` is the bit set of ops/kernels.py
+// Strides in elements; xsb and ysb step from one batch member to the next
+// (any value when batch is 1).  `plan` is the bit set of ops/kernels.py
 // factor_matmul_plan: staging axis and copy width of X and of A, store
 // width of Y, tile size.  Returns the launch's cudaError (0 on success).
-extern "C" int lpp_factor_matmul_f64(const void* x, long long xs0,
-                                     long long xs1, const void* a,
-                                     long long as0, long long as1, void* y,
-                                     long long ys0, long long ys1, int m,
-                                     int n, int k, int accumulate, int plan,
-                                     void* stream) {
+extern "C" int lpp_factor_matmul_f64(const void* x, long long xsb,
+                                     long long xs0, long long xs1,
+                                     const void* a, long long as0,
+                                     long long as1, void* y, long long ysb,
+                                     long long ys0, long long ys1, int batch,
+                                     int m, int n, int k, int accumulate,
+                                     int plan, void* stream) {
+  if (batch == 1) xsb = ysb = 0;
   if (((plan & PLAN_X_VEC16) &&
-       misplanned(x, xs0, xs1, plan & PLAN_X_KMAJOR)) ||
+       misplanned(x, xsb, xs0, xs1, plan & PLAN_X_KMAJOR)) ||
       ((plan & PLAN_A_VEC16) &&
-       misplanned(a, as0, as1, plan & PLAN_A_KMAJOR)) ||
-      ((plan & PLAN_Y_VEC16) && misplanned(y, ys0, ys1, true)))
+       misplanned(a, 0, as0, as1, plan & PLAN_A_KMAJOR)) ||
+      ((plan & PLAN_Y_VEC16) && misplanned(y, ysb, ys0, ys1, true)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const double* xp = static_cast<const double*>(x);
   const double* ap = static_cast<const double*>(a);
@@ -540,10 +565,12 @@ extern "C" int lpp_factor_matmul_f64(const void* x, long long xs0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       (plan & PLAN_TILE128)
-          ? launch_dmma_layout<128, 128>(xp, xs0, xs1, ap, as0, as1, yp, ys0,
-                                         ys1, m, n, k, accumulate, plan, s)
-          : launch_dmma_layout<64, 64>(xp, xs0, xs1, ap, as0, as1, yp, ys0,
-                                       ys1, m, n, k, accumulate, plan, s);
+          ? launch_dmma_layout<128, 128>(xp, xsb, xs0, xs1, ap, as0, as1, yp,
+                                         ysb, ys0, ys1, batch, m, n, k,
+                                         accumulate, plan, s)
+          : launch_dmma_layout<64, 64>(xp, xsb, xs0, xs1, ap, as0, as1, yp,
+                                       ysb, ys0, ys1, batch, m, n, k,
+                                       accumulate, plan, s);
   return static_cast<int>(err);
 }
 
@@ -556,17 +583,19 @@ extern "C" int lpp_factor_matmul_f64_smem_bytes(int plan) {
   return STAGES * (x + a) * 8;
 }
 
-extern "C" int lpp_factor_matmul_f32(const void* x, long long xs0,
-                                     long long xs1, const void* a,
-                                     long long as0, long long as1, void* y,
-                                     long long ys0, long long ys1, int m,
-                                     int n, int k, int accumulate,
+extern "C" int lpp_factor_matmul_f32(const void* x, long long xsb,
+                                     long long xs0, long long xs1,
+                                     const void* a, long long as0,
+                                     long long as1, void* y, long long ysb,
+                                     long long ys0, long long ys1, int batch,
+                                     int m, int n, int k, int accumulate,
                                      void* stream) {
-  const dim3 grid((n + SBN - 1) / SBN, (m + SBM - 1) / SBM);
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid((n + SBN - 1) / SBN, (m + SBM - 1) / SBM, batch);
   factor_matmul_simt_kernel<float>
       <<<grid, SNT, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), xs0, xs1,
+          static_cast<const float*>(x), xsb, xs0, xs1,
           static_cast<const float*>(a), as0, as1, static_cast<float*>(y),
-          ys0, ys1, m, n, k, accumulate);
+          ysb, ys0, ys1, m, n, k, accumulate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """One-orbital Hubbard model family.
 
 Counterpart of ``lanczosplusplus_tpu/models/hubbard.py`` (``HubbardParams``,
-``directed_bonds`` and the ground-state half of ``HubbardModel``; its
-``operator_map`` and ``has_new_parts`` wait for the spectral slice).
+``directed_bonds`` and ``HubbardModel`` with its Hamiltonian,
+``has_new_parts`` and ``operator_map``).
 Model= strings: HubbardOneBand, HubbardOneBandExtended,
 SuperHubbardExtended, KaneMeleHubbard (reference:
 src/Models/HubbardOneOrbital/{HubbardOneOrbital.h,HubbardHelper.h}).
@@ -96,6 +96,141 @@ class HubbardModel:
 
     def orbitals(self, site) -> int:
         return 1
+
+    def has_new_parts(self, parts, op, spin, orb):
+        """Sector reached by applying op; None if outside the Hilbert
+        space (reference: HubbardOneOrbital.h:213-263)."""
+        from lanczosplusplus_tpu_torch.engine import operators as ops
+
+        nup, ndown = parts
+        nsite = self.geometry.number_of_sites()
+        if op.name in (ops.C, ops.CDAGGER):
+            c = -1 if op.name == ops.C else 1
+            new = (nup + c, ndown) if spin == 0 else (nup, ndown + c)
+            # capability extension: the reference forbids the vacuum
+            # sector (HubbardOneOrbital.h:232 newPart1==0 && newPart2==0),
+            # dropping physical spectral weight for 1-electron sectors;
+            # we allow it.
+            if min(new) < 0 or max(new) > nsite:
+                return None
+            return new
+        if op.name in (ops.SPLUS, ops.SMINUS):
+            c = 1 if op.name == ops.SPLUS else -1
+            new = (nup + c, ndown - c)
+            if min(new) < 0 or max(new) > nsite:
+                return None
+            return new
+        if op.name in (ops.SZ, ops.N, ops.NIL):
+            return parts  # diagonal in the sector
+        raise ValueError(f"hasNewParts: unsupported operator {op.name}")
+
+    def operator_map(self, op, site, spin, orb, src_basis: HubbardBasis,
+                     dst_basis: HubbardBasis):
+        """Whole-basis index map for a labeled operator: arrays
+        (tgt, amp) over the source sector, tgt = -1 where annihilated.
+
+        amp folds in getBraIndex's value and the fermion signs applied
+        by accModifiedState_ (reference: BasisHubbardLanczos.h:106-141
+        doSignGf, 157-166 doSignSpSm; Engine.h:416-458).
+        """
+        from lanczosplusplus_tpu_torch.engine import operators as ops
+
+        upw, dnw = src_basis.up.words, src_basis.down.words
+        szu_s = src_basis.up.size
+        szu_d = dst_basis.up.size
+        up_occ = bits.get_bit(upw, site)
+        dn_occ = bits.get_bit(dnw, site)
+        iu = np.arange(src_basis.up.size, dtype=np.int64)
+        idn = np.arange(src_basis.down.size, dtype=np.int64)
+
+        def outer_index(up_t, dn_t):
+            return (up_t[None, :] + dn_t[:, None] * szu_d).reshape(-1)
+
+        def outer_amp(up_a, dn_a):
+            return (up_a[None, :] * dn_a[:, None]).reshape(-1)
+
+        name = op.name
+        if name in (ops.C, ops.CDAGGER):
+            want = 1 if name == ops.C else 0
+            if spin == 0:
+                ok = up_occ == want
+                new_up = bits.flip_bit(upw, site)
+                up_t = np.where(ok, dst_basis.up.rank(new_up), -1)
+                sign = bits.parity_sign_below(upw, site)
+                tgt = outer_index(np.where(ok, up_t, 0), idn)
+                tgt = np.where((ok[None, :] * np.ones_like(idn)[:, None])
+                               .reshape(-1).astype(bool), tgt, -1)
+                amp = outer_amp(np.where(ok, sign, 0).astype(np.float64),
+                                np.ones_like(idn, dtype=np.float64))
+            else:
+                ok = dn_occ == want
+                new_dn = bits.flip_bit(dnw, site)
+                dn_t = np.where(ok, dst_basis.down.rank(new_dn), -1)
+                sign = bits.parity_sign_below(dnw, site)
+                # crossing the whole up word (reference doSignGf:
+                # parity of all up electrons)
+                up_parity = np.where(bits.popcount(upw) & 1, -1, 1)
+                tgt = outer_index(iu, np.where(ok, dn_t, 0))
+                tgt = np.where((np.ones_like(iu)[None, :] *
+                                ok[:, None]).reshape(-1).astype(bool),
+                               tgt, -1)
+                amp = outer_amp(up_parity.astype(np.float64),
+                                np.where(ok, sign, 0).astype(np.float64))
+            return tgt, amp, dst_basis.size
+
+        if name == ops.N:
+            occ = up_occ if spin == 0 else dn_occ
+            if spin == 0:
+                tgt = outer_index(np.where(occ == 1, iu, -1), idn)
+                tgt = np.where((np.asarray(occ == 1)[None, :] *
+                                np.ones_like(idn, bool)[:, None])
+                               .reshape(-1), tgt, -1)
+                amp = outer_amp(occ.astype(np.float64),
+                                np.ones_like(idn, dtype=np.float64))
+            else:
+                tgt = outer_index(iu, idn)
+                mask = (np.ones_like(iu, bool)[None, :] *
+                        np.asarray(occ == 1)[:, None]).reshape(-1)
+                tgt = np.where(mask, tgt, -1)
+                amp = outer_amp(np.ones_like(iu, dtype=np.float64),
+                                occ.astype(np.float64))
+            return tgt, amp, dst_basis.size
+
+        if name == ops.SZ:
+            # getBraIndexSz: value +1 if up occupied, -1 if down occupied,
+            # skip if both or neither (reference BasisHubbardLanczos.h:216-229).
+            # NOTE this is the reference's gf-sz convention: amplitudes
+            # are n_up - n_dn WITHOUT the physical 1/2 (the reference's
+            # own twoPoint path instead uses 0.5 n_up - 0.5 n_dn,
+            # Engine.h:537-599 — we reproduce each path's convention)
+            val = up_occ[None, :] - dn_occ[:, None]          # (szd, szu)
+            both = (up_occ[None, :] == 1) & (dn_occ[:, None] == 1)
+            val = np.where(both, 0, val)
+            tgt = outer_index(iu, idn)
+            tgt = np.where(val.reshape(-1) != 0, tgt, -1)
+            return tgt, val.reshape(-1).astype(np.float64), dst_basis.size
+
+        if name in (ops.SPLUS, ops.SMINUS):
+            # splus: up empty & down occupied -> move; sminus mirror
+            if name == ops.SPLUS:
+                ok_u = up_occ == 0
+                ok_d = dn_occ == 1
+            else:
+                ok_u = up_occ == 1
+                ok_d = dn_occ == 0
+            new_up = bits.flip_bit(upw, site)
+            new_dn = bits.flip_bit(dnw, site)
+            up_t = np.where(ok_u, dst_basis.up.rank(new_up), 0)
+            dn_t = np.where(ok_d, dst_basis.down.rank(new_dn), 0)
+            s_u = bits.parity_sign_below(upw, site)
+            s_d = bits.parity_sign_below(dnw, site)
+            mask = (ok_u[None, :] & ok_d[:, None]).reshape(-1)
+            tgt = np.where(mask, outer_index(up_t, dn_t), -1)
+            amp = np.where(mask, outer_amp(s_u.astype(np.float64),
+                                           s_d.astype(np.float64)), 0.0)
+            return tgt, amp, dst_basis.size
+
+        raise ValueError(f"operator_map: unsupported operator {name}")
 
     # -- Hamiltonian ------------------------------------------------------
 

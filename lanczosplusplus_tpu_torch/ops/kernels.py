@@ -3,12 +3,16 @@
 Counterpart of ``lanczosplusplus_tpu/ops/pallas_kernels.py``.  Two
 kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
 
-- ``factor_matmul``: ``Y (+)= X . A^T`` on strided operands, the dense
-  Kronecker hop factors of every Lanczos matvec, on the FP64 tensor cores
-  in float64 (``csrc/factor_matmul.cu``);
-- ``ell_spmv``: ``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]`` over a
-  padded ELL matrix, stored K-major for coalesced reads
+- ``factor_matmul``: ``Y[b] (+)= X[b] . A^T`` on strided operands, the
+  dense Kronecker hop factors of every Lanczos matvec and, with a batch
+  of states, of every batched step, on the FP64 tensor cores in float64
+  (``csrc/factor_matmul.cu``);
+- ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
+  over a padded ELL matrix and one vector or a batch-major block of them
   (``csrc/ell_spmv.cu``).
+
+Both take the batch in one launch; a single matrix or vector is the case
+batch = 1 of the same kernel.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version (``*_ref``), a CUDA tensor launches the kernel or
@@ -38,14 +42,16 @@ def reset_launches() -> None:
 
 
 def factor_matmul_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``factor_matmul``: ``x @ a.T``."""
+    """Plain version of ``factor_matmul``: ``x @ a.T``, for one (m, k)
+    matrix or a (batch, m, k) block against the shared factor."""
     return x @ a.T
 
 
 def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``ell_spmv``."""
-    return diag * x + (vals * x[cols]).sum(-1)
+    """Plain version of ``ell_spmv``, for one (dim,) vector or a
+    batch-major (batch, dim) block."""
+    return diag * x + (vals * x[..., cols]).sum(-1)
 
 
 def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -98,36 +104,44 @@ class MatmulPlan(NamedTuple):
                 | (self.tile == BIG_TILE) << 5)
 
 
-def _staging(ptr: int, row_stride: int, k_stride: int) -> tuple[bool, bool]:
+def _staging(ptr: int, row_stride: int, k_stride: int,
+             batch_stride: int = 0) -> tuple[bool, bool]:
     """(k-major, 16-byte copies) for an (rows, k) float64 operand at byte
     address `ptr` with strides in elements.  The operand is staged along
     its contiguous axis; 16-byte copies need that axis at stride 1, an
-    even pitch on the other and a 16-byte aligned base.  With no
-    contiguous axis the nearer one is walked, 8 bytes at a time."""
+    even pitch on the other, a 16-byte aligned base and, under a batch,
+    an even batch stride.  With no contiguous axis the nearer one is
+    walked, 8 bytes at a time."""
+    aligned = ptr % 16 == 0 and batch_stride % 2 == 0
     if k_stride == 1:
-        return True, ptr % 16 == 0 and row_stride % 2 == 0
+        return True, aligned and row_stride % 2 == 0
     if row_stride == 1:
-        return False, ptr % 16 == 0 and k_stride % 2 == 0
+        return False, aligned and k_stride % 2 == 0
     return k_stride <= row_stride, False
 
 
-def factor_matmul_plan(x_ptr: int, x_strides: tuple[int, int],
+def factor_matmul_plan(x_ptr: int, x_strides: tuple[int, ...],
                        a_ptr: int, a_strides: tuple[int, int],
-                       y_ptr: int, y_strides: tuple[int, int],
-                       m: int, n: int,
-                       sm_count: int = H100_SMS) -> MatmulPlan:
+                       y_ptr: int, y_strides: tuple[int, ...],
+                       m: int, n: int, sm_count: int = H100_SMS,
+                       batch: int = 1) -> MatmulPlan:
     """The float64 kernel's path for one product, from pointers (byte
-    addresses), strides (in elements) and shape alone.
+    addresses), strides (in elements) and shape alone.  `x_strides` and
+    `y_strides` are (row, k) pairs, or (batch, row, k) triples for a
+    batched product.
 
-    Tile rule: 128 x 128 output tiles when there is at least one for
-    every SM of the card, else 64 x 64 (four times the blocks, two of
-    which fit an SM): 3432^2 gives 729 large tiles and takes
-    them, 924^2 gives 64 and takes 225 small ones."""
-    x_kmajor, x_vec16 = _staging(x_ptr, *x_strides)
+    Tile rule: 128 x 128 output tiles when the whole batch has at least
+    one for every SM of the card, else 64 x 64 (four times the blocks,
+    two of which fit an SM): 3432^2 gives 729 large tiles and takes
+    them, 924^2 gives 64 and takes 225 small ones, a batch of 14 such
+    products gives 896 and takes the large ones."""
+    *xb, xs0, xs1 = x_strides
+    *yb, ys0, ys1 = y_strides
+    x_kmajor, x_vec16 = _staging(x_ptr, xs0, xs1, *xb)
     a_kmajor, a_vec16 = _staging(a_ptr, *a_strides)
-    y_vec16 = (y_strides[1] == 1 and y_strides[0] % 2 == 0
-               and y_ptr % 16 == 0)
-    big_tiles = -(-m // BIG_TILE) * -(-n // BIG_TILE)
+    y_vec16 = (ys1 == 1 and ys0 % 2 == 0 and y_ptr % 16 == 0
+               and all(s % 2 == 0 for s in yb))
+    big_tiles = batch * -(-m // BIG_TILE) * -(-n // BIG_TILE)
     return MatmulPlan(x_kmajor, x_vec16, a_kmajor, a_vec16, y_vec16,
                       BIG_TILE if big_tiles >= sm_count else SMALL_TILE)
 
@@ -156,17 +170,21 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     """``Y[m, n] = sum_k X[m, k] * A[n, k]``, or ``out += X . A^T`` with
     ``accumulate``.  Same semantics as the TPU ``factor_matmul``.
 
-    x: (m, k), a: (n, k), out: (m, n); any of them may be a strided view
-    (a transpose, for instance).  The kernel reads and writes through
-    each operand's strides, so ``A_dn . X`` runs as
-    ``factor_matmul(X.T, A_dn, out=Y.T, accumulate=True)`` with no copy.
+    x: (m, k), a: (n, k), out: (m, n); or a batch, x: (batch, m, k) and
+    out: (batch, m, n) against the one shared a, in a single launch.  Any
+    of them may be a strided view (a transpose, for instance).  The kernel
+    reads and writes through each operand's strides, so ``A_dn . X`` runs
+    as ``factor_matmul(X.T, A_dn, out=Y.T, accumulate=True)`` with no
+    copy, and for a block of states as
+    ``factor_matmul(X.transpose(1, 2), A_dn, out=Y.transpose(1, 2), ...)``.
     ``out`` must not overlap ``x`` or ``a``.  In float64 the kernel runs
     on the FP64 tensor cores along the path ``factor_matmul_plan`` picks.
     """
-    if x.dim() != 2 or a.dim() != 2:
-        raise ValueError(f"factor_matmul: 2-D operands expected, got "
-                         f"{tuple(x.shape)} and {tuple(a.shape)}")
-    m, k = x.shape
+    if x.dim() not in (2, 3) or a.dim() != 2:
+        raise ValueError(f"factor_matmul: x of 2 or 3 dimensions and a 2-D "
+                         f"factor expected, got {tuple(x.shape)} and "
+                         f"{tuple(a.shape)}")
+    *lead, m, k = x.shape
     n = a.shape[0]
     if a.shape[1] != k:
         raise ValueError(f"factor_matmul: contraction mismatch "
@@ -174,10 +192,10 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     if out is None:
         if accumulate:
             raise ValueError("factor_matmul: accumulate needs an out tensor")
-        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    elif tuple(out.shape) != (m, n):
+        out = torch.empty((*lead, m, n), dtype=x.dtype, device=x.device)
+    elif tuple(out.shape) != (*lead, m, n):
         raise ValueError(f"factor_matmul: out has shape {tuple(out.shape)}, "
-                         f"expected {(m, n)}")
+                         f"expected {(*lead, m, n)}")
 
     if x.device.type == "cpu":
         y = factor_matmul_ref(x, a)
@@ -192,21 +210,25 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     _check_cuda_operands("factor_matmul", x, a, out)
     if _overlaps(out, x) or _overlaps(out, a):
         raise ValueError("factor_matmul: out overlaps an input")
-    strides = (*x.stride(), *a.stride(), *out.stride())
-    if max(m, n, k) > _INT_MAX or min(strides) < 0:
+    batch = lead[0] if lead else 1
+    # (batch, row, k) strides; the batch stride of one member is never used
+    x_strides = (x.stride(0) if batch > 1 else 0, *x.stride()[-2:])
+    y_strides = (out.stride(0) if batch > 1 else 0, *out.stride()[-2:])
+    strides = (*x_strides, *a.stride(), *y_strides)
+    if max(batch, m, n, k) > _INT_MAX or min(strides) < 0:
         raise ValueError("factor_matmul: a size over int32 range or a "
                          "negative stride")
-    if m == 0 or n == 0:
+    if batch == 0 or m == 0 or n == 0:
         return out
     from lanczosplusplus_tpu_torch.ops.build import load_library
     fn = getattr(load_library(), f"lpp_factor_matmul_{_SUFFIX[x.dtype]}")
-    args = [x.data_ptr(), *x.stride(), a.data_ptr(), *a.stride(),
-            out.data_ptr(), *out.stride(), m, n, k, int(accumulate)]
+    args = [x.data_ptr(), *x_strides, a.data_ptr(), *a.stride(),
+            out.data_ptr(), *y_strides, batch, m, n, k, int(accumulate)]
     if x.dtype == torch.float64:
         args.append(factor_matmul_plan(
-            x.data_ptr(), x.stride(), a.data_ptr(), a.stride(),
-            out.data_ptr(), out.stride(), m, n,
-            _sm_count(x.device.index)).bits)
+            x.data_ptr(), x_strides, a.data_ptr(), a.stride(),
+            out.data_ptr(), y_strides, m, n,
+            _sm_count(x.device.index), batch).bits)
     with torch.cuda.device(x.device):
         err = fn(*args, _stream(x))
     LAUNCHES["factor_matmul"] += 1
@@ -216,44 +238,31 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     return out
 
 
-def _ell_strides(t: torch.Tensor) -> tuple[int, int]:
-    """(row stride, k stride) of a (dim, K) tensor in one of the two
-    layouts ``ell_spmv`` takes.  Derived from the layout, not read from
-    ``stride()``, which is arbitrary along an axis of size 1."""
-    dim, k = t.shape
-    return (k, 1) if t.is_contiguous() else (1, dim)
-
-
 def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]``.
+    """``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]``, for one vector
+    x: (dim,) or, in a single launch, for every row of a batch-major
+    block x: (batch, dim); y has x's shape.
 
     cols: (dim, K) int32 with every entry in [0, dim) (padding points at
-    its own row with value 0), vals: (dim, K), diag and x: (dim,).
-    cols and vals share one layout: K-major, a transposed view of
-    contiguous (K, dim) storage with strides (1, dim), which is what
-    ``hamiltonian_from_numpy`` stores and what the kernel reads
-    coalesced, or contiguous (dim, K).  The CUDA kernel takes float64 or
-    float32 operands of one dtype; complex values raise there.
+    its own row with value 0), vals: (dim, K), diag: (dim,); cols, vals,
+    diag and x contiguous.  The CUDA kernel takes float64 or float32
+    operands of one dtype; complex values raise there.
     """
     if cols.dim() != 2 or vals.shape != cols.shape:
         raise ValueError(f"ell_spmv: cols {tuple(cols.shape)} and vals "
                          f"{tuple(vals.shape)} must be one (dim, K) shape")
     dim, k = cols.shape
-    if diag.shape != (dim,) or x.shape != (dim,):
-        raise ValueError(f"ell_spmv: diag {tuple(diag.shape)} and x "
-                         f"{tuple(x.shape)} must be ({dim},)")
+    if diag.shape != (dim,) or x.dim() not in (1, 2) or x.shape[-1] != dim:
+        raise ValueError(f"ell_spmv: diag {tuple(diag.shape)} must be "
+                         f"({dim},) and x {tuple(x.shape)} ({dim},) or "
+                         f"(batch, {dim})")
     if cols.dtype != torch.int32:
         raise TypeError(f"ell_spmv: cols must be int32, not {cols.dtype}")
-    if cols.is_contiguous() != vals.is_contiguous() or \
-            cols.T.is_contiguous() != vals.T.is_contiguous():
+    if not (cols.is_contiguous() and vals.is_contiguous()):
         raise ValueError(f"ell_spmv: cols (strides {cols.stride()}) and "
-                         f"vals (strides {vals.stride()}) must share one "
-                         f"layout, both K-major or both contiguous")
-    if not (cols.is_contiguous() or cols.T.is_contiguous()):
-        raise ValueError(f"ell_spmv: cols and vals must be K-major (a "
-                         f"transposed contiguous (K, dim) tensor) or "
-                         f"contiguous (dim, K), not strides {cols.stride()}")
+                         f"vals (strides {vals.stride()}) must be "
+                         f"contiguous (dim, K)")
     if not (diag.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_spmv: diag and x must be contiguous")
 
@@ -265,17 +274,17 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     _check_cuda_operands("ell_spmv", diag, vals, x)
     if cols.device != x.device:
         raise ValueError(f"ell_spmv: cols on {cols.device}, x on {x.device}")
-    if dim > _INT_MAX or k > _INT_MAX:
-        raise ValueError("ell_spmv: dim or K out of int32 range")
-    y = torch.empty((dim,), dtype=x.dtype, device=x.device)
-    if dim == 0:
+    batch = x.shape[0] if x.dim() == 2 else 1
+    if max(dim, k, batch) > _INT_MAX:
+        raise ValueError("ell_spmv: dim, K or batch out of int32 range")
+    y = torch.empty_like(x)
+    if dim == 0 or batch == 0:
         return y
     from lanczosplusplus_tpu_torch.ops.build import load_library
     fn = getattr(load_library(), f"lpp_ell_spmv_{_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         err = fn(diag.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), dim, k, *_ell_strides(cols),
-                 _stream(x))
+                 x.data_ptr(), y.data_ptr(), dim, k, batch, _stream(x))
     LAUNCHES["ell_spmv"] += 1
     if err != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed, cudaError {err}")

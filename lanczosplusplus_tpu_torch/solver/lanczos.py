@@ -3,6 +3,7 @@
 Counterpart of ``lanczosplusplus_tpu/solver/lanczos.py``: ``lowest_states``
 (dense fallback, convergence check, step doubling, restarts),
 ``tridiagonalize`` with ``reorth="selective"`` and ``"full"``,
+``tridiagonalize_plain``, ``tridiagonalize_plain_batched``,
 ``lowest_states_plain``, ``trim_at_breakdown``, ``tridiag_eigh``,
 ``finish_lanczos``, ``ritz_vectors``, ``_dense_solve`` and ``SolveInfo``.
 It replaces PsimagLite::LanczosSolver as the reference uses it
@@ -176,7 +177,8 @@ def _run_selective(ham, v: torch.Tensor, V: torch.Tensor):
 class LanczosResult:
     alphas: np.ndarray   # (m,)
     betas: np.ndarray    # (m,)  beta[j] couples step j to j+1
-    V: torch.Tensor      # (steps, dim) Krylov basis (rows >= m are zero)
+    V: torch.Tensor | None  # (steps, dim) Krylov basis (rows >= m are
+    #                         zero); None from the plain recurrences
     m: int               # effective number of steps before breakdown
 
 
@@ -261,6 +263,61 @@ def _plain_pass(ham, v0: torch.Tensor, steps: int, weights=None):
         v_prev, v = v, _next_vector(w, beta)
         beta_prev = beta
     return (alphas, betas) if acc is None else acc
+
+
+def tridiagonalize_plain(ham, v0, steps: int) -> LanczosResult:
+    """(alphas, betas) from the three-term recurrence with two stored
+    vectors: enough for a continued fraction, which never needs the
+    Krylov basis."""
+    v = _normalized(ham, v0)
+    steps = int(min(steps, v.shape[0]))
+    alphas, betas, m = trim_at_breakdown(*_plain_pass(ham, v, steps))
+    return LanczosResult(alphas=alphas[:m], betas=betas[:m], V=None, m=m)
+
+
+def tridiagonalize_plain_batched(ham, v0s, steps: int) -> list[LanczosResult]:
+    """R tridiagonalizations sharing one sector Hamiltonian as one batched
+    recurrence over the rows of `v0s` (R, dim), unit-norm rows: the shape
+    of a continued-fraction fleet, where all site pairs and operator types
+    of a spectral run that land in one sector run together (reference:
+    Engine.h:460-490 runs each decomposition serially).
+
+    Every step is one ``apply_block_t`` (the batched kernels) plus
+    row-wise dots and updates; alpha and beta of all rows come back to the
+    host in one read per step.  A row whose recurrence breaks down
+    (beta = 0) carries zeros onward, so its trailing coefficients are
+    zero; when every row has, the remaining steps are not run.  Returns R
+    ``LanczosResult`` (V None), each trimmed at its own breakdown."""
+    from lanczosplusplus_tpu_torch.core.sparse import apply_block_t
+
+    V = torch.as_tensor(v0s, device=ham.device).to(ham.dtype).contiguous()
+    rows, dim = V.shape
+    steps = int(min(steps, dim))
+    V_prev = torch.zeros_like(V)
+    beta_prev = torch.zeros((rows, 1), dtype=real_dtype_of(V.dtype),
+                            device=V.device)
+    coeffs = np.zeros((steps, 2, rows))   # [step, alpha or beta, row]
+    for j in range(steps):
+        W = apply_block_t(ham, V)
+        alpha = torch.linalg.vecdot(V, W, dim=1).real[:, None]
+        W.addcmul_(V, alpha.to(W.dtype), value=-1)
+        W.addcmul_(V_prev, beta_prev.to(W.dtype), value=-1)
+        beta = torch.linalg.vector_norm(W, dim=1, keepdim=True)
+        coeffs[j] = torch.cat([alpha, beta], dim=1).T.cpu().numpy()
+        alive = coeffs[j, 1] > 0
+        if not alive.any():
+            break
+        if alive.all():
+            W.div_(beta.to(W.dtype))
+        else:
+            keep = torch.as_tensor(alive, device=W.device)[:, None]
+            W = torch.where(keep, W / torch.where(keep, beta, 1.0), 0.0)
+        V_prev, V, beta_prev = V, W, beta
+    out = []
+    for r in range(rows):
+        a, b, m = trim_at_breakdown(coeffs[:, 0, r], coeffs[:, 1, r])
+        out.append(LanczosResult(alphas=a[:m], betas=b[:m], V=None, m=m))
+    return out
 
 
 def lowest_states_plain(ham, num_states: int = 1, seed: int = 7239443,

@@ -4,7 +4,7 @@ on one GPU.
 
 Run from the repository root, with one CUDA card:
 
-    python3 profile_step.py [--trace-dir DIR]
+    python3 profile_step.py [--spectral] [--trace-dir DIR]
 
 It builds the half-filled 14-site periodic HubbardOneBand chain at U=4
 (dim 11 778 624, two dense 3432 x 3432 float64 one-spin factors) on the
@@ -13,6 +13,12 @@ card, then traces 40 selective-reorthogonalization Lanczos steps
 the hand-written kernels and once through their plain PyTorch versions
 (``chip_smoke.PlainOperator``), in the turns plain, kernel, kernel, plain.
 Each turn runs 5 untraced warm-up steps first.
+
+With ``--spectral`` it traces the batched step of the spectral path
+instead: the N_up = 8, N_down = 7 sector of the same chain (dim
+10 306 296, factors 3003 x 3003 and 3432 x 3432), a block of 14 random unit
+rows, 10 steps of ``solver.lanczos.tridiagonalize_plain_batched`` after 2
+warm-up steps, in the same turns.
 
 For each turn it prints the host wall time of the traced steps (ending
 in ``torch.cuda.synchronize()``), the device busy time and the device time
@@ -37,6 +43,9 @@ import torch
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 STEPS = 40
 WARMUP_STEPS = 5
+SPECTRAL_STEPS = 10
+SPECTRAL_WARMUP_STEPS = 2
+SPECTRAL_ROWS = 14
 
 
 def device_events(trace_path: str) -> list[dict]:
@@ -69,17 +78,16 @@ def by_name_ms(events: list[dict], top: int) -> dict[str, float]:
     return dict(sorted(sums.items(), key=lambda kv: -kv[1])[:top])
 
 
-def profile_turn(op, v0, trace_path: str) -> dict:
+def profile_turn(run, steps: int, warmup: int, trace_path: str) -> dict:
+    """Trace ``run(steps)`` after an untraced ``run(warmup)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lanczosplusplus_tpu_torch.solver import lanczos as lz
-
-    lz.tridiagonalize(op, v0, WARMUP_STEPS)
+    run(warmup)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        lz.tridiagonalize(op, v0, STEPS)
+        run(steps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     prof.export_chrome_trace(trace_path)
@@ -91,7 +99,7 @@ def profile_turn(op, v0, trace_path: str) -> dict:
     if not 0.0 <= idle <= 1.0:
         raise RuntimeError(f"idle share {idle} outside [0, 1]: busy "
                            f"{busy_ms} ms, wall {wall_ms} ms")
-    return dict(steps=STEPS, wall_ms=wall_ms, ms_per_step=wall_ms / STEPS,
+    return dict(steps=steps, wall_ms=wall_ms, ms_per_step=wall_ms / steps,
                 device_busy_ms=busy_ms, idle_share=idle,
                 device_events=len(events),
                 top_device_ms=by_name_ms(events, 8))
@@ -99,6 +107,8 @@ def profile_turn(op, v0, trace_path: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--spectral", action="store_true",
+                        help="trace the batched step of the spectral path")
     parser.add_argument("--trace-dir", default=None,
                         help="keep the chrome traces here")
     args = parser.parse_args()
@@ -121,23 +131,34 @@ def main() -> None:
     t = time.perf_counter()
     inp = parse_input(hubbard_chain_text(14, 4))
     model = build_model(inp, Geometry(inp))
-    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
-                            dtype=torch.float64, device=dev)
+    parts = (8, 7) if args.spectral else model.default_parts(inp)
+    ham = model.hamiltonian(model.create_basis(parts), dtype=torch.float64,
+                            device=dev)
     ham = ham.densify_factors()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     print(f"Hamiltonian build and densify: {build_s:.3f} s, dim {ham.dim}",
           flush=True)
-    v0 = lz.random_start_vector(ham.dim, SEED, torch.float64, dev)
     ops = {"kernel": ham, "plain": PlainOperator(ham)}
+    if args.spectral:
+        v0 = torch.stack([
+            lz.random_start_vector(ham.dim, SEED + r, torch.float64, dev)
+            for r in range(SPECTRAL_ROWS)])
+        steps, warmup = SPECTRAL_STEPS, SPECTRAL_WARMUP_STEPS
+        recurrence = lz.tridiagonalize_plain_batched
+    else:
+        v0 = lz.random_start_vector(ham.dim, SEED, torch.float64, dev)
+        steps, warmup = STEPS, WARMUP_STEPS
+        recurrence = lz.tridiagonalize
 
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
         for i, path in enumerate(("plain", "kernel", "kernel", "plain")):
-            r = profile_turn(ops[path], v0,
-                             os.path.join(trace_dir, f"turn{i}_{path}.json"))
+            r = profile_turn(
+                lambda n, op=ops[path]: recurrence(op, v0, n), steps, warmup,
+                os.path.join(trace_dir, f"turn{i}_{path}.json"))
             r["path"] = path
             turns.append(r)
             print(f"{path}: {r['steps']} steps, wall {r['wall_ms']:.3f} ms, "
@@ -146,7 +167,8 @@ def main() -> None:
                   f"{r['idle_share']:.4f}", flush=True)
             for name, ms in r["top_device_ms"].items():
                 print(f"  {ms:10.3f} ms  {name[:100]}", flush=True)
-    print(json.dumps({"card": smi, "build_s": build_s, "turns": turns}),
+    print(json.dumps({"card": smi, "spectral": args.spectral,
+                      "build_s": build_s, "turns": turns}),
           flush=True)
 
 

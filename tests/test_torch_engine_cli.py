@@ -1,6 +1,7 @@
 """The port's Engine and CLI: input0's energy, Engine energies held
 against the JAX Engine on the CPU in float64, and the loud refusal of
-everything slice 1 does not port."""
+everything the port does not hold yet (the measurement flags that earlier
+slices refused now run)."""
 
 import re
 
@@ -86,13 +87,34 @@ def test_engine_excited_states():
     np.testing.assert_allclose(got, dense[:3], atol=1e-9)
 
 
-@pytest.mark.parametrize("flag", [["-g", "c"], ["-c", "n"], ["-m", "gs|n0|gs"],
-                                  ["-M", "n?0?0"], ["-r", "2"], ["--kpm"],
-                                  ["--ftlm-dos", "1.0"]])
-def test_unported_flags_raise(tmp_path, flag):
+@pytest.mark.parametrize("flag", [["--kpm"], ["--ftlm-dos", "1.0"]],
+                         ids=["kpm", "ftlm-dos"])
+def test_unported_flags_raise(tmp_path, monkeypatch, capsys, flag):
+    """--kpm and --ftlm-dos raise before any work."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["-f", _write(tmp_path, INPUT0 + "TSPSites 2 0 1\n"), "--device",
+            "cpu", *flag]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        lanczos_main.run(["-f", _write(tmp_path, INPUT0), "--device", "cpu",
-                          *flag])
+        lanczos_main.run(argv)
+    assert capsys.readouterr().out == ""
+    assert not list(tmp_path.glob("*.comb"))
+
+
+@pytest.mark.parametrize("flag,expect", [
+    (["-g", "c"], "#gf(i=0, j=1)"), (["-c", "n"], "[["),
+    (["-m", "gs|n[0]|gs"], "gs|n[0]|gs = "),
+    (["-M", "n?0?0"], "<gs|n?0?0|gs>="), (["-r", "2"], "EntanglementEntropy=")],
+    ids=["g", "c", "m", "M", "r"])
+def test_measurement_flags_run(tmp_path, monkeypatch, capsys, flag, expect):
+    """The measurement flags of the spectral slice run and print; only -g
+    writes a .comb file."""
+    monkeypatch.chdir(tmp_path)
+    engine = lanczos_main.run(
+        ["-f", _write(tmp_path, INPUT0 + "TSPSites 2 0 1\n"), "--device",
+         "cpu", *flag])
+    assert abs(engine.ground_energy - E0_INPUT0) <= 1e-12
+    assert expect in capsys.readouterr().out
+    assert (tmp_path / "input.inp0.comb").exists() == (flag[0] == "-g")
 
 
 @pytest.mark.parametrize("model", ["Heisenberg", "Kitaev", "TjMultiOrb",
@@ -106,12 +128,22 @@ def test_unported_models_raise(model):
 
 
 @pytest.mark.parametrize("edit", ["UseTranslationSymmetry=1",
-                                  "SolverOptions=factored",
-                                  "ComputeDensityOfStates=1"])
-def test_unported_inputs_raise(tmp_path, edit):
+                                  "SolverOptions=factored"])
+def test_unported_inputs_raise(tmp_path, monkeypatch, edit):
+    """Symmetry sectors and factored forms raise."""
+    monkeypatch.chdir(tmp_path)
     text = INPUT0.replace("SolverOptions=none", edit)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         lanczos_main.run(["-f", _write(tmp_path, text), "--device", "cpu"])
+
+
+def test_density_of_states_input_runs(tmp_path, monkeypatch):
+    """ComputeDensityOfStates=1 writes one .comb per site."""
+    monkeypatch.chdir(tmp_path)
+    text = INPUT0.replace("SolverOptions=none", "ComputeDensityOfStates=1")
+    lanczos_main.run(["-f", _write(tmp_path, text), "--device", "cpu"])
+    assert sorted(p.name for p in tmp_path.glob("*.comb")) == \
+        [f"input.inp{i}.comb" for i in range(4)]
 
 
 def test_ainur_input_raises():
@@ -127,3 +159,14 @@ def test_cuda_without_card_raises(monkeypatch):
         Config()
     with pytest.raises(RuntimeError, match="cuda"):
         Config(device="cuda:0")
+
+
+def test_cli_measurements_without_card_raise(tmp_path, monkeypatch):
+    """The measurement flags run on the card by default too: without one
+    (and without --device cpu) the command raises and writes nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    path = _write(tmp_path, INPUT0 + "TSPSites 2 0 1\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lanczos_main.run(["-f", path, "-g", "c", "-c", "n"])
+    assert not list(tmp_path.glob("*.comb"))

@@ -39,26 +39,79 @@ def test_ell_spmv_ref_matches_pallas_fallback():
 
 @pytest.mark.parametrize("dim,k", [(500, 7), (64, 1), (33, 12)])
 def test_ell_spmv_k_major_matches_jax_and_contiguous(dim, k):
-    """The K-major view (strides (1, dim)) that the port stores gives the
-    JAX package's result and the contiguous form's, to 1e-13 relative in
-    float64 (the sums differ at most in their order)."""
+    """The port keeps one ELL layout, contiguous (dim, K): it gives the JAX
+    package's result to 1e-13 relative in float64 (the sums differ at most
+    in their order), for one vector and for every row of a batch-major
+    block, and a K-major view (strides (1, dim)) of the same entries is
+    refused before any dispatch."""
     rng = np.random.default_rng(dim + k)
     diag = rng.standard_normal(dim)
     cols = rng.integers(0, dim, size=(dim, k)).astype(np.int32)
     vals = rng.standard_normal((dim, k))
-    x = rng.standard_normal(dim)
-    expect = np.asarray(pk.ell_spmv_or_fallback(
-        jnp.asarray(diag), jnp.asarray(cols), jnp.asarray(vals),
-        jnp.asarray(x)))
+    xk = rng.standard_normal((3, dim))
+    tdiag, tcols, tvals, txk = map(torch.from_numpy, (diag, cols, vals, xk))
+    block = kernels.ell_spmv(tdiag, tcols, tvals, txk).numpy()
+    assert block.shape == (3, dim)
+    for b in range(3):
+        expect = np.asarray(pk.ell_spmv_or_fallback(
+            jnp.asarray(diag), jnp.asarray(cols), jnp.asarray(vals),
+            jnp.asarray(xk[b])))
+        got = kernels.ell_spmv(tdiag, tcols, tvals, txk[b]).numpy()
+        scale = np.abs(expect).max()
+        assert np.abs(got - expect).max() <= 1e-13 * scale
+        assert np.abs(block[b] - expect).max() <= 1e-13 * scale
     tc = torch.from_numpy(np.ascontiguousarray(cols.T)).T
     tv = torch.from_numpy(np.ascontiguousarray(vals.T)).T
-    assert tc.shape == (dim, k) and tc.T.is_contiguous()
-    got = kernels.ell_spmv(torch.from_numpy(diag), tc, tv,
-                           torch.from_numpy(x)).numpy()
-    flat = kernels.ell_spmv(*map(torch.from_numpy, (diag, cols, vals, x)))
-    scale = np.abs(expect).max()
-    assert np.abs(got - expect).max() <= 1e-13 * scale
-    assert np.abs(got - flat.numpy()).max() <= 1e-13 * scale
+    assert tc.shape == (dim, k) and torch.equal(tc, tcols)
+    if k > 1:   # with K = 1 the two layouts are one
+        with pytest.raises(ValueError, match="contiguous"):
+            kernels.ell_spmv(tdiag, tc, tv, txk[0])
+
+
+@pytest.mark.parametrize("shape", [(1, 40, 30), (5, 40, 30), (3, 1, 7)])
+def test_batched_plain_versions_match_einsum(shape):
+    """``factor_matmul_ref`` and ``ell_spmv_ref`` on a batch against
+    einsum, and a batch of one against the unbatched call."""
+    rng = np.random.default_rng(sum(shape))
+    r, m, k = shape
+    x = rng.standard_normal(shape)
+    a = rng.standard_normal((11, k))
+    got = kernels.factor_matmul_ref(torch.from_numpy(x), torch.from_numpy(a))
+    np.testing.assert_allclose(got.numpy(), np.einsum("bmk,nk->bmn", x, a),
+                               rtol=0, atol=1e-13)
+    one = kernels.factor_matmul(torch.from_numpy(x[:1]), torch.from_numpy(a))
+    np.testing.assert_array_equal(
+        one[0].numpy(),
+        kernels.factor_matmul(torch.from_numpy(x[0]),
+                              torch.from_numpy(a)).numpy())
+    dim = m * k
+    diag = rng.standard_normal(dim)
+    cols = rng.integers(0, dim, size=(dim, 4)).astype(np.int32)
+    vals = rng.standard_normal((dim, 4))
+    xk = x.reshape(r, dim)
+    args = tuple(map(torch.from_numpy, (diag, cols, vals)))
+    got = kernels.ell_spmv_ref(*args, torch.from_numpy(xk)).numpy()
+    expect = diag * xk + np.einsum("rs,brs->br", vals, xk[:, cols])
+    np.testing.assert_allclose(got, expect, rtol=0, atol=1e-13)
+    np.testing.assert_array_equal(
+        kernels.ell_spmv(*args, torch.from_numpy(xk[:1]))[0].numpy(),
+        kernels.ell_spmv(*args, torch.from_numpy(xk[0])).numpy())
+
+
+def test_batched_factor_matmul_on_transposed_views():
+    """The batched dn apply: Y[b]^T += X[b]^T . A^T through views, no
+    copy, against einsum."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((4, 9, 7)))     # (R, szd, szu)
+    a = torch.from_numpy(rng.standard_normal((9, 9)))        # A_dn
+    y0 = torch.from_numpy(rng.standard_normal((4, 9, 7)))
+    y = y0.clone()
+    out = kernels.factor_matmul(x.transpose(1, 2), a,
+                                out=y.transpose(1, 2), accumulate=True)
+    assert out.data_ptr() == y.data_ptr()
+    np.testing.assert_allclose(
+        y.numpy(), y0.numpy() + np.einsum("dc,bcu->bdu", a.numpy(),
+                                          x.numpy()), rtol=0, atol=1e-13)
 
 
 @pytest.mark.parametrize("case,expect", [
@@ -75,6 +128,12 @@ def test_ell_spmv_k_major_matches_jax_and_contiguous(dim, k):
     ("offset1", (True, False, True, False, False, 128)),
     # no contiguous axis: the nearer one is walked, 8 bytes at a time
     ("strided", (True, False, False, False, False, 64)),
+    # 14 states of 12 sites: 14 x 64 large tiles fill the card
+    ("batch_dn924", (False, True, True, True, False, 128)),
+    # the 14-site N_up = 8 sector under a batch: odd pitch 3003
+    ("batch_dn3003", (False, False, True, True, False, 128)),
+    # an odd batch stride puts every other member 8 bytes off
+    ("batch_odd_stride", (True, False, True, True, False, 64)),
 ])
 def test_factor_matmul_plan(case, expect):
     """The float64 kernel's path is a pure function of pointers, strides
@@ -85,6 +144,15 @@ def test_factor_matmul_plan(case, expect):
         row, col = (size, 1), (1, size)
         xs = ys = row if case.startswith("up") else col
         args = (base, xs, base, row, base, ys, size, size)
+    elif case == "batch_dn924":
+        col = (924 * 924, 1, 924)
+        args = (base, col, base, (924, 1), base, col, 924, 924, 132, 14)
+    elif case == "batch_dn3003":
+        col = (3432 * 3003, 1, 3003)
+        args = (base, col, base, (3432, 1), base, col, 3003, 3432, 132, 14)
+    elif case == "batch_odd_stride":
+        args = (base, (801, 8, 1), base, (8, 1), base, (801, 8, 1), 100, 8,
+                132, 3)
     elif case == "wide257":
         args = (base, (257, 1), base, (257, 1), base, (123, 1), 300, 123)
     elif case == "offset1":
@@ -94,7 +162,7 @@ def test_factor_matmul_plan(case, expect):
         args = (base, (700, 2), base, (3, 900), base, (1400, 2), 300, 300)
     plan = kernels.factor_matmul_plan(*args)
     assert tuple(plan) == expect
-    assert kernels.factor_matmul_plan(*args, sm_count=1).tile == 128
+    assert kernels.factor_matmul_plan(*args[:8], sm_count=1).tile == 128
     assert plan.bits == sum(bit << i for i, bit in enumerate(
         (*expect[:5], expect[5] == 128)))
 
@@ -114,6 +182,24 @@ def test_factor_matmul_plan_of_real_tensors():
     assert not kernels.factor_matmul_plan(
         flat.data_ptr(), flat.stride(), a.data_ptr(), a.stride(),
         y.data_ptr(), y.stride(), 6, 6).x_vec16
+    # a block of states as the batched dn apply hands it over
+    xb = torch.zeros(5, 6, 8, dtype=torch.float64).transpose(1, 2)
+    yb = torch.zeros(5, 6, 8, dtype=torch.float64).transpose(1, 2)
+    plan = kernels.factor_matmul_plan(
+        xb.data_ptr(), xb.stride(), a.data_ptr(), a.stride(), yb.data_ptr(),
+        yb.stride(), 8, 6, batch=5)
+    assert (plan.x_kmajor, plan.x_vec16, plan.y_vec16) == (False, True, False)
+
+
+def test_tile_rule_counts_the_whole_batch():
+    """64 large tiles of one 924^2 product leave the card half empty; from
+    three such products on there is one for every SM."""
+    row = (924, 1)
+    tiles = [kernels.factor_matmul_plan(0, (924 * 924, *row), 0, row, 0,
+                                        (924 * 924, *row), 924, 924,
+                                        batch=batch).tile
+             for batch in (1, 2, 3, 14)]
+    assert tiles == [64, 64, 128, 128]
 
 
 @pytest.mark.parametrize("operand,rows,cols", [("A", 16, 4), ("B", 4, 8),
@@ -188,6 +274,13 @@ def test_cpu_dispatch_launches_nothing():
     np.testing.assert_array_equal(
         kernels.ell_spmv(diag, cols, vals, v).numpy(),
         kernels.ell_spmv_ref(diag, cols, vals, v).numpy())
+    xb = torch.randn(3, 40, 30, generator=g, dtype=torch.float64)
+    np.testing.assert_array_equal(kernels.factor_matmul(xb, a).numpy(),
+                                  kernels.factor_matmul_ref(xb, a).numpy())
+    vb = torch.randn(3, 50, generator=g, dtype=torch.float64)
+    np.testing.assert_array_equal(
+        kernels.ell_spmv(diag, cols, vals, vb).numpy(),
+        kernels.ell_spmv_ref(diag, cols, vals, vb).numpy())
     assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 0}
 
 
@@ -207,7 +300,10 @@ def test_non_cpu_device_without_kernel_raises():
 @pytest.mark.parametrize("case", ["contraction", "out_shape", "accumulate",
                                   "ell_shape", "ell_index_dtype",
                                   "ell_strides", "ell_strides_differ",
-                                  "ell_vector_strided"])
+                                  "ell_vector_strided", "ell_k_major",
+                                  "ell_block_strided", "ell_block_3d",
+                                  "ell_block_width", "batch_out_shape",
+                                  "batch_4d", "batch_factor_3d"])
 def test_wrappers_reject_bad_operands(case):
     x = torch.zeros(4, 3, dtype=torch.float64)
     with pytest.raises((ValueError, TypeError)):
@@ -235,10 +331,31 @@ def test_wrappers_reject_bad_operands(case):
             kernels.ell_spmv(torch.zeros(4),
                              torch.zeros(2, 4, dtype=torch.int32).T,
                              torch.zeros(4, 2), torch.zeros(4))
-        else:
+        elif case == "ell_vector_strided":
             kernels.ell_spmv(torch.zeros(8)[::2],
                              torch.zeros(4, 2, dtype=torch.int32),
                              torch.zeros(4, 2), torch.zeros(4))
+        elif case == "ell_k_major":
+            kernels.ell_spmv(torch.zeros(4),
+                             torch.zeros(2, 4, dtype=torch.int32).T,
+                             torch.zeros(2, 4).T, torch.zeros(4))
+        elif case.startswith("ell_block"):
+            block = {"ell_block_strided": torch.zeros(4, 3).T,
+                     "ell_block_3d": torch.zeros(2, 3, 4),
+                     "ell_block_width": torch.zeros(3, 5)}[case]
+            kernels.ell_spmv(torch.zeros(4),
+                             torch.zeros(4, 2, dtype=torch.int32),
+                             torch.zeros(4, 2), block)
+        elif case == "batch_out_shape":
+            kernels.factor_matmul(torch.zeros(2, 4, 3, dtype=torch.float64),
+                                  torch.zeros(5, 3, dtype=torch.float64),
+                                  out=torch.zeros(4, 5, dtype=torch.float64))
+        elif case == "batch_4d":
+            kernels.factor_matmul(torch.zeros(2, 2, 4, 3, dtype=torch.float64),
+                                  torch.zeros(5, 3, dtype=torch.float64))
+        else:
+            kernels.factor_matmul(torch.zeros(2, 4, 3, dtype=torch.float64),
+                                  torch.zeros(2, 5, 3, dtype=torch.float64))
 
 
 def test_overlap_detection():
@@ -246,6 +363,11 @@ def test_overlap_detection():
     assert kernels._overlaps(base[:5], base[4:])
     assert not kernels._overlaps(base[:5], base[5:])
     assert kernels._overlaps(base.T, base)
+    # 3-D operands: a block's members interleaved with another's do
+    # overlap as spans, two halves of one buffer do not
+    cube = torch.zeros(4, 6, 5)
+    assert kernels._overlaps(cube[::2], cube[1::2])
+    assert not kernels._overlaps(cube[:2].transpose(1, 2), cube[2:])
 
 
 def test_library_name_follows_sources(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
 """The PyTorch port stands without JAX: in a fresh interpreter, importing
-every module of the port and running its CLI loads no jax module, and
+every module of the port and running its CLI with every measurement flag
+loads no jax module, and
 chip_smoke.py imports none either and refuses to run without a card."""
 
 import ast
@@ -20,7 +21,8 @@ import lanczosplusplus_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 from lanczosplusplus_tpu_torch.cli import lanczos_main
-lanczos_main.run(["-f", sys.argv[1], "--device", "cpu"])
+lanczos_main.run(["-f", sys.argv[1], "--device", "cpu", "-g", "c", "-c", "n",
+                  "-m", "gs|n[0]|gs", "-M", "n?0?0", "-r", "2"])
 jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")
@@ -35,13 +37,16 @@ def _env():
 
 def test_port_runs_without_importing_jax(tmp_path):
     path = tmp_path / "input0.inp"
-    path.write_text(INPUT0)
+    path.write_text(INPUT0 + "TSPCenter=1\n")
     proc = subprocess.run([sys.executable, "-c", _PROGRAM, str(path)],
                           capture_output=True, text=True, env=_env(),
                           cwd=tmp_path, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "Energy=-4.472136" in proc.stdout
     assert "NO_JAX_OK" in proc.stdout
+    # the spectral slice ran: a batched fleet and every static observable
+    assert len(list(tmp_path.glob("input0.inp*.comb"))) == 4
+    assert "EntanglementEntropy=" in proc.stdout
 
 
 def test_chip_smoke_imports_no_jax():

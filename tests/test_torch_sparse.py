@@ -103,21 +103,27 @@ def test_hamiltonian_from_numpy_reproduces_matvec(name):
 
 
 def test_ell_part_is_stored_k_major():
-    """The generic ELL tensors keep the JAX package's (dim, K) shape and
-    values but lie K-major, strides (1, dim), from the model and from
-    ``hamiltonian_from_numpy`` alike, with the JAX Hamiltonian's dense
-    matrix and matvec."""
+    """The layout question, settled: the generic ELL tensors keep the JAX
+    package's (dim, K) shape, values and contiguous layout, strides
+    (K, 1), and are no longer stored K-major, from the model and from
+    ``hamiltonian_from_numpy`` alike (a K-major host array is laid out
+    anew), with the JAX Hamiltonian's dense matrix and matvec."""
     ham, jham = _both("super6")
     ref = _jax_arrays(jham)
     rebuilt = hamiltonian_from_numpy(**ref, device="cpu",
                                      dtype=torch.float64)
+    k_major = dict(ref, **{name: np.ascontiguousarray(ref[name].T).T
+                           for name in ("ell_cols", "ell_vals")})
+    assert not k_major["ell_cols"].flags.c_contiguous
+    relaid = hamiltonian_from_numpy(**k_major, device="cpu",
+                                    dtype=torch.float64)
     dim, k = ref["ell_cols"].shape
     x = _x(dim, seed=5)
     expect = np.asarray(jham.matvec(jnp.asarray(x)))
-    for h in (ham, rebuilt):
+    for h in (ham, rebuilt, relaid):
         for t, name in ((h.ell.cols, "ell_cols"), (h.ell.vals, "ell_vals")):
-            assert t.shape == (dim, k) and t.stride() == (1, dim)
-            assert t.T.is_contiguous()
+            assert t.shape == (dim, k) and t.stride() == (k, 1)
+            assert t.is_contiguous()
             np.testing.assert_array_equal(t.numpy(), ref[name])
         assert h.ell.cols.dtype == torch.int32
         np.testing.assert_allclose(h.to_dense(), jham.to_dense(),
