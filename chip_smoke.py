@@ -9,8 +9,9 @@ Phases, each printing one line with its numbers:
 
 1. environment: the card, its power limit, torch and CUDA versions;
 2. build: both hand-written CUDA kernels compiled from csrc/, with each
-   kernel's registers, shared memory and spills (which must be 0) and the
-   count of FP64 tensor-core instructions (DMMA) in the machine code;
+   kernel's registers, shared memory and spills (which must be 0, for the
+   complex instantiations of ell_spmv too) and the count of FP64
+   tensor-core instructions (DMMA) in the machine code;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (TF32 off): factor_matmul at 3432^3 (14 sites) and
    924^3 (12 sites) in float64, each also in its transposed accumulate
@@ -23,7 +24,12 @@ Phases, each printing one line with its numbers:
    launch, and a ragged batch of 3; ell_spmv on the 12-site
    SuperHubbardExtended J-ELL for one vector and for a block of 14, on
    the N_up = 7 sector's J-ELL for the fleet's block of 23, and on a
-   random ELL with dim 1 000 003, K 7, for one vector and a block of 14.
+   random ELL with dim 1 000 003, K 7, for one vector and a block of 14,
+   and on a random one with K 17, just past the rows a thread keeps in
+   registers; factor_matmul at the FeAs sector's 1820^3 in both forms,
+   and a complex state (its real and imaginary planes through the real
+   kernel) against torch.matmul on the complex tensors, at 1820^2 and at
+   TestSuite input100's 220^2, with a real and with a complex factor.
    A batch of one must give the unbatched result bit for bit.  Each case
    is timed beside its bound (the least time the card could take:
    operations over 67 TFLOP/s or bytes over 3.35 TB/s) and, for
@@ -50,14 +56,29 @@ Phases, each printing one line with its numbers:
    TSPCenter fleet of the 12-site SuperHubbardExtended chain, which takes
    the batched ell_spmv, its two recurrences of 23 rows again through the
    plain versions from the same start vectors; and two_point on the card
-   against the CPU.
+   against the CPU;
+9. the flat models at full width, each through the Engine or the CLI on
+   the card with the launch counts set to 0 before and read after, the
+   host's build of the (dim, K) arrays timed apart from the solve, E0
+   through the kernels against E0 through the plain versions from the
+   same start vector, and ell_spmv held against its plain version on the
+   model's own arrays (one vector and a block of 14): the 12-site
+   Heisenberg ring at its Bethe-ansatz energy and the 24-site ring (dim
+   2 704 156, K = 48); the 18-site t-J ring with 8 up and 8 down (dim
+   1 969 110) and the 8-site ring's G_00(omega) through -g against
+   benchmarks/goldens.json; TestSuite input10 and a 12-site Rashba ring
+   with 12 electrons, U = 4 and a complex Rashba amplitude (dim
+   2 704 156, K = 96, complex128); TestSuite input100 and input104 as
+   they are (useComplex: both kernels in their complex forms) and the
+   8-site two-orbital FeAs sector with 4 up and 4 down (dim 3 312 400,
+   two 1820^2 factors plus the interaction ELL).
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
 prints no result.  The last lines are a JSON object with the kernels'
 numbers (one entry for each kernel and form of a path, with the launches
-that path counted), the card's name and power limit, and the result
-object.
+that path counted: ground state, spectral, and the flat models' forms of
+phase 9), the card's name and power limit, and the result object.
 """
 
 from __future__ import annotations
@@ -84,6 +105,11 @@ PEAK_FLOPS = 67e12    # H100 SXM data sheet: FP64 tensor cores, and float32
 PEAK_BYTES = 3.35e12  # H100 SXM data sheet: device memory bytes per second
 SPIN_CYCLES = 2_000_000  # about 1.1 ms at the H100's 1.75 GHz
 E0_INPUT0 = -4.472135954999581  # benchmarks/goldens.json e0_input0
+E0_INPUT10 = -12.94427190999916    # e0_input10
+E0_INPUT100 = -3.0994640142192615  # e0_input100 (dim 48 400)
+E0_INPUT104 = 4.20553470700647     # e0_input104
+E0_HEISENBERG12 = -5.387390917445208  # 12-site S = 1/2 ring (Bethe ansatz
+#                                       to its 8 printed digits: -5.3873909)
 
 INPUT0 = """
 TotalNumberOfSites=4
@@ -134,6 +160,85 @@ def super_hubbard_text(nsite: int) -> str:
               f"potentialV {2 * nsite} {' '.join(map(str, pot))}\n"
               f"SolverOptions=none\nTargetElectronsUp={nsite // 2}\n"
               f"TargetElectronsDown={nsite // 2}\nIsPeriodicX=1\n")
+
+
+def _term(value) -> str:
+    return ("DegreesOfFreedom=1\nGeometryKind=chain\n"
+            f"GeometryOptions=ConstantValues\nConnectors 1 {value}\n")
+
+
+def heisenberg_ring_text(nsite: int) -> str:
+    """S = 1/2 Heisenberg ring, J_pm = J_zz = 1, Sz = 0."""
+    return (f"TotalNumberOfSites={nsite}\nNumberOfTerms=2\n"
+            + _term(1.0) + _term(1.0)
+            + f"Model=Heisenberg\nHeisenbergTwiceS=1\nSolverOptions=none\n"
+              f"TargetSzPlusConst={nsite // 2}\nIsPeriodicX=1\n")
+
+
+def tj_ring_text(nsite: int, nup: int, ndown: int) -> str:
+    """t-J ring, t = -1, J_pm = J_zz = 0.3, no n_i n_j term."""
+    return (f"TotalNumberOfSites={nsite}\nNumberOfTerms=4\n"
+            + _term(-1.0) + _term(0.3) + _term(0.3) + _term(0.0)
+            + f"Model=TjMultiOrb\nOrbitals=1\nSolverOptions=none\n"
+              f"TargetElectronsUp={nup}\nTargetElectronsDown={ndown}\n"
+              "IsPeriodicX=1\n")
+
+
+def rashba_ring_text(nsite: int, ne: int) -> str:
+    """Hubbard ring with Rashba spin-orbit coupling, t = -1, U = 4, a
+    complex Rashba amplitude 0.3 + 0.4i (modulus 0.5), complex128."""
+    return (f"TotalNumberOfSites={nsite}\nNumberOfTerms=2\n"
+            + _term(-1.0) + _term("(0.3,0.4)")
+            + "Model=HubbardOneBandRashbaSOC\n"
+              f"hubbardU {nsite} {' '.join(['4'] * nsite)}\n"
+              f"potentialV {2 * nsite} {' '.join(['0'] * 2 * nsite)}\n"
+              f"SolverOptions=useComplex\nTargetElectronsTotal={ne}\n"
+              "IsPeriodicX=1\n")
+
+
+def feas_ring_text(nsite: int, nup: int, ndown: int) -> str:
+    """Two-orbital FeAs ring, INT_PAPER33 interactions."""
+    return (f"TotalNumberOfSites={nsite}\nModel=FeAsBasedSc\n"
+            "FeAsMode=INT_PAPER33\nNumberOfTerms=1\nDegreesOfFreedom=2\n"
+            "Orbitals=2\nGeometryKind=chain\n"
+            "GeometryOptions=ConstantValues\nSolverOptions=none\n"
+            "hubbardU 4 4.0 3.0 -0.8 -0.4\nConnectors 2 2\n-1.0 0.0\n"
+            f"0.0 -1.0\npotentialV {4 * nsite} "
+            f"{' '.join(['0'] * 4 * nsite)}\nTargetElectronsUp={nup}\n"
+            f"TargetElectronsDown={ndown}\nIsPeriodicX=1\n")
+
+
+INPUT10 = (
+    "TotalNumberOfSites=4\nNumberOfTerms=2\n" + _term(-1) + _term(7.0)
+    + "Model=HubbardOneBandRashbaSOC\nhubbardU 4 0 0 0 0\n"
+      "potentialV 8 0 0 0 0 0 0 0 0\nSolverOptions=useComplex\n"
+      "TargetElectronsTotal=1\nIsPeriodicX=0\n")
+
+INPUT100 = """
+TotalNumberOfSites=6
+Model=FeAsBasedSc
+FeAsMode=INT_PAPER33
+NumberOfTerms=1
+DegreesOfFreedom=2
+Orbitals=2
+GeometryKind=chain
+GeometryOptions=ConstantValues
+SolverOptions=useComplex
+hubbardU 4 4.0 3.0 -0.8 -0.4
+Connectors 2 2
+-1.0 0.0
+0.0 -1.0
+potentialV 24
+4.10 4.10 4.10 4.10 4.10 4.10
+0.0 0.0 0.0 0.0 0.0 0.0
+4.10 4.10 4.10 4.10 4.10 4.10
+0.0 0.0 0.0 0.0 0.0 0.0
+TargetElectronsUp=3
+TargetElectronsDown=3
+"""
+
+INPUT104 = INPUT100.replace("TargetElectronsDown=3\n",
+                            "TargetElectronsDown=3\nAnisotropyD=7\n")
 
 
 def check(ok: bool, what: str) -> None:
@@ -192,11 +297,12 @@ class PlainOperator:
             y = K.ell_spmv_ref(h.diag, h.ell.cols, h.ell.vals, xk)
         else:
             y = h.diag * xk
-        shape = (*xk.shape[:-1], *h.spin_shape)
-        x3, y3 = xk.view(shape), y.view(shape)
-        y3 += K.factor_matmul_ref(x3, f.up_dense)
-        y3 += K.factor_matmul_ref(x3.transpose(-1, -2),
-                                  f.dn_dense).transpose(-1, -2)
+        if f is not None:
+            shape = (*xk.shape[:-1], *h.spin_shape)
+            x3, y3 = xk.view(shape), y.view(shape)
+            y3 += K.factor_matmul_ref(x3, f.up_dense)
+            y3 += K.factor_matmul_ref(x3.transpose(-1, -2),
+                                      f.dn_dense).transpose(-1, -2)
         return y
 
     matvec = matmat_t
@@ -348,6 +454,7 @@ def main() -> None:
     lib = build.build()
     say(f"phase 2 build: {time.perf_counter() - t0:.3f} s, {lib.name}")
     lib_c = build.load_library()
+    built = set()
     for r in build.kernel_resources(build.build_log()):
         # template arguments of a float64 factor_matmul instantiation:
         # BM, BN, X k-major, A k-major
@@ -362,17 +469,23 @@ def main() -> None:
                      f"{'k' if ak else 'row'}-major, dynamic smem "
                      f"{lib_c.lpp_factor_matmul_f64_smem_bytes(bits)} B")
         else:
-            kind = re.search(r"(factor_matmul_simt|ell_spmv)_kernelI(\w)"
-                             r"(?:Li(\d+)E)?", r["name"])
-            label = (f"{kind.group(1)} "
-                     f"{'f64' if kind.group(2) == 'd' else 'f32'}"
-                     + (f", {kind.group(3)} entries at a time"
-                        if kind.group(3) else "")
+            # value type: d or f, inside Cplx<...> for the complex ones
+            kind = re.search(r"(factor_matmul_simt|ell_spmv)_kernelI"
+                             r"(?:\w*?4CplxI(\w)E)?(\w)(?:Li(\d+)E)?",
+                             r["name"])
+            cplx, plain, entries = kind.group(2, 3, 4)
+            tag = {"d": "c128", "f": "c64"}[cplx] if cplx else \
+                {"d": "f64", "f": "f32"}[plain]
+            label = (f"{kind.group(1)} {tag}"
+                     + (f", {entries} entries at a time" if entries else "")
                      + f", static smem {r['static_smem_bytes']} B")
+            built.add(f"{kind.group(1)} {tag}")
         say(f"  {label}: {r['registers']} registers, spill stores "
             f"{r['spill_store_bytes']} B, loads {r['spill_load_bytes']} B")
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
               f"{r['name']} spills registers")
+    check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
+           "ell_spmv c64"} <= built, f"ell_spmv instantiations: {built}")
     dmma = build.sass_opcode_counts(lib, "DMMA")
     say(f"  DMMA instructions in the library's machine code: {dmma} "
         f"(None: no cuobjdump)")
@@ -422,8 +535,8 @@ def main() -> None:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt, tol, shapes in (
-            (torch.float64, TOL_F64, ((3432, 3432, 3432), (924, 924, 924),
-                                      (300, 123, 257))),
+            (torch.float64, TOL_F64, ((3432, 3432, 3432), (1820, 1820, 1820),
+                                      (924, 924, 924), (300, 123, 257))),
             (torch.float32, TOL_F32, ((3432, 3432, 3432), (300, 123, 257)))):
         tag = "f64" if dt == torch.float64 else "f32"
         for m, n, k in shapes:
@@ -548,6 +661,48 @@ def main() -> None:
         "(300x257.123x257^T and 924^3)")
     del xr, ar, got, ref, out
 
+    # a complex state through the real kernel as its two planes, at the
+    # FeAs sector's one-spin size (1820 = C(16, 4)) and at input100's
+    # (220 = C(12, 3)); the library call is torch.matmul on the complex
+    # tensors.  Operations: a real factor takes two real products, a
+    # complex one four.
+    for size, factor_is_real in ((1820, True), (220, True), (1820, False)):
+        xc = torch.randn(size, size, generator=gen, device=dev,
+                         dtype=torch.complex128)
+        ac = torch.randn(size, size, generator=gen, device=dev,
+                         dtype=torch.complex128)
+        a_in = ac.real.contiguous() if factor_is_real else ac
+        a_lib = a_in.to(torch.complex128)
+        before = K.LAUNCHES["factor_matmul"]
+        got = K.factor_matmul(xc, a_in)
+        went = K.LAUNCHES["factor_matmul"] - before
+        check(went == (1 if factor_is_real else 3),
+              f"complex factor_matmul made {went} launches")
+        ref = K.factor_matmul_ref(xc, a_in)
+        torch.cuda.synchronize()
+        out = torch.empty_like(xc)
+        products = 2 if factor_is_real else 4
+        record("factor_matmul",
+               f"c128 planes {size}x{size}.{size}x{size}^T, "
+               f"{'real' if factor_is_real else 'complex'} factor "
+               f"({went} launch{'es' if went > 1 else ''} of the f64 kernel "
+               f"over the planes)", got, ref, TOL_F64,
+               (lambda: K.factor_matmul(xc, a_in, out=out),
+                lambda: K.factor_matmul_ref(xc, a_in),
+                lambda: torch.matmul(xc, a_lib.T, out=out)),
+               1e3 * products * 2 * size ** 3 / PEAK_FLOPS, "operations")
+        y0 = torch.randn(size, size, generator=gen, device=dev,
+                         dtype=torch.complex128)
+        got = y0.clone()
+        K.factor_matmul(xc.T, a_in, out=got.T, accumulate=True)
+        torch.cuda.synchronize()
+        err = rel_err(got, y0 + a_lib @ xc)[1]
+        check(err <= TOL_F64, f"complex dn form at {size}: {err:.3e}")
+        check(torch.equal(K.factor_matmul(xc[None], a_in)[0],
+                          K.factor_matmul(xc, a_in)),
+              "complex factor_matmul: a batch of one differs")
+        del xc, ac, a_in, a_lib, got, ref, out, y0
+
     she_text = super_hubbard_text(12)
     she_inp = parse_input(she_text)
     she_model = build_model(she_inp, Geometry(she_inp))
@@ -570,10 +725,14 @@ def main() -> None:
         "f64 J-ELL of the 12-site N_up = 7 sector, R=23", fleet_ham.diag,
         fleet_ham.ell.cols, fleet_ham.ell.vals, (23, fleet_ham.dim),
         TOL_ELL_F64))
-    dim, kk = 1_000_003, 7
-    for dt, tol, shape in ((torch.float64, TOL_ELL_F64, (dim,)),
-                           (torch.float32, TOL_F32, (dim,)),
-                           (torch.float64, TOL_ELL_F64, (14, dim))):
+    dim = 1_000_003
+    for dt, tol, kk, shape in (
+            (torch.float64, TOL_ELL_F64, 7, (dim,)),
+            (torch.float32, TOL_F32, 7, (dim,)),
+            (torch.float64, TOL_ELL_F64, 7, (14, dim)),
+            # one entry past what a thread keeps in registers
+            (torch.float64, TOL_ELL_F64, 17, (dim,)),
+            (torch.float64, TOL_ELL_F64, 17, (14, dim))):
         ell_cases.append((
             f"{'f64' if dt == torch.float64 else 'f32'} random dim {dim} "
             f"K {kk}" + (f", R={shape[0]}" if len(shape) == 2 else ""),
@@ -582,10 +741,22 @@ def main() -> None:
                           dtype=torch.int32),
             torch.randn(dim, kk, generator=gen, device=dev, dtype=dt),
             shape, tol))
-    for case, diag, cols, vals, shape, tol in ell_cases:
+
+    def ell_case(case, diag, cols, vals, shape, tol):
+        """ell_spmv against its plain version on one (diag, cols, vals)
+        and a random x of `shape`, timed beside its bytes bound."""
         x = torch.randn(shape, generator=gen, device=dev, dtype=diag.dtype)
+
+        def plain():
+            # a block's gather intermediate is batch x dim x K values:
+            # member by member where that would not fit beside the matrix
+            if x.dim() == 2 and x.numel() * cols.shape[1] \
+                    * x.element_size() > 8e9:
+                return torch.stack([K.ell_spmv_ref(diag, cols, vals, row)
+                                    for row in x])
+            return K.ell_spmv_ref(diag, cols, vals, x)
         got = K.ell_spmv(diag, cols, vals, x)
-        ref = K.ell_spmv_ref(diag, cols, vals, x)
+        ref = plain()
         torch.cuda.synchronize()
         if len(shape) == 2:
             check(torch.equal(K.ell_spmv(diag, cols, vals, x[:1])[0],
@@ -603,9 +774,11 @@ def main() -> None:
         row_bytes = cols.shape[1] * (4 + size) + size \
             + 2 * size * (shape[0] if len(shape) == 2 else 1)
         record("ell_spmv", case, got, ref, tol,
-               (lambda: K.ell_spmv(diag, cols, vals, x),
-                lambda: K.ell_spmv_ref(diag, cols, vals, x), None),
+               (lambda: K.ell_spmv(diag, cols, vals, x), plain, None),
                1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes")
+
+    for case in ell_cases:
+        ell_case(*case)
     say("  ell_spmv: a batch of one, and rows of every batch, equal the 1-D "
         "call bit for bit")
     del ell_cases, she_ham, fleet_ham, jc, jv
@@ -964,6 +1137,195 @@ def main() -> None:
     for name, count in spectral_launches.items():
         check(count > 0, f"{name} was not launched on the spectral path")
 
+    # -- 9. the flat models at full width -------------------------------
+    del eng_she, cpu_engine
+    torch.cuda.empty_cache()
+    flat_launches = {}   # run label -> launches of that run
+
+    def solve_flat(label, text, gemms, ells, golden=None, cases=()):
+        """One flat model through the Engine on the card: launches set to
+        0 before and read after and held against `gemms` and `ells`
+        launches a matvec, the host's build timed apart, E0 against
+        `golden` and against the plain versions from the same start
+        vector; then ell_spmv on the model's own arrays for each
+        (case label, batch) of `cases`.  Returns the engine."""
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        config = Config.from_input(inp, device=dev)
+        host_s = {"create_basis": 0.0, "hamiltonian": 0.0}
+
+        def timed(name):
+            method = getattr(model, name)
+
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                made = method(*args, **kwargs)
+                torch.cuda.synchronize()
+                host_s[name] += time.perf_counter() - t
+                return made
+            setattr(model, name, call)
+        timed("create_basis")
+        timed("hamiltonian")
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine = Engine(model, inp, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        flat_launches[label] = counts
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        ham, info = engine.hamiltonian, engine.solve_info
+        dim, basis_s = ham.dim, host_s["create_basis"]
+        build_s = [host_s["hamiltonian"]]
+        # the start vector the Engine drew, for the plain solve below
+        v0 = lz.random_start_vector(dim, config.seed, ham.dtype, dev)
+        # the step count doubles from the first pass until the residual is
+        # small: the matvecs are the sum over the passes
+        first = min(dim, config.lanczos_steps)
+        matvecs = 0 if info.used_dense_fallback else 2 * info.steps - first
+        width = ham.ell.cols.shape[1] if ham.ell is not None else 0
+        solve_s = wall - sum(build_s) - basis_s
+        say(f"phase 9 {label}: dim {dim}, {ham.dtype}, ELL K {width}, "
+            f"one-spin factors "
+            f"{None if ham.factorized is None else tuple(ham.factorized.up_dense.shape)}"
+            f", steps {info.steps}, matvecs {matvecs}, E0 "
+            f"{engine.ground_energy!r}, time to E0 {wall:.3f} s = basis "
+            f"{basis_s:.3f} + host build and transfer of the arrays "
+            f"{sum(build_s):.3f} + solve {solve_s:.3f} s"
+            + (f" ({1e3 * solve_s / matvecs:.3f} ms a step)" if matvecs
+               else " (dense branch)")
+            + f", launches {counts}, peak device memory {peak:.2f} GB")
+        check(info.converged, f"{label} unconverged")
+        check(counts == {"factor_matmul": gemms * matvecs,
+                         "ell_spmv": ells * matvecs},
+              f"{label}: launches {counts}, predicted factor_matmul "
+              f"{gemms * matvecs}, ell_spmv {ells * matvecs}")
+        check(engine.eigenvector(0).device.type == "cuda"
+              and engine.eigenvector(0).dtype == ham.dtype,
+              f"{label}: eigenvector {engine.eigenvector(0).dtype}")
+        if golden is not None:
+            err = abs(engine.ground_energy - golden) / abs(golden)
+            say(f"  against its golden {golden!r}: rel err {err:.3e}")
+            check(err <= TOL_E0, f"{label} E0 off its golden by {err:.3e}")
+        if matvecs:
+            t = time.perf_counter()
+            evals, _ = lz.lowest_states(PlainOperator(ham), seed=SEED,
+                                        max_steps=config.lanczos_steps,
+                                        v0=v0)
+            torch.cuda.synchronize()
+            plain_wall = time.perf_counter() - t
+            diff = abs(evals[0] - engine.ground_energy) / abs(evals[0])
+            say(f"  plain versions from the same start: E0 "
+                f"{float(evals[0])!r}, rel diff {diff:.3e}, solve "
+                f"{plain_wall:.3f} s")
+            check(diff <= TOL_E0, f"{label} kernel vs plain {diff:.3e}")
+            check(dict(K.LAUNCHES) == counts,
+                  f"{label}: the plain solve launched a kernel")
+        for case, rows in cases:
+            ell_case(f"{case}, R={rows}", ham.diag, ham.ell.cols,
+                     ham.ell.vals, (dim,) if rows == 1 else (rows, dim),
+                     TOL_ELL_F64)
+        return engine
+
+    def cli_energy(label, text, golden):
+        """A TestSuite input through the CLI on the card, at its golden."""
+        K.reset_launches()
+        engine, out, _, _, wall = run_cli(lanczos_main, text)
+        flat_launches[label] = dict(K.LAUNCHES)
+        energy = float(re.search(r"^Energy=(\S+)$", out, re.M).group(1))
+        err = abs(energy - golden) / abs(golden)
+        info = engine.solve_info
+        say(f"phase 9 {label} via CLI on cuda: dim {engine.basis.size}, "
+            f"{engine.hamiltonian.dtype}, Energy={energy!r} (golden "
+            f"{golden!r}, rel err {err:.3e}), steps {info.steps}, dense "
+            f"branch {info.used_dense_fallback}, wall {wall:.3f} s, "
+            f"launches {flat_launches[label]}")
+        check(err <= TOL_E0, f"{label} E0 off its golden by {err:.3e}")
+        check(engine.eigenvector(0).dtype == torch.complex128
+              and engine.eigenvector(0).device.type == "cuda",
+              f"{label}: a useComplex run must be complex128 on the card")
+        return engine
+
+    # Heisenberg: the 12-site ring of the verify recipe, then 24 sites
+    solve_flat("12-site Heisenberg ring", heisenberg_ring_text(12), 0, 1,
+               golden=E0_HEISENBERG12)
+    eng9 = solve_flat("24-site Heisenberg ring", heisenberg_ring_text(24),
+                      0, 1, cases=(("f64 24-site Heisenberg ELL", 1),
+                                   ("f64 24-site Heisenberg ELL", 14)))
+    check(eng9.basis.size == 2_704_156
+          and eng9.hamiltonian.ell.cols.shape[1] == 48,
+          f"24-site Heisenberg: dim {eng9.basis.size}")
+    del eng9
+    torch.cuda.empty_cache()
+
+    # t-J: 18 sites with two holes; the 8-site ring's G_00 through -g
+    eng9 = solve_flat("18-site t-J ring, 8 up 8 down", tj_ring_text(18, 8, 8),
+                      0, 1, cases=(("f64 18-site t-J ELL", 1),))
+    check(eng9.basis.size == 1_969_110, f"18-site t-J: dim {eng9.basis.size}")
+    del eng9
+    torch.cuda.empty_cache()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "goldens.json")) as f:
+        goldens = json.load(f)
+    K.reset_launches()
+    eng9, _, _, combs, wall = run_cli(
+        lanczos_main, tj_ring_text(8, 3, 3) + "TSPSites 2 0 0\n",
+        ["-g", "c"])
+    flat_launches["8-site t-J -g"] = dict(K.LAUNCHES)
+    got = combs[0].evaluate(np.asarray(goldens["gf_tj_omegas"]),
+                            goldens["gf_tj_delta"])
+    want = np.asarray(goldens["gf_tj_re"]) + 1j * np.asarray(
+        goldens["gf_tj_im"])
+    gf_err = np.abs(got - want).max() / np.abs(want).max()
+    say(f"phase 9 8-site t-J ring via CLI -g c, G_00(omega + 0.25i) on "
+        f"{len(want)} points against the dense Lehmann sum of goldens.json: "
+        f"max rel err {gf_err:.3e} (tolerance 1e-9), wall {wall:.3f} s, "
+        f"launches {flat_launches['8-site t-J -g']}")
+    check(gf_err <= 1e-9, f"gf_tj off its golden by {gf_err:.3e}")
+    check(flat_launches["8-site t-J -g"]["ell_spmv"] > 0,
+          "the t-J -g run launched no ell_spmv")
+    del eng9, combs
+
+    # Rashba: input10 (dense branch), then 12 sites in complex128
+    cli_energy("input10", INPUT10, E0_INPUT10)
+    eng9 = solve_flat("12-site Rashba ring, 12 electrons",
+                      rashba_ring_text(12, 12), 0, 1,
+                      cases=(("c128 12-site Rashba ELL", 1),
+                             ("c128 12-site Rashba ELL", 14)))
+    check(eng9.basis.size == 2_704_156
+          and eng9.hamiltonian.dtype == torch.complex128
+          and bool((eng9.hamiltonian.ell.vals.imag != 0).any()),
+          f"12-site Rashba: dim {eng9.basis.size}, "
+          f"{eng9.hamiltonian.dtype}")
+    del eng9
+    torch.cuda.empty_cache()
+
+    # FeAs: input100 and input104 as they are, then the 8-site sector
+    for label, text, golden in (("input100", INPUT100, E0_INPUT100),
+                                ("input104", INPUT104, E0_INPUT104)):
+        eng9 = cli_energy(label, text, golden)
+        counts = flat_launches[label]
+        f9 = eng9.hamiltonian.factorized
+        check(eng9.basis.size == 48_400 and not f9.up_dense.is_complex(),
+              f"{label}: dim {eng9.basis.size}, factors {f9.up_dense.dtype}")
+        # real factors under a complex state: one launch over the two
+        # planes for each factor, one complex ell_spmv, a matvec
+        check(counts["ell_spmv"] > 0
+              and counts["factor_matmul"] == 2 * counts["ell_spmv"],
+              f"{label}: launches {counts}")
+        del eng9, f9
+    eng9 = solve_flat("8-site two-orbital FeAs sector, 4 up 4 down",
+                      feas_ring_text(8, 4, 4), 2, 1,
+                      cases=(("f64 8-site FeAs interaction ELL", 1),))
+    check(eng9.basis.size == 3_312_400 and tuple(
+        eng9.hamiltonian.factorized.up_dense.shape) == (1820, 1820),
+        f"8-site FeAs: dim {eng9.basis.size}")
+    del eng9
+    torch.cuda.empty_cache()
+    say(f"flat models' kernel launches: {flat_launches}")
+
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
                                  "lanczosplusplus_tpu/ops/pallas_kernels.py:47"),
@@ -978,6 +1340,12 @@ def main() -> None:
     batched = {"factor_matmul": 2 * (2 * 2 * steps8 + 2 * steps_she),
                "ell_spmv": 2 * steps_she}
     unbatched = "ground state, and the unbatched launches of the spectral runs"
+
+    def flat_count(kernel, *words):
+        """Launches of `kernel` over phase 9's runs whose label holds one
+        of `words`."""
+        return sum(counts[kernel] for label, counts in flat_launches.items()
+                   if any(w in label for w in words))
     entries = (  # name, path, the phase 3 case of its shape, launches
         ("factor_matmul", unbatched, "f64 3432x3432.3432x3432^T",
          launches["factor_matmul"] + spectral_launches["factor_matmul"]
@@ -991,7 +1359,22 @@ def main() -> None:
          - batched["ell_spmv"]),
         ("ell_spmv (batched)", "spectral",
          "f64 J-ELL of the 12-site N_up = 7 sector, R=23",
-         batched["ell_spmv"]))
+         batched["ell_spmv"]),
+        # the flat models' forms, with the launches of phase 9's runs
+        ("factor_matmul (FeAs one-spin factors)", "flat models",
+         "f64 1820x1820.1820x1820^T", flat_count("factor_matmul", "FeAs")),
+        ("factor_matmul (complex planes)", "flat models",
+         "c128 planes 220x220.220x220^T, real factor",
+         flat_count("factor_matmul", "input100", "input104")),
+        ("ell_spmv (wide rows)", "flat models",
+         "f64 24-site Heisenberg ELL, R=1",
+         flat_count("ell_spmv", "Heisenberg", "t-J")),
+        ("ell_spmv (complex128)", "flat models",
+         "c128 12-site Rashba ELL, R=1",
+         flat_count("ell_spmv", "Rashba", "input100", "input104")),
+        ("ell_spmv (FeAs interaction ELL)", "flat models",
+         "f64 8-site FeAs interaction ELL, R=1",
+         flat_count("ell_spmv", "FeAs")))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -1010,6 +1393,7 @@ def main() -> None:
             kernels_line[-1].update(
                 launches_ground_state_path=launches[kernel],
                 launches_spectral_path=spectral_launches[kernel],
+                launches_flat_models=flat_count(kernel, ""),
                 cases=results[kernel])
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

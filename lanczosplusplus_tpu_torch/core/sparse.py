@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lanczosplusplus_tpu_torch.config import numpy_dtype
 from lanczosplusplus_tpu_torch.ops import kernels
 
 DEFAULT_DENSE_FACTOR_BYTES = 2 << 30
@@ -118,7 +119,15 @@ class EllPart:
 
 
 def _dense_from_ell(cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """(size, size) matrix of a one-spin ELL map (duplicates summed)."""
+    """(size, size) matrix of a one-spin ELL map (duplicates summed).  A
+    complex map whose imaginary part is zero throughout (the hop factors
+    of a real model solved with useComplex) comes back real, so that
+    ``factor_matmul`` runs one product over the state's two planes."""
+    if vals.is_complex():
+        a_re = _dense_from_ell(cols, vals.real)
+        if not bool(vals.imag.any()):
+            return a_re
+        return torch.complex(a_re, _dense_from_ell(cols, vals.imag))
     size, k = cols.shape
     a = torch.zeros((size, size), dtype=vals.dtype, device=vals.device)
     rows = torch.arange(size, device=cols.device).repeat_interleave(k)
@@ -324,8 +333,8 @@ class Hamiltonian:
             return t.detach().cpu().numpy()
 
         dim = self.dim
-        m = np.zeros((dim, dim), dtype=host(self.diag).dtype
-                     if self.ell is None else host(self.ell.vals).dtype)
+        m = np.zeros((dim, dim), dtype=np.result_type(
+            host(self.diag).dtype, numpy_dtype(self.dtype)))
         m[np.arange(dim), np.arange(dim)] += host(self.diag)
         if self.ell is not None:
             cols = host(self.ell.cols)

@@ -10,7 +10,8 @@ spectral functions serial and batched (``spectral_function``,
 re-design of the reference Engine (reference: src/Engine/Engine.h:84-98
 ctor diagonalizes; 601-657 computeAllStatesBelow; observable entry points
 113-389).  Symmetry sectors, factored forms and the KPM and FTLM
-estimators are not ported yet and raise.
+estimators are not ported yet and raise.  The solve's scalar type is the
+Hamiltonian's: a model may force a complex one whatever the input asks.
 
 States are tensors on the configured device; operator index maps are
 built on the host in numpy and applied there as ``index_add_`` scatters.
@@ -28,10 +29,6 @@ from lanczosplusplus_tpu_torch.engine.spectral import (
     ContinuedFraction, ContinuedFractionCollection)
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
 from lanczosplusplus_tpu_torch.utils.progress import ProgressIndicator
-
-COMPLEX_ON_CARD = ("the CUDA kernels take no complex values yet (ROADMAP "
-                   "Queue 2 items 1-2): a useComplex spectral run needs "
-                   "--device cpu")
 
 
 def apply_operator_map(tgt, amp, dst_dim, vec: torch.Tensor, factor=1.0):
@@ -96,9 +93,10 @@ class Engine:
 
     def _build_hamiltonian(self, basis):
         """A sector's Hamiltonian on the configured device.  On CUDA the
-        Kronecker one-spin factors are densified, so every matvec runs as
-        two ``factor_matmul`` GEMMs, or raises where a factor does not
-        fit; the CPU keeps the gather form.  The form taken is logged."""
+        Kronecker one-spin factors, where the model has any, are
+        densified, so every matvec runs as two ``factor_matmul`` GEMMs, or
+        raises where a factor does not fit; the CPU keeps the gather form.
+        The form taken is logged."""
         ham = self.model.hamiltonian(basis, dtype=self.config.scalar_dtype,
                                      device=self.config.device)
         if self.config.device.type == "cuda":
@@ -204,10 +202,6 @@ class Engine:
 
     # -- spectral functions (reference: Engine.h:113-206) -----------------
 
-    def _refuse_complex_on_card(self):
-        if self.config.use_complex and self.config.device.type == "cuda":
-            raise NotImplementedError(COMPLEX_ON_CARD)
-
     def _spectral_steps(self) -> int:
         """The reference reads a separate "Spectral" solver section
         (Engine.h:472 ParametersForSolver(io, "Spectral"))."""
@@ -234,7 +228,6 @@ class Engine:
         """Green's function G_op(isite, jsite, omega) as a
         continued-fraction collection via the 4-type decomposition
         (reference: Engine.h:133-206 spectralFunction)."""
-        self._refuse_complex_on_card()
         gs = self.eigenvector(0)
         is_diagonal = (isite == jsite and orbs[0] == orbs[1])
         coll = ContinuedFractionCollection()
@@ -274,7 +267,6 @@ class Engine:
 
         Returns a list of (ContinuedFractionCollection, labels), one per
         entry of `pairs`."""
-        self._refuse_complex_on_card()
         gs = self.eigenvector(0)
         steps = self._spectral_steps()
         per_pair_items = [[] for _ in pairs]

@@ -17,8 +17,8 @@ where op = name[?dof]['] (apostrophe = transpose) and bra/ket are
 "gs" (level 0) or "P<n>" (excited level n).
 
 Counterpart of ``lanczosplusplus_tpu/engine/rahul.py``, host numpy, for
-the two-word product bases the port has (Hubbard family); the
-combined-word bases come with their models.  The occupation test of the
+the two-word product bases (Hubbard family, FeAs, Immm) and the
+combined-word bases (t-J).  The occupation test of the
 ``c`` operator is written as an exclusive or of boolean arrays: the
 ``~`` of a Python bool that the JAX package applies there is an integer
 inversion, which current numpy refuses to cast back.
@@ -77,11 +77,15 @@ def parse_braket_level(s: str) -> int:
 
 def rahul_apply(basis, ops, sites, psi):
     """psiNew = (op_0 ... op_{n-1}) applied right-to-left to psi."""
-    if not hasattr(basis, "words_up"):
-        raise NotImplementedError("rahul method needs a two-word basis")
     idx = np.arange(basis.size)
-    w1 = basis.words_up(idx).astype(WORD).copy()
-    w2 = basis.words_down(idx).astype(WORD).copy()
+    if hasattr(basis, "words_up"):
+        w1 = basis.words_up(idx).astype(WORD).copy()
+        w2 = basis.words_down(idx).astype(WORD).copy()
+    elif hasattr(basis, "up_words"):   # combined-word bases (t-J)
+        w1 = basis.up_words.astype(WORD).copy()
+        w2 = basis.dn_words.astype(WORD).copy()
+    else:
+        raise NotImplementedError("rahul method needs a two-word basis")
     value = np.asarray(psi).copy().astype(np.complex128)
     alive = np.ones(basis.size, dtype=bool)
 
@@ -119,6 +123,14 @@ def rahul_apply(basis, ops, sites, psi):
 
     # scatter back via pair rank
     psi_new = np.zeros(basis.size, dtype=value.dtype)
-    tgt = basis.up.rank(w1) + basis.down.rank(w2) * basis.up.size
+    if hasattr(basis, "up"):           # product basis
+        tgt = basis.up.rank(w1) + basis.down.rank(w2) * basis.up.size
+    elif hasattr(basis, "rank"):       # combined-word bases (t-J)
+        tgt = basis.rank(w1, w2)
+        if hasattr(basis, "contains"):
+            # operator strings can leave the constrained space
+            alive = alive & basis.contains(w1, w2)
+    else:
+        raise NotImplementedError("rahul method: unsupported basis")
     np.add.at(psi_new, tgt[alive], value[alive])
     return psi_new

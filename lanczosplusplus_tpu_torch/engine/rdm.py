@@ -3,7 +3,8 @@
 Counterpart of ``lanczosplusplus_tpu/engine/rdm.py`` (reference:
 src/Engine/ReducedDensityMatrix.h): rho_A(alpha, alpha') = sum_beta
 conj(psi(alpha, beta)) psi(alpha', beta) for a split at site s (26-131),
-with the two-spin-word index unpacking of the Hubbard family (78-123).
+with model-specific index unpacking (Heisenberg: one digit word; Hubbard,
+FeAs, t-J: two spin words, 78-123).
 
 Instead of the reference's O(dim^2) double loop, psi is scattered into a
 dense (dimA, dimB) matrix M on the state's device and rho = conj(M) . M^T
@@ -18,15 +19,29 @@ import torch
 
 
 def _unpack_keys(basis, split: int):
-    """(alpha, beta) integer keys per basis state + (dimA, dimB), for the
-    two-spin-word product bases the port has."""
-    if not hasattr(basis, "words_up"):
+    """(alpha, beta) integer keys per basis state + (dimA, dimB)."""
+    # Heisenberg-like: digit word
+    if hasattr(basis, "digits"):
+        nabits = split * basis.bits
+        nbbits = basis.nsite * basis.bits - nabits
+        w = basis.words.astype(np.uint64)
+        a = (w & np.uint64((1 << nabits) - 1)).astype(np.int64)
+        b = (w >> np.uint64(nabits)).astype(np.int64)
+        return a, b, 1 << nabits, 1 << nbbits
+    # two-spin-word bases (Hubbard family, t-J, FeAs)
+    if hasattr(basis, "words_up"):
+        idx = np.arange(basis.size)
+        up = basis.words_up(idx).astype(np.uint64)
+        dn = basis.words_down(idx).astype(np.uint64)
+        nsite = basis.nsite
+    elif hasattr(basis, "up_words"):
+        up = basis.up_words.astype(np.uint64)
+        dn = basis.dn_words.astype(np.uint64)
+        nsite = basis.nbits if hasattr(basis, "nbits") else basis.nsite
+    else:
         raise ValueError("RDM: unsupported basis type")
-    idx = np.arange(basis.size)
-    up = basis.words_up(idx).astype(np.uint64)
-    dn = basis.words_down(idx).astype(np.uint64)
     nabits = split
-    nbbits = basis.nsite - split
+    nbbits = nsite - split
     maska = np.uint64((1 << nabits) - 1)
     a_up = (up & maska).astype(np.int64)
     a_dn = (dn & maska).astype(np.int64)

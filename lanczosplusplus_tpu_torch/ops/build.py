@@ -49,6 +49,8 @@ SIGNATURES = {
     # diag, cols, vals, x, y, dim, K, batch, stream
     "lpp_ell_spmv_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "lpp_ell_spmv_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "lpp_ell_spmv_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

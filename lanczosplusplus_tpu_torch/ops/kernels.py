@@ -8,11 +8,13 @@ kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
   of states, of every batched step, on the FP64 tensor cores in float64
   (``csrc/factor_matmul.cu``);
 - ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
-  over a padded ELL matrix and one vector or a batch-major block of them
-  (``csrc/ell_spmv.cu``).
+  over a padded ELL matrix and one vector or a batch-major block of them,
+  real or complex (``csrc/ell_spmv.cu``).
 
 Both take the batch in one launch; a single matrix or vector is the case
-batch = 1 of the same kernel.
+batch = 1 of the same kernel.  A complex state goes through
+``factor_matmul`` as its real and imaginary planes, a batch of two for the
+real kernel.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version (``*_ref``), a CUDA tensor launches the kernel or
@@ -30,7 +32,8 @@ import torch
 
 LAUNCHES = {"factor_matmul": 0, "ell_spmv": 0}
 
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32",
+           torch.complex128: "c128", torch.complex64: "c64"}
 _INT_MAX = 2**31 - 1
 H100_SMS = 132
 BIG_TILE, SMALL_TILE = 128, 64
@@ -43,8 +46,9 @@ def reset_launches() -> None:
 
 def factor_matmul_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Plain version of ``factor_matmul``: ``x @ a.T``, for one (m, k)
-    matrix or a (batch, m, k) block against the shared factor."""
-    return x @ a.T
+    matrix or a (batch, m, k) block against the shared factor; a complex
+    state may meet a real factor."""
+    return x @ a.T.to(x.dtype)
 
 
 def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
@@ -54,16 +58,17 @@ def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     return diag * x + (vals * x[..., cols]).sum(-1)
 
 
-def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda_operands(name: str, *tensors: torch.Tensor,
+                         dtypes=tuple(_SUFFIX)) -> None:
     dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if t.dtype != dt:
             raise TypeError(f"{name}: operands of {t.dtype} and {dt}")
-    if dt not in _SUFFIX:
-        raise TypeError(f"{name}: the CUDA kernel takes float64 or float32, "
-                        f"not {dt}")
+    if dt not in dtypes:
+        raise TypeError(f"{name}: the CUDA kernel takes "
+                        f"{', '.join(str(d) for d in dtypes)}, not {dt}")
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -179,6 +184,14 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     ``factor_matmul(X.transpose(1, 2), A_dn, out=Y.transpose(1, 2), ...)``.
     ``out`` must not overlap ``x`` or ``a``.  In float64 the kernel runs
     on the FP64 tensor cores along the path ``factor_matmul_plan`` picks.
+
+    Complex ``x`` and ``out`` (complex128 or complex64) run through the
+    same real kernel: the state is split into contiguous real and
+    imaginary planes, a batch of two.  A real factor `a` (the one-spin
+    hop factors are real-valued unless the hoppings are complex) takes one
+    launch over both planes; a complex one three (both planes times
+    Re a, then Im x times -Im a into the real plane and Re x times Im a
+    into the imaginary one).
     """
     if x.dim() not in (2, 3) or a.dim() != 2:
         raise ValueError(f"factor_matmul: x of 2 or 3 dimensions and a 2-D "
@@ -206,8 +219,11 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
         return out
     if x.device.type != "cuda":
         raise ValueError(f"factor_matmul: no kernel for device {x.device}")
+    if x.is_complex():
+        return _factor_matmul_planes(x, a, out, accumulate)
 
-    _check_cuda_operands("factor_matmul", x, a, out)
+    _check_cuda_operands("factor_matmul", x, a, out,
+                         dtypes=(torch.float64, torch.float32))
     if _overlaps(out, x) or _overlaps(out, a):
         raise ValueError("factor_matmul: out overlaps an input")
     batch = lead[0] if lead else 1
@@ -238,6 +254,42 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def _planes(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous (2, *t.shape) real tensor of a complex one: its real
+    plane, then its imaginary plane."""
+    return torch.view_as_real(t.resolve_conj()).movedim(-1, 0).contiguous()
+
+
+def _factor_matmul_planes(x: torch.Tensor, a: torch.Tensor,
+                          out: torch.Tensor, accumulate: bool) -> torch.Tensor:
+    """``factor_matmul`` for a complex state on the card, through the real
+    kernel on real and imaginary planes (see ``factor_matmul``)."""
+    real = x.real.dtype
+    if out.dtype != x.dtype or a.dtype not in (x.dtype, real):
+        raise TypeError(f"factor_matmul: x {x.dtype}, a {a.dtype}, out "
+                        f"{out.dtype}: a complex state takes a factor of "
+                        f"its type or of {real}")
+    *lead, m, k = x.shape
+    n = a.shape[0]
+    half = lead[0] if lead else 1
+    if half == 0 or m == 0 or n == 0:
+        return out
+    xp = _planes(x).view(2 * half, m, k)      # Re x[0..], then Im x[0..]
+    yp = (_planes(out) if accumulate else
+          torch.empty((2, *lead, m, n), dtype=real, device=x.device)
+          ).view(2 * half, m, n)
+    if not a.is_complex():
+        factor_matmul(xp, a, out=yp, accumulate=accumulate)
+    else:
+        a_re, a_im = _planes(a)
+        factor_matmul(xp, a_re, out=yp, accumulate=accumulate)
+        factor_matmul(xp[half:], -a_im, out=yp[:half], accumulate=True)
+        factor_matmul(xp[:half], a_im, out=yp[half:], accumulate=True)
+    yp = yp.view(2, *lead, m, n)
+    out.copy_(torch.complex(yp[0], yp[1]))
+    return out
+
+
 def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]``, for one vector
@@ -246,8 +298,8 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
 
     cols: (dim, K) int32 with every entry in [0, dim) (padding points at
     its own row with value 0), vals: (dim, K), diag: (dim,); cols, vals,
-    diag and x contiguous.  The CUDA kernel takes float64 or float32
-    operands of one dtype; complex values raise there.
+    diag and x contiguous.  The CUDA kernel takes float64, float32,
+    complex128 or complex64 operands, all of the one dtype.
     """
     if cols.dim() != 2 or vals.shape != cols.shape:
         raise ValueError(f"ell_spmv: cols {tuple(cols.shape)} and vals "
@@ -265,6 +317,7 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                          f"contiguous (dim, K)")
     if not (diag.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_spmv: diag and x must be contiguous")
+    x = x.resolve_conj()
 
     if x.device.type == "cpu":
         return ell_spmv_ref(diag, cols, vals, x)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where a Lanczos step of the port's 14-site Hubbard sector spends its time
-on one GPU.
+"""Where a Lanczos step of the port's 14-site Hubbard sector, or of one of
+its flat models, spends its time on one GPU.
 
 Run from the repository root, with one CUDA card:
 
-    python3 profile_step.py [--spectral] [--trace-dir DIR]
+    python3 profile_step.py [--spectral | --flat MODEL] [--trace-dir DIR]
 
 It builds the half-filled 14-site periodic HubbardOneBand chain at U=4
 (dim 11 778 624, two dense 3432 x 3432 float64 one-spin factors) on the
@@ -19,6 +19,17 @@ instead: the N_up = 8, N_down = 7 sector of the same chain (dim
 10 306 296, factors 3003 x 3003 and 3432 x 3432), a block of 14 random unit
 rows, 10 steps of ``solver.lanczos.tridiagonalize_plain_batched`` after 2
 warm-up steps, in the same turns.
+
+With ``--flat MODEL`` it traces the ground-state step of a flat model at
+full width instead, built as ``chip_smoke.py`` phase 9 builds it:
+``heisenberg24`` (24-site ring, dim 2 704 156, ELL K = 48), ``tj18``
+(18-site t-J ring, 8 up 8 down, dim 1 969 110, K = 54), ``rashba12`` and
+``rashba13`` (Rashba rings at one electron a site in complex128, dim
+2 704 156 with K = 96 and dim 10 400 600 with K = 104) and ``feas8`` (the
+8-site two-orbital FeAs sector, dim 3 312 400, two 1820 x 1820 factors and
+an ELL of K = 16).  The host's build of the arrays is timed apart.  Where
+the plain version's gather intermediates (four times the ELL's values)
+would not fit the card's free memory, only the kernel turns run.
 
 For each turn it prints the host wall time of the traced steps (ending
 in ``torch.cuda.synchronize()``), the device busy time and the device time
@@ -41,6 +52,12 @@ import time
 import torch
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# --flat MODEL -> (function of chip_smoke.py that writes its input, arguments)
+FLAT_MODELS = {"heisenberg24": ("heisenberg_ring_text", (24,)),
+               "tj18": ("tj_ring_text", (18, 8, 8)),
+               "rashba12": ("rashba_ring_text", (12, 12)),
+               "rashba13": ("rashba_ring_text", (13, 13)),
+               "feas8": ("feas_ring_text", (8, 4, 4))}
 STEPS = 40
 WARMUP_STEPS = 5
 SPECTRAL_STEPS = 10
@@ -107,15 +124,20 @@ def profile_turn(run, steps: int, warmup: int, trace_path: str) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--spectral", action="store_true",
-                        help="trace the batched step of the spectral path")
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--spectral", action="store_true",
+                       help="trace the batched step of the spectral path")
+    which.add_argument("--flat", choices=sorted(FLAT_MODELS), default=None,
+                       help="trace the ground-state step of this flat model")
     parser.add_argument("--trace-dir", default=None,
                         help="keep the chrome traces here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
+    import chip_smoke
     from chip_smoke import SEED, PlainOperator, hubbard_chain_text
+    from lanczosplusplus_tpu_torch import Config
     from lanczosplusplus_tpu_torch.geometry import Geometry
     from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
     from lanczosplusplus_tpu_torch.models import build_model
@@ -129,17 +151,29 @@ def main() -> None:
     print(smi, flush=True)
 
     t = time.perf_counter()
-    inp = parse_input(hubbard_chain_text(14, 4))
+    text = hubbard_chain_text(14, 4)
+    if args.flat:
+        writer, numbers = FLAT_MODELS[args.flat]
+        text = getattr(chip_smoke, writer)(*numbers)
+    inp = parse_input(text)
     model = build_model(inp, Geometry(inp))
     parts = (8, 7) if args.spectral else model.default_parts(inp)
-    ham = model.hamiltonian(model.create_basis(parts), dtype=torch.float64,
-                            device=dev)
+    ham = model.hamiltonian(
+        model.create_basis(parts), device=dev,
+        dtype=Config.from_input(inp, device=dev).scalar_dtype)
     ham = ham.densify_factors()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
-    print(f"Hamiltonian build and densify: {build_s:.3f} s, dim {ham.dim}",
-          flush=True)
+    width = ham.ell.cols.shape[1] if ham.ell is not None else 0
+    print(f"Hamiltonian build and densify: {build_s:.3f} s, dim {ham.dim}, "
+          f"{ham.dtype}, ELL K {width}", flush=True)
     ops = {"kernel": ham, "plain": PlainOperator(ham)}
+    paths = ("plain", "kernel", "kernel", "plain")
+    if ham.ell is not None and 4 * ham.ell.vals.numel() \
+            * ham.ell.vals.element_size() > torch.cuda.mem_get_info(dev)[0]:
+        paths = ("kernel", "kernel")
+        print("the plain version's intermediates do not fit: kernel turns "
+              "only", flush=True)
     if args.spectral:
         v0 = torch.stack([
             lz.random_start_vector(ham.dim, SEED + r, torch.float64, dev)
@@ -147,7 +181,7 @@ def main() -> None:
         steps, warmup = SPECTRAL_STEPS, SPECTRAL_WARMUP_STEPS
         recurrence = lz.tridiagonalize_plain_batched
     else:
-        v0 = lz.random_start_vector(ham.dim, SEED, torch.float64, dev)
+        v0 = lz.random_start_vector(ham.dim, SEED, ham.dtype, dev)
         steps, warmup = STEPS, WARMUP_STEPS
         recurrence = lz.tridiagonalize
 
@@ -155,7 +189,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = args.trace_dir or tmp
         os.makedirs(trace_dir, exist_ok=True)
-        for i, path in enumerate(("plain", "kernel", "kernel", "plain")):
+        for i, path in enumerate(paths):
             r = profile_turn(
                 lambda n, op=ops[path]: recurrence(op, v0, n), steps, warmup,
                 os.path.join(trace_dir, f"turn{i}_{path}.json"))
@@ -168,7 +202,10 @@ def main() -> None:
             for name, ms in r["top_device_ms"].items():
                 print(f"  {ms:10.3f} ms  {name[:100]}", flush=True)
     print(json.dumps({"card": smi, "spectral": args.spectral,
-                      "build_s": build_s, "turns": turns}),
+                      "flat": args.flat, "dim": ham.dim, "build_s": build_s,
+                      "peak_device_gb":
+                          torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "turns": turns}),
           flush=True)
 
 

@@ -18,6 +18,9 @@ from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
 from lanczosplusplus_tpu_torch.models import build_model
 from lanczosplusplus_tpu_torch.ops import kernels
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
+from test_torch_inputs import (INPUT100, feas_so_text, feas_text,
+                                heisenberg_text, immm_text, kitaev_text,
+                                rashba_text, tj_text)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,9 +148,13 @@ def test_factor_matmul_f64_leaves_neighbours(cuda):
     assert (big[:, :20] == 0).all() and (big[:, 87:] == 0).all()
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
-                                       (torch.float32, 1e-5)])
-@pytest.mark.parametrize("dim,k", [(5003, 7), (1000, 1), (257, 12), (1, 3)])
+ELL_DTYPES = [(torch.float64, 1e-13), (torch.float32, 1e-5),
+              (torch.complex128, 1e-13), (torch.complex64, 1e-5)]
+
+
+@pytest.mark.parametrize("dtype,tol", ELL_DTYPES)
+@pytest.mark.parametrize("dim,k", [(5003, 7), (1000, 1), (257, 12), (1, 3),
+                                   (2003, 48)])
 @pytest.mark.parametrize("layout", ["k_major", "contiguous"])
 def test_ell_spmv_kernel(cuda, dtype, tol, dim, k, layout):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -174,15 +181,18 @@ def test_ell_spmv_kernel(cuda, dtype, tol, dim, k, layout):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
-                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("dtype,tol", ELL_DTYPES)
 @pytest.mark.parametrize("dim,k", [(5003, 7), (1000, 1), (257, 12),
-                                   (300, 16), (301, 17), (64, 40)])
+                                   (300, 16), (301, 17), (64, 40),
+                                   (1500, 48), (700, 96), (333, 8),
+                                   (334, 9)])
 @pytest.mark.parametrize("rows", [1, 3, 14])
 def test_ell_spmv_batched_kernel(cuda, dtype, tol, dim, k, rows):
-    """One launch for a batch-major block, rows that stay in registers
-    (K <= 16) and rows that are re-read per member (K > 16); every member
-    equals its own single launch bit for bit."""
+    """One launch for a batch-major block, real and complex, rows that
+    stay in registers (K <= 16, or 8 in complex128) and rows that go chunk
+    by chunk (the flat models: K = 48 on a 24-site Heisenberg ring, 96 on
+    a 12-site Rashba ring); every member equals its own single launch bit
+    for bit."""
     g = torch.Generator(device=cuda).manual_seed(dim + k + rows)
     diag = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
     cols = torch.randint(0, dim, (dim, k), generator=g, device=cuda,
@@ -254,26 +264,40 @@ def test_factor_matmul_batched_strides(cuda):
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros(8, 4, device=cuda, dtype=torch.complex128)
-    with pytest.raises(TypeError):
-        kernels.factor_matmul(z, z)
+    with pytest.raises(TypeError):    # a complex64 factor under complex128
+        kernels.factor_matmul(z, z[:4].to(torch.complex64))
+    with pytest.raises(TypeError):    # a float32 factor under complex128
+        kernels.factor_matmul(z, torch.zeros(4, 4, device=cuda))
+    with pytest.raises(TypeError):    # a real out for a complex state
+        kernels.factor_matmul(z, z[:4].real.contiguous(),
+                              out=torch.zeros(8, 4, device=cuda,
+                                              dtype=torch.float64))
     with pytest.raises(TypeError):
         kernels.factor_matmul(torch.zeros(8, 4, device=cuda),
                               torch.zeros(4, 4, device=cuda,
                                           dtype=torch.float64))
+    with pytest.raises(TypeError):
+        kernels.factor_matmul(torch.zeros(8, 4, device=cuda,
+                                          dtype=torch.float16),
+                              torch.zeros(4, 4, device=cuda,
+                                          dtype=torch.float16))
     x = torch.zeros(8, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="overlaps"):
         kernels.factor_matmul(x, x, out=x, accumulate=True)
     cols = torch.zeros(8, 2, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError):    # complex values on a real vector
+        kernels.ell_spmv(x[:, 0].contiguous(), cols,
+                         z[:, :2].contiguous(), x[:, 0].contiguous())
     with pytest.raises(TypeError):
-        kernels.ell_spmv(z[:, 0].contiguous(), cols,
-                         z[:, :2].contiguous(), z[:, 0].contiguous())
+        kernels.ell_spmv(x[:, 0].contiguous(), cols.long(),
+                         x[:, :2].contiguous(), x[:, 0].contiguous())
     v = torch.zeros(16, 2, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.ell_spmv(v[::2, 0], cols, v[::2], v[::2, 1])
     # the same refusals for batched operands
     zb = torch.zeros(3, 8, 4, device=cuda, dtype=torch.complex128)
     with pytest.raises(TypeError):
-        kernels.factor_matmul(zb, z[:4])
+        kernels.factor_matmul(zb, z[:4].to(torch.complex64))
     xb = torch.zeros(3, 8, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="overlaps"):
         kernels.factor_matmul(xb, x, out=xb, accumulate=True)
@@ -285,7 +309,48 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                                      dtype=torch.float64).T)
     before = dict(kernels.LAUNCHES)
     assert kernels.factor_matmul(xb[:0], x).shape == (0, 8, 8)
+    assert kernels.factor_matmul(zb[:0], x[:, :4]).shape == (0, 8, 8)
     assert dict(kernels.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
+                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("rows,szd,szu", [(1, 70, 33), (3, 300, 257),
+                                          (14, 56, 70), (2, 1411, 150)])
+@pytest.mark.parametrize("real_factor", [True, False])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_factor_matmul_complex_planes(cuda, dtype, tol, rows, szd, szu,
+                                      real_factor, accumulate):
+    """A complex block of states through the real kernel as its real and
+    imaginary planes, in the two forms of the apply, against
+    ``torch.matmul`` on the complex tensors: one launch for a real factor,
+    three for a complex one; a batch of one equals the 2-D call."""
+    g = torch.Generator(device=cuda).manual_seed(rows * szd + szu)
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+
+    def draw(*shape, complex_=True):
+        return torch.randn(*shape, generator=g, device=cuda,
+                           dtype=dtype if complex_ else real)
+    x, y0 = draw(rows, szd, szu), draw(rows, szd, szu)
+    a_up = draw(szu, szu, complex_=not real_factor)
+    a_dn = draw(szd, szd, complex_=not real_factor)
+    keep = y0 if accumulate else 0
+    per_call = 1 if real_factor else 3
+    before = kernels.LAUNCHES["factor_matmul"]
+    y = y0.clone()
+    kernels.factor_matmul(x.view(-1, szu), a_up, out=y.view(-1, szu),
+                          accumulate=accumulate)
+    assert kernels.LAUNCHES["factor_matmul"] == before + per_call
+    assert _rel(y, keep + x @ a_up.T.to(dtype)) <= tol
+    y = y0.clone()
+    kernels.factor_matmul(x.transpose(1, 2), a_dn, out=y.transpose(1, 2),
+                          accumulate=accumulate)
+    assert kernels.LAUNCHES["factor_matmul"] == before + 2 * per_call
+    assert _rel(y, keep + a_dn.to(dtype) @ x) <= tol
+    got = kernels.factor_matmul(x, a_up)
+    assert _rel(got, kernels.factor_matmul_ref(x, a_up)) <= tol
+    assert torch.equal(got[0], kernels.factor_matmul(x[0], a_up))
+    torch.cuda.synchronize()
 
 
 def test_gather_form_on_card_raises(cuda):
@@ -407,26 +472,131 @@ def test_observables_on_card_match_cpu(cuda):
     assert dict(kernels.LAUNCHES) == before   # no kernel on these paths
 
 
-def test_complex_spectral_run_on_card_raises(cuda):
-    """The kernels take no complex values: a useComplex spectral run on
-    the card says which ROADMAP items hold that, before any launch.  (The
-    4-site input is solved densely, so the Engine itself builds.)"""
-    text = CHAIN6.replace("TotalNumberOfSites=6", "TotalNumberOfSites=4") \
-        .replace("hubbardU 6 4 4 4 4 4 4", "hubbardU 4 4 4 4 4") \
-        .replace("potentialV 12 0 0 0 0", "potentialV 8") \
-        .replace("TargetElectronsUp=3", "TargetElectronsUp=2") \
-        .replace("TargetElectronsDown=3", "TargetElectronsDown=2") \
-        .replace("SolverOptions=none", "SolverOptions=useComplex")
+def test_complex_spectral_run_on_card_matches_cpu(cuda):
+    """A useComplex spectral run on the card goes through the complex
+    forms of both kernels (the state's planes through ``factor_matmul``,
+    complex128 ``ell_spmv``) and gives the CPU's fractions."""
+    text = SUPER6.replace("SolverOptions=none", "SolverOptions=useComplex") \
+        + "SpectralSteps=300\n"
     inp = parse_input(text)
-    engine = Engine(build_model(inp, Geometry(inp)), inp,
-                    config=Config.from_input(inp, device=cuda))
-    assert engine.eigenvector(0).dtype == torch.complex128
-    before = dict(kernels.LAUNCHES)
-    for call in (lambda: engine.spectral_function("c", 0, 0),
-                 lambda: engine.spectral_functions_batched("c", [(0, 1)])):
-        with pytest.raises(NotImplementedError, match="Queue 2 items 1-2"):
-            call()
-    assert dict(kernels.LAUNCHES) == before
-    z = torch.zeros(2, 36, device=cuda, dtype=torch.complex128)
-    with pytest.raises(TypeError):
-        engine.hamiltonian.matmat_t(z)
+    model = build_model(inp, Geometry(inp))
+    cpu = Engine(model, inp, config=Config.from_input(inp, device="cpu"))
+    gpu = Engine(model, inp, config=Config.from_input(inp, device=cuda),
+                 v0=cpu.eigenvector(0).numpy())
+    assert gpu.eigenvector(0).dtype == torch.complex128
+    assert abs(gpu.ground_energy - cpu.ground_energy) <= 1e-10
+    f = gpu.hamiltonian.factorized
+    assert f.up_dense.dtype == f.dn_dense.dtype == torch.float64
+    gpu._vectors = cpu._vectors.to(cuda)
+    pairs = [(0, 0), (1, 4), (2, 5)]
+    omegas = np.linspace(-8, 8, 81)
+    kernels.reset_launches()
+    outs = gpu.spectral_functions_batched("c", pairs)
+    # two sectors of dim 300: a step is one launch over the planes for
+    # each real factor and one complex ell_spmv
+    assert kernels.LAUNCHES == {"factor_matmul": 2 * 2 * 300,
+                                "ell_spmv": 2 * 300}
+    refs = cpu.spectral_functions_batched("c", pairs)
+    for (coll, labels), (rcoll, rlabels) in zip(outs, refs):
+        assert labels == rlabels
+        for cf, rcf in zip(coll.items, rcoll.items):
+            assert abs(cf.weight - rcf.weight) <= 1e-12
+        np.testing.assert_allclose(coll.evaluate(omegas, 0.1),
+                                   rcoll.evaluate(omegas, 0.1), rtol=0,
+                                   atol=1e-8)
+    serial, _ = gpu.spectral_function("c", 1, 4)
+    np.testing.assert_allclose(serial.evaluate(omegas, 0.1),
+                               refs[1][0].evaluate(omegas, 0.1), rtol=0,
+                               atol=1e-8)
+    z = torch.randn(2, gpu.basis.size, device=cuda, dtype=torch.complex128)
+    np.testing.assert_allclose(
+        gpu.hamiltonian.matmat_t(z).cpu().numpy(),
+        cpu.hamiltonian.matmat_t(z.cpu()).numpy(), rtol=0, atol=1e-12)
+
+
+# name -> (input text, launches a matvec makes of factor_matmul, ell_spmv)
+FLAT_MODELS = {
+    "heisenberg": (heisenberg_text(10, 1, 5), 0, 1),
+    "heisenberg_spin_one": (heisenberg_text(6, 2, 6, periodic=0), 0, 1),
+    "kitaev": (kitaev_text(8, 1.0, 0.6, 0.8, periodic=1,
+                           extra="MagneticField 8 0.1 0.2 0 0 0.3 0 0 0\n"),
+               0, 1),
+    "tj": (tj_text(8, 3, 3, periodic=1), 0, 1),
+    "rashba": (rashba_text(5, 4, periodic=1), 0, 1),
+    "rashba_complex": (rashba_text(5, 4, r="(0.3,0.4)", periodic=1,
+                                   options="useComplex"), 0, 1),
+    "feas": (feas_text(3, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1], 2, 2,
+                       extra="AnisotropyD=0.4\n"), 2, 1),
+    "feas_complex": (feas_text(3, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1],
+                               2, 2, options="useComplex"), 2, 1),
+    "feas_kspace": (feas_text(2, 3, "INT_KSPACE", [0.9], 2, 2), 2, 1),
+    "feas_int_v": (feas_text(2, 3, "INT_V", [1.0, 0.2, 0.3, 0.2, 0.8, 0.1,
+                                             0.3, 0.1, 0.6], 2, 2), 2, 0),
+    "feas_spinorbit": (feas_so_text(3, 2, 1), 0, 1),
+    "immm": (immm_text(4, 2, 2), 2, 0),
+    "immm_complex": (immm_text(4, 2, 2).replace(
+        "SolverOptions=none", "SolverOptions=useComplex"), 2, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLAT_MODELS))
+def test_flat_model_on_card_matches_cpu(cuda, name):
+    """Each flat model's kernel path on the card against the CPU's plain
+    versions: one matvec, a block of three states, and the ground-state
+    energy from the same start vector, with the launches a matvec makes
+    as the model's form predicts."""
+    text, n_gemm, n_ell = FLAT_MODELS[name]
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    config = Config.from_input(inp, device="cpu")
+    parts = model.default_parts(inp)
+    dim = model.create_basis(parts).size
+    assert dim > 64     # past the dense branch
+    v0 = np.random.default_rng(2).standard_normal(dim)
+    cpu = Engine(model, inp, config=config, v0=v0)
+    gpu = Engine(model, inp, config=Config.from_input(inp, device=cuda),
+                 v0=v0)
+    ham, ref = gpu.hamiltonian, cpu.hamiltonian
+    assert ham.dtype == ref.dtype and ham.device.type == "cuda"
+    x = lz.random_start_vector(dim, 5, ham.dtype, "cpu")
+    kernels.reset_launches()
+    got = ham.matvec(x.to(cuda))
+    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell}
+    want = ref.matvec(x)
+    assert _rel(got.cpu(), want) <= 1e-12
+    block = torch.stack([x, 2 * x, x.flip(0)])
+    kernels.reset_launches()
+    got = ham.matmat_t(block.to(cuda))
+    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell}
+    assert _rel(got.cpu(), ref.matmat_t(block)) <= 1e-12
+    assert gpu.solve_info.converged and not gpu.solve_info.used_dense_fallback
+    assert abs(gpu.ground_energy - cpu.ground_energy) <= \
+        1e-10 * max(abs(cpu.ground_energy), 1.0)
+
+
+def test_input100_on_card_reaches_the_golden(cuda):
+    """TestSuite input100 (FeAs, useComplex, dim 48 400) on the card: both
+    kernels in their complex forms, E0 of benchmarks/goldens.json."""
+    inp = parse_input(INPUT100)
+    kernels.reset_launches()
+    gpu = Engine(build_model(inp, Geometry(inp)), inp,
+                 config=Config.from_input(inp, device=cuda))
+    assert gpu.basis.size == 48400
+    assert gpu.eigenvector(0).dtype == torch.complex128
+    assert abs(gpu.ground_energy - -3.0994640142192615) <= 1e-10 * 3.1
+    assert kernels.LAUNCHES["factor_matmul"] == 2 * kernels.LAUNCHES["ell_spmv"]
+    assert kernels.LAUNCHES["ell_spmv"] >= gpu.solve_info.steps
+
+
+def test_spin_orbital_chain_on_card(cuda):
+    from lanczosplusplus_tpu_torch.models.spin_orbital import (
+        build_spin_orbital)
+    ham = build_spin_orbital(4, 1, dtype=torch.float64, device=cuda)
+    ref = build_spin_orbital(4, 1, dtype=torch.float64, device="cpu")
+    x = lz.random_start_vector(ham.dim, 3, torch.float64, "cpu")
+    kernels.reset_launches()
+    assert _rel(ham.matvec(x.to(cuda)).cpu(), ref.matvec(x)) <= 1e-12
+    assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 1}
+    evals, _ = lz.lowest_states(ham, seed=3)
+    want = np.linalg.eigvalsh(ref.to_dense())[0]
+    assert abs(evals[0] - want) <= 1e-10 * abs(want)

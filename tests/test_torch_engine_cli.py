@@ -1,7 +1,8 @@
 """The port's Engine and CLI: input0's energy, Engine energies held
-against the JAX Engine on the CPU in float64, and the loud refusal of
-everything the port does not hold yet (the measurement flags that earlier
-slices refused now run)."""
+against the JAX Engine on the CPU in float64, every model of the registry
+built and solved, and the loud refusal of everything the port does not
+hold yet (the measurement flags and the models that earlier slices
+refused now run)."""
 
 import re
 
@@ -21,6 +22,9 @@ from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
 from lanczosplusplus_tpu_torch.models import build_model
 from test_torch_host import (E0_INPUT0, INPUT0, hubbard_chain_text,
                              super_hubbard_text)
+from test_torch_inputs import (feas_jterms_text, feas_so_text, feas_text,
+                                heisenberg_text, immm_text, kitaev_text,
+                                rashba_text, tj_text)
 
 torch.set_num_threads(2)
 
@@ -117,13 +121,43 @@ def test_measurement_flags_run(tmp_path, monkeypatch, capsys, flag, expect):
     assert (tmp_path / "input.inp0.comb").exists() == (flag[0] == "-g")
 
 
-@pytest.mark.parametrize("model", ["Heisenberg", "Kitaev", "TjMultiOrb",
-                                   "FeAsBasedSc", "Immm",
-                                   "HubbardOneBandRashbaSOC"])
-def test_unported_models_raise(model):
+_FLAT_MODEL_INPUTS = {
+    "Heisenberg": heisenberg_text(6, 1, 3),
+    "Kitaev": kitaev_text(6, 1.0, 0.6, 0.8, periodic=1),
+    "TjMultiOrb": tj_text(6, 2, 2, j=0.4, w=-0.1),
+    "FeAsBasedSc": feas_text(2, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1],
+                             2, 1),
+    "FeAsBasedScExtended": feas_jterms_text(3, 2, 1),
+    "FeAsBasedSc+SpinOrbit": feas_so_text(2, 2, 1),
+    "Immm": immm_text(4, 2, 2),
+    "HubbardOneBandRashbaSOC": rashba_text(4, 2),
+}
+
+
+@pytest.mark.parametrize("model", sorted(_FLAT_MODEL_INPUTS))
+def test_flat_models_build_and_solve(tmp_path, capsys, model):
+    """Every Model= string of the reference's selector builds through the
+    registry and solves through the command line: the printed energy is
+    the lowest eigenvalue of the dense matrix."""
+    text = _FLAT_MODEL_INPUTS[model]
+    inp = parse_input(text)
+    assert inp.string("Model") == model.split("+")[0]
+    built = build_model(inp, Geometry(inp))
+    assert type(built).__module__.startswith(
+        "lanczosplusplus_tpu_torch.models.")
+    engine = lanczos_main.run(["-f", _write(tmp_path, text), "-p", "17",
+                               "--device", "cpu"])
+    assert type(engine.model) is type(built)
+    energy = float(re.search(r"^Energy=(\S+)$", capsys.readouterr().out,
+                             re.M).group(1))
+    dense = np.linalg.eigvalsh(engine.hamiltonian.to_dense())
+    assert abs(energy - dense[0]) <= 1e-10 * max(abs(dense[0]), 1.0)
+
+
+def test_unknown_model_raises():
     inp = parse_input(INPUT0.replace("Model=HubbardOneBand",
-                                     f"Model={model}"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+                                     "Model=NoSuchModel"))
+    with pytest.raises(ValueError, match="unknown Model="):
         build_model(inp, Geometry(inp))
 
 

@@ -247,6 +247,101 @@ def test_dmma_fragment_map_multiplies():
     np.testing.assert_allclose(y, x @ a.T, rtol=0, atol=1e-13)
 
 
+@pytest.mark.parametrize("k", [17, 48, 96])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("rows", [1, 14])
+def test_ell_spmv_ref_wide_rows_and_complex(k, dtype, rows):
+    """The plain version at the flat models' widths (a 24-site Heisenberg
+    ring has K = 48, a 12-site Rashba ring 96) and with complex values,
+    against the JAX package's XLA gather, one vector and a block."""
+    rng = np.random.default_rng(k + rows)
+    dim = 301
+
+    def draw(*shape):
+        out = rng.standard_normal(shape)
+        if dtype == np.complex128:
+            out = out + 1j * rng.standard_normal(shape)
+        return out
+    diag, vals, xk = draw(dim), draw(dim, k), draw(rows, dim)
+    cols = rng.integers(0, dim, size=(dim, k)).astype(np.int32)
+    got = kernels.ell_spmv(*map(torch.from_numpy, (diag, cols, vals, xk)))
+    assert got.shape == (rows, dim) and got.dtype == torch.from_numpy(
+        diag).dtype
+    for b in range(rows):
+        expect = np.asarray(pk.ell_spmv_or_fallback(
+            jnp.asarray(diag), jnp.asarray(cols), jnp.asarray(vals),
+            jnp.asarray(xk[b])))
+        assert np.abs(got[b].numpy() - expect).max() <= \
+            1e-13 * np.abs(expect).max()
+
+
+def _kane_mele_hamiltonians(model_name):
+    """(port Hamiltonian densified on the CPU, JAX Hamiltonian) of a
+    6-site KaneMeleHubbard ring with an imaginary second hopping term."""
+    from lanczosplusplus_tpu.geometry import Geometry as JaxGeometry
+    from lanczosplusplus_tpu.io_.input_parser import parse_input as jparse
+    from lanczosplusplus_tpu.models import build_model as jbuild
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    text = ("TotalNumberOfSites=6\nNumberOfTerms=2\nDegreesOfFreedom=1\n"
+            "GeometryKind=chain\nGeometryOptions=ConstantValues\n"
+            "Connectors 1 -1.0\nDegreesOfFreedom=1\nGeometryKind=chain\n"
+            "GeometryOptions=ConstantValues\nConnectors 1 (0.0,0.3)\n"
+            f"Model={model_name}\nhubbardU 6 2 2 2 2 2 2\n"
+            "potentialV 12 0.1 0 0 0 0 0 0 0 0 0 0 -0.2\n"
+            "SolverOptions=useComplex\nTargetElectronsUp=3\n"
+            "TargetElectronsDown=2\nIsPeriodicX=1\n")
+    if model_name == "HubbardOneBand":
+        text = text.replace("NumberOfTerms=2", "NumberOfTerms=1")
+    inp, jinp = parse_input(text), jparse(text)
+    model, jmodel = build_model(inp, Geometry(inp)), \
+        jbuild(jinp, JaxGeometry(jinp))
+    ham = model.hamiltonian(model.create_basis((3, 2)),
+                            dtype=torch.complex128, device="cpu")
+    jham = jmodel.hamiltonian(jmodel.create_basis((3, 2)),
+                              dtype=np.complex128)
+    return ham.densify_factors(), jham
+
+
+@pytest.mark.parametrize("model,real_factor", [("HubbardOneBand", True),
+                                               ("KaneMeleHubbard", False)])
+def test_complex_factor_matmul_matches_jax_matvec(model, real_factor):
+    """A complex state through the dense one-spin factors: the plain
+    version (``torch.matmul`` on complex tensors) and the plane split the
+    card runs (real and imaginary planes through the real product, here
+    with its plain version) both give the JAX package's matvec.  A factor
+    whose imaginary part vanishes is kept real."""
+    ham, jham = _kane_mele_hamiltonians(model)
+    f = ham.factorized
+    assert f.up_dense.is_complex() != real_factor
+    assert f.dn_dense.is_complex() != real_factor
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(ham.dim) + 1j * rng.standard_normal(ham.dim)
+    want = np.asarray(jham.matvec(x))
+    got = ham.matvec(torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    # the card's plane split, factor by factor and for a block of three
+    szd, szu = ham.spin_shape
+    xb = torch.from_numpy(np.stack([x, 1j * x, x.conj()])).view(3, szd, szu)
+    for a, xv in ((f.up_dense, xb.view(-1, szu)), (f.up_dense, xb[1]),
+                  (f.dn_dense, xb.transpose(1, 2)),
+                  (f.dn_dense, xb[2].T)):
+        ref = kernels.factor_matmul_ref(xv, a)
+        y0 = torch.from_numpy(rng.standard_normal(ref.shape)
+                              + 1j * rng.standard_normal(ref.shape))
+        for accumulate in (False, True):
+            out = y0.clone()
+            kernels._factor_matmul_planes(xv, a, out, accumulate)
+            expect = ref + y0 if accumulate else ref
+            assert (out - expect).abs().max() <= \
+                1e-13 * expect.abs().max()
+    with pytest.raises(TypeError, match="complex state"):
+        kernels._factor_matmul_planes(
+            xb[0], f.up_dense.to(torch.complex64),
+            torch.empty_like(xb[0]), False)
+
+
 def test_cpu_dispatch_launches_nothing():
     """CPU tensors take the plain versions: results equal them and no
     kernel launch is counted."""
