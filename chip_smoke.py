@@ -8,10 +8,10 @@ Run from the repository root, with one CUDA card:
 Phases, each printing one line with its numbers:
 
 1. environment: the card, its power limit, torch and CUDA versions;
-2. build: both hand-written CUDA kernels compiled from csrc/, with each
-   kernel's registers, shared memory and spills (which must be 0, for the
-   complex instantiations of ell_spmv too) and the count of FP64
-   tensor-core instructions (DMMA) in the machine code;
+2. build: the three hand-written CUDA kernels compiled from csrc/, with
+   each kernel's registers, shared memory and spills (which must be 0, for
+   the complex instantiations of ell_spmv and perm_gather too) and the
+   count of FP64 tensor-core instructions (DMMA) in the machine code;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (TF32 off): factor_matmul at 3432^3 (14 sites) and
    924^3 (12 sites) in float64, each also in its transposed accumulate
@@ -32,10 +32,13 @@ Phases, each printing one line with its numbers:
    TestSuite input100's 220^2, with a real and with a complex factor.
    A batch of one must give the unbatched result bit for bit.  Each case
    is timed beside its bound (the least time the card could take:
-   operations over 67 TFLOP/s or bytes over 3.35 TB/s) and, for
-   factor_matmul, beside the library call for the same
-   product (torch.matmul / addmm_, in the turns library, kernel, kernel,
-   library), which the port itself never calls.  The times are the card's
+   operations over 67 TFLOP/s or bytes over 3.35 TB/s) and beside one
+   library call for the same function (in the turns library, kernel,
+   kernel, library), which the port itself never calls: torch.matmul /
+   addmm_ for factor_matmul, and for ell_spmv (and perm_gather, phase 10)
+   the operator as a CSR matrix, diagonal folded in, applied by
+   ``csr @ x`` (cuSPARSE), built outside the timed region.  The times are
+   the card's
    alone: the host queues the work while the card still spins on an
    earlier kernel (median_ms); "from an idle card" is the same launch
    with the host's way to it included;
@@ -72,13 +75,36 @@ Phases, each printing one line with its numbers:
    they are (useComplex: both kernels in their complex forms) and the
    8-site two-orbital FeAs sector with 4 up and 4 down (dim 3 312 400,
    two 1820^2 factors plus the interaction ELL).
+10. the factored forms and the one-spin gather apply at full width
+   (``factored_phase``), each run with the launch counts set to 0 before
+   and read after and held against the form's count a matvec: the 14-site
+   U=4 sector with both one-spin factors in gather form (its E0 against
+   phase 5's; a matvec timed in both forms; perm_gather in the up and dn
+   forms at R = 1 and 14 against its plain version and cuSPARSE), the
+   20-site chain with 10 up and 2 down electrons (dim 35 103 640, the
+   184 756^2 up factor in gather form beside the dense 190^2 dn one; U=0
+   against free fermions, U=4 against the plain versions), and under
+   SolverOptions=factored, each against its flat form's E0 (phase 9's
+   where phase 9 solved it) with the factored build timed apart from the
+   solve: the 18-site t-J ring through the CLI (its largest cross term
+   through perm_gather, its largest tier through factor_matmul with a
+   factor per block), the 24-site Heisenberg ring (its eigenvector against
+   phase 9's, its largest block's product), the 12-site complex Rashba
+   ring (a complex128 cross term) and bench.py's 13-site real one (against
+   the plain versions; a matvec in block order timed beside the flat-order
+   wrap, which the solve does not take), the Kitaev ring at 16 sites against its flat form
+   and at 24 (dim 16 777 216) against the plain versions (its 4096^3 half
+   product), the 8-site FeAs sector's single block, a 7-site FeAs
+   spin-orbit chain with 7 electrons (dim 1 184 040) and the 8-site t-J
+   ring's G_00(omega) through -g against goldens.json and phase 9's.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
 prints no result.  The last lines are a JSON object with the kernels'
 numbers (one entry for each kernel and form of a path, with the launches
-that path counted: ground state, spectral, and the flat models' forms of
-phase 9), the card's name and power limit, and the result object.
+that path counted: ground state, spectral, the flat models' forms of
+phase 9 and the factored forms' and gather apply's of phase 10), the
+card's name and power limit, and the result object.
 """
 
 from __future__ import annotations
@@ -92,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -110,6 +137,10 @@ E0_INPUT100 = -3.0994640142192615  # e0_input100 (dim 48 400)
 E0_INPUT104 = 4.20553470700647     # e0_input104
 E0_HEISENBERG12 = -5.387390917445208  # 12-site S = 1/2 ring (Bethe ansatz
 #                                       to its 8 printed digits: -5.3873909)
+# the FeAs spin-orbit sector of phase 10: sites, up, down (the sector is
+# the total count, 7 electrons on 7 sites, dim 1 184 040); its flat form
+# is built beside it
+FEAS_SO_SECTOR = (7, 4, 3)
 
 INPUT0 = """
 TotalNumberOfSites=4
@@ -128,8 +159,12 @@ IsPeriodicX=0
 """
 
 
-def hubbard_chain_text(nsite: int, u: float) -> str:
-    """Half-filled periodic one-band Hubbard chain, t = -1."""
+def hubbard_chain_text(nsite: int, u: float, nup: int | None = None,
+                       ndown: int | None = None) -> str:
+    """Periodic one-band Hubbard chain, t = -1, half filled unless `nup`
+    and `ndown` say otherwise."""
+    nup = nsite // 2 if nup is None else nup
+    ndown = nsite // 2 if ndown is None else ndown
     return f"""
 TotalNumberOfSites={nsite}
 NumberOfTerms=1
@@ -141,8 +176,8 @@ Model=HubbardOneBand
 hubbardU {nsite} {" ".join([str(u)] * nsite)}
 potentialV {2 * nsite} {" ".join(["0"] * 2 * nsite)}
 SolverOptions=none
-TargetElectronsUp={nsite // 2}
-TargetElectronsDown={nsite // 2}
+TargetElectronsUp={nup}
+TargetElectronsDown={ndown}
 IsPeriodicX=1
 """
 
@@ -184,15 +219,17 @@ def tj_ring_text(nsite: int, nup: int, ndown: int) -> str:
               "IsPeriodicX=1\n")
 
 
-def rashba_ring_text(nsite: int, ne: int) -> str:
-    """Hubbard ring with Rashba spin-orbit coupling, t = -1, U = 4, a
-    complex Rashba amplitude 0.3 + 0.4i (modulus 0.5), complex128."""
+def rashba_ring_text(nsite: int, ne: int, amplitude: str = "(0.3,0.4)",
+                     options: str = "useComplex") -> str:
+    """Hubbard ring with Rashba spin-orbit coupling, t = -1, U = 4, by
+    default a complex Rashba amplitude 0.3 + 0.4i (modulus 0.5) in
+    complex128; bench.py's ring has the real amplitude 0.5."""
     return (f"TotalNumberOfSites={nsite}\nNumberOfTerms=2\n"
-            + _term(-1.0) + _term("(0.3,0.4)")
+            + _term(-1.0) + _term(amplitude)
             + "Model=HubbardOneBandRashbaSOC\n"
               f"hubbardU {nsite} {' '.join(['4'] * nsite)}\n"
               f"potentialV {2 * nsite} {' '.join(['0'] * 2 * nsite)}\n"
-              f"SolverOptions=useComplex\nTargetElectronsTotal={ne}\n"
+              f"SolverOptions={options}\nTargetElectronsTotal={ne}\n"
               "IsPeriodicX=1\n")
 
 
@@ -206,6 +243,41 @@ def feas_ring_text(nsite: int, nup: int, ndown: int) -> str:
             f"0.0 -1.0\npotentialV {4 * nsite} "
             f"{' '.join(['0'] * 4 * nsite)}\nTargetElectronsUp={nup}\n"
             f"TargetElectronsDown={ndown}\nIsPeriodicX=1\n")
+
+
+def kitaev_ring_text(nsite: int) -> str:
+    """Kitaev ring of bench.py: J_x, J_y, J_z = 1.1, 0.7, 0.9."""
+    return (f"TotalNumberOfSites={nsite}\nNumberOfTerms=3\n"
+            + _term(1.1) + _term(0.7) + _term(0.9)
+            + "Model=Kitaev\nSolverOptions=none\nIsPeriodicX=1\n")
+
+
+FEAS_SO = [0.3, 0.1, 0.1, -0.3, 0.2, 0.05, 0.07, -0.2,
+           0.2, 0.07, 0.05, -0.2, -0.3, 0.1, 0.1, 0.3]
+
+
+def feas_spinorbit_chain_text(nsite: int, nup: int, ndown: int) -> str:
+    """Open two-orbital FeAs chain (INT_PAPER33) with a 4 x 4 spin-orbit
+    matrix, the shape of the port's spin-orbit tests: complex128, the
+    sector is the total electron count."""
+    n2 = 4 * nsite
+    so = "\n".join(" ".join(map(str, FEAS_SO[4 * r:4 * r + 4]))
+                   for r in range(4))
+    return (f"TotalNumberOfSites={nsite}\nModel=FeAsBasedSc\n"
+            "FeAsMode=INT_PAPER33\nNumberOfTerms=1\nDegreesOfFreedom=2\n"
+            "Orbitals=2\nGeometryKind=chain\n"
+            "GeometryOptions=ConstantValues\nSolverOptions=none\n"
+            "hubbardU 4 1.0 0.5 -0.2 -0.1\nConnectors 2 2\n-1.0 0.2\n"
+            f"0.2 -0.7\npotentialV {n2}\n{' '.join(['0'] * n2)}\n"
+            f"SpinOrbit 4 4\n{so}\nTargetElectronsUp={nup}\n"
+            f"TargetElectronsDown={ndown}\nIsPeriodicX=0\n")
+
+
+def factored(text: str) -> str:
+    """The same input under SolverOptions=factored."""
+    return text.replace("SolverOptions=none", "SolverOptions=factored") \
+        .replace("SolverOptions=useComplex",
+                 "SolverOptions=useComplex,factored")
 
 
 INPUT10 = (
@@ -281,34 +353,49 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return abs_err, abs_err / ref.abs().max().item()
 
 
-class PlainOperator:
-    """A port Hamiltonian's tensors applied with the plain PyTorch
-    versions of the two kernels, to one state or a batch-major block: the
-    reference the kernel path is held against on the card."""
+@contextlib.contextmanager
+def plain_kernels():
+    """Within this block every kernel wrapper of ``ops/kernels`` is its
+    plain PyTorch version, on any device: the reference a factored form's
+    kernel path is held against on the card (the forms call the wrappers
+    through the module).  No kernel launches in it."""
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    saved = K.factor_matmul, K.ell_spmv, K.perm_gather
+
+    def factor_matmul(x, a, out=None, accumulate=False):
+        y = K.factor_matmul_ref(x, a)
+        if out is None:
+            return y
+        if accumulate:
+            out += y
+        else:
+            out.copy_(y)
+        return out
+    K.factor_matmul, K.ell_spmv, K.perm_gather = (
+        factor_matmul, K.ell_spmv_ref, K.perm_gather_ref)
+    try:
+        yield
+    finally:
+        K.factor_matmul, K.ell_spmv, K.perm_gather = saved
+
+
+class PlainForm:
+    """Any of the port's operators (a sector Hamiltonian in either
+    one-spin form, a block-Kronecker form, the factored Kitaev form)
+    applied with the plain versions of the kernels."""
 
     def __init__(self, ham):
         self.ham = ham
         self.dim, self.dtype, self.device = ham.dim, ham.dtype, ham.device
 
     def matmat_t(self, xk):
-        from lanczosplusplus_tpu_torch.ops import kernels as K
-        h, f = self.ham, self.ham.factorized
-        if h.ell is not None:
-            y = K.ell_spmv_ref(h.diag, h.ell.cols, h.ell.vals, xk)
-        else:
-            y = h.diag * xk
-        if f is not None:
-            shape = (*xk.shape[:-1], *h.spin_shape)
-            x3, y3 = xk.view(shape), y.view(shape)
-            y3 += K.factor_matmul_ref(x3, f.up_dense)
-            y3 += K.factor_matmul_ref(x3.transpose(-1, -2),
-                                      f.dn_dense).transpose(-1, -2)
-        return y
+        with plain_kernels():
+            return self.ham.matmat_t(xk)
 
     matvec = matmat_t
 
 
-class CheckedOperator(PlainOperator):
+class CheckedOperator(PlainForm):
     """Applies through the kernels and, to the same block, through the
     plain versions, keeps the worst difference (of max |y|) and hands on
     the kernels' result: every apply of a recurrence is held at the very
@@ -319,7 +406,7 @@ class CheckedOperator(PlainOperator):
     def matmat_t(self, xk):
         y = self.ham.matmat_t(xk)
         self.worst = max(self.worst,
-                         rel_err(y, PlainOperator.matmat_t(self, xk))[1])
+                         rel_err(y, PlainForm.matmat_t(self, xk))[1])
         return y
 
 
@@ -339,7 +426,7 @@ def recurrence_both_ways(lz, K, ham, v0s, steps):
     results, walls = {}, {"kernel": [], "plain": []}
     both = CheckedOperator(ham)
     for label in ("plain", "kernel", "kernel", "plain", "both"):
-        op = {"kernel": ham, "plain": PlainOperator(ham), "both": both}[label]
+        op = {"kernel": ham, "plain": PlainForm(ham), "both": both}[label]
         count = steps if label != "both" else min(steps, 20)
         before = dict(K.LAUNCHES)
         torch.cuda.synchronize()
@@ -349,7 +436,8 @@ def recurrence_both_ways(lz, K, ham, v0s, steps):
         walls.setdefault(label, []).append(time.perf_counter() - t)
         went = {n: K.LAUNCHES[n] - before[n] for n in before}
         expect = {"factor_matmul": 2 * count,
-                  "ell_spmv": count if ham.ell is not None else 0}
+                  "ell_spmv": count if ham.ell is not None else 0,
+                  "perm_gather": 0}
         check(went == (dict.fromkeys(went, 0) if label == "plain" else expect),
               f"a {label} recurrence of {count} steps launched {went}")
     return results["kernel"], results["plain"], walls, both.worst
@@ -422,6 +510,637 @@ def phase_seconds(stderr_text, label):
         rf"{re.escape(label)}.* done in ([0-9.]+)s", stderr_text)]
 
 
+def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by):
+    """Hold a kernel's result against its plain version's, time the kernel,
+    its plain version and (where there is one) the library call in the
+    turns library, kernel, kernel, library, print one line and append the
+    case to results[kernel].  `times`: kernel, plain and (or None) library
+    callables."""
+    abs_err, rel = rel_err(got, ref)
+    check(rel <= tol, f"{kernel} {case}: rel err {rel:.3e} > {tol:g}")
+    run, plain, library = times
+    reps = 5 if bound_ms > 5 else 20 if bound_ms > 0.2 else 100
+    turns = {"kernel": [], "library": []}
+    for name in ("library", "kernel", "kernel", "library"):
+        fn = run if name == "kernel" else library
+        if fn is not None:
+            turns[name].append(median_ms(fn, reps))
+    ms = float(np.mean(turns["kernel"]))
+    library_ms = (float(np.mean(turns["library"])) if library is not None
+                  else None)
+    plain_ms = median_ms(plain, reps)
+    # what a caller sees on an idle card: the host's way to the launch
+    # is in it (the method of this script's first version)
+    from_idle_ms = median_ms(run, reps, ahead=False)
+    say(f"  {kernel} {case}: max rel err {rel:.3e} (tol {tol:g}), max "
+        f"abs err {abs_err:.3e}, kernel {ms:.4f} ms (turns "
+        f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f}), bound "
+        f"{bound_ms:.4f} ms by {bound_by} (share {bound_ms / ms:.3f}), "
+        f"library "
+        + ("none" if library_ms is None else
+           f"{library_ms:.4f} ms (turns {turns['library'][0]:.4f}, "
+           f"{turns['library'][1]:.4f})")
+        + f", plain {plain_ms:.4f} ms, kernel from an idle card "
+          f"{from_idle_ms:.4f} ms")
+    results[kernel].append(dict(
+        case=case, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        share_of_bound=bound_ms / ms, library_ms=library_ms,
+        from_idle_ms=from_idle_ms))
+
+
+def form_launches(form) -> dict:
+    """The kernel launches predicted for one single-state matvec of a
+    factored form, read off its structure, by form (the names
+    ``launches_by_site`` measures them under): a block-Kronecker form's
+    within-block products and CrossTerm
+    products ('within'), its tiers' stacked products ('tier') and its
+    PermCrossTerms ('cross term', one perm_gather each); the Kitaev form's
+    half-chain and cut products ('kitaev').  A complex state goes through
+    factor_matmul as its two planes (ops/kernels.py): one launch for a
+    shared real factor, two for real factors one per batch member, and two
+    more for a complex factor."""
+    def gemm(a):
+        if not form.dtype.is_complex:
+            return 1
+        return (1 if a.dim() == 2 else 2) + 2 * a.is_complex()
+    if not hasattr(form, "shapes"):
+        return {"kitaev": gemm(form.hr_t) + gemm(form.hl) + (
+            gemm(form.p) + gemm(form.q_cat) if form.p.shape[0] else 0)}
+    in_tier = {b for idxs, _, _ in form.tiers or () for b in idxs}
+    within = sum(gemm(op) for b in range(len(form.shapes)) if b not in in_tier
+                 for op in (form.row_ops[b], form.col_ops[b])
+                 if op is not None)
+    within += sum(gemm(t.right) + gemm(t.left_cat) + (
+        gemm(t.right_h) + gemm(t.left_h_cat) if t.add_hc else 0)
+        for t in form.cross)
+    tier = sum(gemm(op) for op in (*form.row_t, *form.col_t)
+               if op is not None)
+    return {"within": within, "tier": tier,
+            "cross term": len(form.perm_cross)}
+
+
+@contextlib.contextmanager
+def launches_by_site():
+    """Counts, while the block runs, every kernel launch by the call site
+    it comes from, and every apply of a form apart from the launch
+    counters.  The launches of each outermost wrapper call are read off
+    ``LAUNCHES`` around it and go to the apply innermost on the stack: a
+    block-Kronecker apply's own products, within-block and CrossTerm
+    ('within'), and its perm_gathers, the PermCrossTerms ('cross term');
+    a tier's products ('tier'); a Kitaev apply's products ('kitaev'); a
+    one-spin apply's gathers ('one-spin up', the rows the identity, or
+    'one-spin dn') and dense factors ('one-spin dense'); any other
+    ('elsewhere').  Yields (launches by form, outermost calls by apply:
+    'blockkron', 'tier', 'kitaev', 'one-spin')."""
+    from lanczosplusplus_tpu_torch.core import blockkron, sparse
+    from lanczosplusplus_tpu_torch.models import kitaev_factored
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    forms, applies, stack = {}, {}, []
+    label = {("blockkron", "factor_matmul"): "within",
+             ("blockkron", "perm_gather"): "cross term",
+             ("tier", "factor_matmul"): "tier",
+             ("kitaev", "factor_matmul"): "kitaev",
+             ("one-spin", "factor_matmul"): "one-spin dense"}
+
+    def apply(fn, site):
+        def wrapped(*args, **kwargs):
+            if site not in stack:
+                applies[site] = applies.get(site, 0) + 1
+            stack.append(site)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stack.pop()
+        return wrapped
+
+    def kernel(fn, name):
+        def wrapped(*args, **kwargs):
+            if stack and stack[-1] == "kernel":   # the planes wrapper's calls
+                return fn(*args, **kwargs)
+            where = stack[-1] if stack else None
+            before = K.LAUNCHES[name]
+            stack.append("kernel")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stack.pop()
+                form = label.get((where, name), "elsewhere")
+                if (where, name) == ("one-spin", "perm_gather"):
+                    form = ("one-spin up" if kwargs.get("rs") is None
+                            else "one-spin dn")
+                forms[form] = forms.get(form, 0) + K.LAUNCHES[name] - before
+        return wrapped
+    patches = ((blockkron.BlockKronHamiltonian, "matmat_t", apply,
+                "blockkron"),
+               (blockkron.BlockKronHamiltonian, "_apply_tier", apply, "tier"),
+               (kitaev_factored.FactoredKitaevHamiltonian, "matmat_t", apply,
+                "kitaev"),
+               (sparse.SpinFactorizedPart, "apply_", apply, "one-spin"),
+               (K, "factor_matmul", kernel, "factor_matmul"),
+               (K, "perm_gather", kernel, "perm_gather"))
+    saved = [(owner, attr, getattr(owner, attr))
+             for owner, attr, _, _ in patches]
+    for owner, attr, wrap, arg in patches:
+        setattr(owner, attr, wrap(getattr(owner, attr), arg))
+    try:
+        yield forms, applies
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def coo_to_csr(dst, src, val, shape):
+    """A CSR matrix on the entries' device from COO triples: zero entries
+    dropped, duplicates summed."""
+    keep = val != 0
+    with warnings.catch_warnings():   # sparse CSR is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([dst[keep], src[keep]]), val[keep], shape,
+            check_invariants=False).coalesce().to_sparse_csr()
+
+
+def ell_csr(diag, cols, vals):
+    """ell_spmv's operator, diag * x + sum_k vals[:, k] x[cols[:, k]], as
+    one CSR matrix with the diagonal folded in: the form in which one
+    library call (``csr @ x``, cuSPARSE's SpMV, or its SpMM for a block)
+    computes the same function."""
+    dim, k = cols.shape
+    rows = torch.arange(dim, device=cols.device)
+    return coo_to_csr(torch.cat([rows, rows.repeat_interleave(k)]),
+                      torch.cat([rows, cols.reshape(-1).long()]),
+                      torch.cat([diag.to(vals.dtype), vals.reshape(-1)]),
+                      (dim, dim))
+
+
+def perm_csr(tables, src_shape, dst_shape, dtype, device):
+    """perm_gather's operator, Y[r, c] += sum_n a[n, r] beta[n, c]
+    X[rs[n, r], cs[n, c]], as one (Y elements, X elements) CSR matrix: the
+    library's form of the same function.  A missing table is the
+    identity, amplitude 1."""
+    rs, a, cs, beta = (tables.get(k) for k in ("rs", "a", "cs", "beta"))
+    rows, cols = dst_shape
+    nb = next(t.shape[0] for t in (rs, a, cs, beta) if t is not None)
+    r = torch.arange(rows, device=device)
+    c = torch.arange(cols, device=device)
+    sr = r.expand(nb, rows) if rs is None else rs.long()
+    sc = c.expand(nb, cols) if cs is None else cs.long()
+    va = torch.ones(nb, rows, dtype=dtype, device=device) if a is None else a
+    vb = (torch.ones(nb, cols, dtype=dtype, device=device) if beta is None
+          else beta)
+    src = (sr[:, :, None] * src_shape[1] + sc[:, None, :]).reshape(-1)
+    dst = (r[:, None] * cols + c[None, :]).expand(nb, rows, cols).reshape(-1)
+    return coo_to_csr(dst, src, (va[:, :, None] * vb[:, None, :]).reshape(-1),
+                      (rows * cols, src_shape[0] * src_shape[1]))
+
+
+def perm_gather_case(results, case, x, y0, tables):
+    """perm_gather against its plain version on one block x (or a batch)
+    added into y0, timed beside its bytes bound (Y read and written, X and
+    the tables read once) and beside ``csr @ x`` on the same operator as
+    a CSR matrix, built outside the timed region (the library writes a
+    fresh output where the kernel adds into Y)."""
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    got = y0.clone()
+    K.perm_gather(x, got, **tables)
+    ref = K.perm_gather_ref(x, y0.clone(), **tables)
+    torch.cuda.synchronize()
+    csr = perm_csr(tables, x.shape[-2:], y0.shape[-2:], x.dtype, x.device)
+    xl = x.reshape(-1) if x.dim() == 2 else \
+        x.reshape(x.shape[0], -1).T.contiguous()
+    lib = csr @ xl
+    lib = lib.view(y0.shape) if x.dim() == 2 else lib.T.reshape(y0.shape)
+    lib_err = rel_err(lib, ref - y0)[1]
+    check(lib_err <= 1e-12, f"perm_gather {case}: the CSR form differs by "
+                            f"{lib_err:.3e}")
+    y1 = y0.clone()
+    nbytes = (2 * y0.numel() + x.numel()) * x.element_size() + sum(
+        t.numel() * t.element_size() for t in tables.values())
+    record(results, "perm_gather", case, got, ref, TOL_ELL_F64,
+           (lambda: K.perm_gather(x, y1, **tables),
+            lambda: K.perm_gather_ref(x, y1, **tables),
+            lambda: csr @ xl),
+           1e3 * nbytes / PEAK_BYTES, "bytes")
+
+
+@contextlib.contextmanager
+def timed_factored_builds(seconds: list):
+    """Appends the seconds of every factored-form build (host numpy, the
+    tables' transfer included) made inside the block to `seconds`."""
+    from lanczosplusplus_tpu_torch.models import factored as fmod
+    build = fmod.factored_hamiltonian_or_none
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        made = build(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return made
+    fmod.factored_hamiltonian_or_none = timed
+    try:
+        yield
+    finally:
+        fmod.factored_hamiltonian_or_none = build
+
+
+def factored_phase(dev, gen, results, refs):
+    """Phase 10: the factored forms (SolverOptions=factored) and the
+    one-spin gather apply at full width, each run with the launch counts
+    set to 0 before and read after.  `refs` holds what the earlier phases
+    computed: the 14-site U=4 E0 and start vector, the flat models' E0s,
+    the 24-site Heisenberg flat eigenvector and the flat 8-site t-J
+    G_00(omega) on goldens.json's points.  Returns ({run label: {"counts":
+    launches, "forms": launches by form, "applies": applies of the form}},
+    {perm_gather case of a PermCrossTerm: the run label of its form}), the
+    launches by form and the applies measured by ``launches_by_site``."""
+    from lanczosplusplus_tpu_torch import Config
+    from lanczosplusplus_tpu_torch.cli import lanczos_main
+    from lanczosplusplus_tpu_torch.engine import Engine
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    runs, cross_cases = {}, {}
+    f64 = torch.float64
+
+    def run_record(label, counts, forms, applies, want_forms):
+        """Keeps a run's launches, by kernel and by form, and holds the
+        forms' launches against `want_forms` (None: not predicted) and
+        their sum against the kernels' counts (no ell_spmv in phase
+        10)."""
+        forms = {k: n for k, n in forms.items() if n}
+        runs[label] = {"counts": counts, "forms": forms, "applies": applies}
+        say(f"  {label}: launches by form, counted at their call sites, "
+            f"{forms}; applies {applies}")
+        check(sum(forms.values()) == counts["factor_matmul"]
+              + counts["perm_gather"] and "elsewhere" not in forms
+              and counts["ell_spmv"] == 0,
+              f"{label}: launches {counts}, by form {forms}")
+        if want_forms is not None:
+            want = {k: n for k, n in want_forms.items() if n}
+            check(forms == want, f"{label}: launches by form {forms}, "
+                                 f"predicted {want}")
+
+    def agree(label, got, want):
+        err = abs(got - want) / abs(want)
+        say(f"  {label}: E0 {got!r} against {want!r}, rel err {err:.3e}")
+        check(err <= TOL_E0, f"{label}: rel err {err:.3e}")
+
+    def plain_solve(label, form, seed, max_steps, e0, v0=None):
+        """The same solve with the plain versions of the kernels from the
+        same start vector; no kernel may launch."""
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        evals, _ = lz.lowest_states(PlainForm(form), seed=seed,
+                                    max_steps=max_steps, v0=v0)
+        torch.cuda.synchronize()
+        agree(f"{label}, kernel path against plain versions "
+              f"({time.perf_counter() - t:.3f} s)", e0, float(evals[0]))
+        check(dict(K.LAUNCHES) == before,
+              f"{label}: the plain solve launched a kernel")
+
+    def step_ms(label, forms, x):
+        """ms of one matvec of each (name, form), in the turns a, b, b, a."""
+        names = [n for n, _ in forms]
+        turns = {n: [] for n in names}
+        for n in names + names[::-1]:
+            form = dict(forms)[n]
+            turns[n].append(median_ms(lambda: form.matvec(x), 10))
+        say(f"  {label}: ms a matvec " + ", ".join(
+            f"{n} {np.mean(t):.4f} (turns {t[0]:.4f}, {t[1]:.4f})"
+            for n, t in turns.items()))
+        return {n: float(np.mean(t)) for n, t in turns.items()}
+
+    # -- the one-spin gather apply: 14 sites, both factors gathered ------
+    inp = parse_input(hubbard_chain_text(14, 4))
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+    ham = model.hamiltonian(basis, dtype=f64, device=dev)
+    gform, dform = ham.densify_factors(max_bytes=0), ham.densify_factors()
+    f = gform.factorized
+    check(f.up_dense is None and f.dn_dense is None
+          and dform.factorized.up_dense is not None, "14-site forms")
+    szd, szu = ham.spin_shape
+    for side in ("up", "dn"):
+        idx, amp = f.up_gather if side == "up" else f.dn_gather
+        tables = ({"cs": idx, "beta": amp} if side == "up"
+                  else {"rs": idx, "a": amp})
+        for rows in (1, 14):
+            shape = (szd, szu) if rows == 1 else (rows, szd, szu)
+            perm_gather_case(
+                results, f"f64 14-site one-spin {side} gather form, "
+                f"R={rows} ({idx.shape[0]} channels)",
+                torch.randn(shape, generator=gen, device=dev, dtype=f64),
+                torch.randn(shape, generator=gen, device=dev, dtype=f64),
+                tables)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with launches_by_site() as (forms, applies):
+        evals, vecs, info = lz.lowest_states(
+            gform, seed=SEED, v0=refs["v0_u4"], return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(K.LAUNCHES)
+    matvecs = applies.get("one-spin", 0)
+    say(f"phase 10 14-site U=4, both one-spin factors in gather form "
+        f"(densify_factors(max_bytes=0)): dim {gform.dim}, steps "
+        f"{info.steps}, matvecs {matvecs}, solve {wall:.3f} s, launches "
+        f"{counts}")
+    run_record("14-site gather form", counts, forms, applies,
+               {"one-spin up": matvecs, "one-spin dn": matvecs})
+    check(matvecs > 0 and info.converged, "14-site gather form: no apply "
+                                          "or unconverged")
+    agree("14-site gather form against phase 5's dense form",
+          float(evals[0]), refs["e0_u4"])
+    step_ms("14-site, dense factors against gather form",
+            (("dense", dform), ("gather", gform)), vecs[0].contiguous())
+    del ham, gform, dform, f, vecs
+    torch.cuda.empty_cache()
+
+    # -- 20 sites: an up factor too large to densify ---------------------
+    nsite, nup, ndn = 20, 10, 2
+    levels = np.sort(-2.0 * np.cos(2.0 * np.pi * np.arange(nsite) / nsite))
+    e_free = levels[:nup].sum() + levels[:ndn].sum()
+    for u in (0, 4):
+        inp = parse_input(hubbard_chain_text(nsite, u, nup, ndn))
+        model = build_model(inp, Geometry(inp))
+        config = Config.from_input(inp, device=dev)
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with launches_by_site() as (forms, applies):
+            eng = Engine(model, inp, config=config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        fz = eng.hamiltonian.factorized
+        matvecs = applies.get("one-spin", 0)
+        say(f"phase 10 20-site U={u}, N_up {nup}, N_dn {ndn}: dim "
+            f"{eng.basis.size}, up factor {(fz.up_cols.shape[0],) * 2} in "
+            f"gather form, dn "
+            f"factor {tuple(fz.dn_dense.shape)} dense, steps "
+            f"{eng.solve_info.steps}, matvecs {matvecs}, E0 "
+            f"{eng.ground_energy!r}, time to E0 {wall:.3f} s, launches "
+            f"{counts}, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        check(eng.basis.size == 35_103_640 and fz.up_dense is None
+              and fz.dn_dense is not None, "20-site forms")
+        run_record(f"20-site U={u}", counts, forms, applies,
+                   {"one-spin up": matvecs, "one-spin dense": matvecs})
+        check(matvecs > 0, "20-site: no apply")
+        if u == 0:
+            agree("20-site U=0 against free fermions", eng.ground_energy,
+                  e_free)
+        else:
+            plain_solve("20-site U=4", eng.hamiltonian, config.seed,
+                        config.lanczos_steps, eng.ground_energy)
+        del eng, fz
+        torch.cuda.empty_cache()
+
+    # -- the factored forms ----------------------------------------------
+    def solve_factored(label, text, want=None, plain=False, cli=False):
+        """One input under SolverOptions=factored on the card, through the
+        Engine or the CLI: the factored build timed apart from the solve,
+        launches held against the form's count a matvec, E0 against
+        `want` and (with `plain`) against the plain versions."""
+        inp = parse_input(factored(text))
+        builds = []
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with timed_factored_builds(builds), \
+                launches_by_site() as (forms, applies):
+            if cli:
+                eng, out, _, _, wall = run_cli(lanczos_main, factored(text))
+                energy = float(re.search(r"^Energy=(\S+)$", out,
+                                         re.M).group(1))
+                check(energy == eng.ground_energy, f"{label}: printed "
+                      f"{energy!r}, engine {eng.ground_energy!r}")
+            else:
+                model = build_model(inp, Geometry(inp))
+                eng = Engine(model, inp,
+                             config=Config.from_input(inp, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(K.LAUNCHES)
+        check(eng._factored, f"{label}: flat fallback "
+                             f"({eng.factored_fallback_reason})")
+        ham = eng._cached_hamiltonian(eng.parts)
+        form = getattr(ham, "inner", ham)
+        per = form_launches(form)
+        matvecs = applies.get("blockkron" if hasattr(form, "shapes")
+                              else "kitaev", 0)
+        info = eng.solve_info
+        shape = (f"{len(form.shapes)} blocks (largest "
+                 f"{max(form.shapes, key=lambda s: s[0] * s[1])}), "
+                 f"{len(form.tiers or ())} tiers, {len(form.cross)} "
+                 f"CrossTerms, {len(form.perm_cross)} PermCrossTerms"
+                 if hasattr(form, "shapes") else
+                 f"halves {tuple(form.diag2d.shape)}, {form.p.shape[0]} "
+                 f"cut terms")
+        solve_s = wall - sum(builds)
+        say(f"phase 10 {label}, factored{' via CLI' if cli else ''}: dim "
+            f"{ham.dim}, {ham.dtype}, {type(ham).__name__}: {shape}; "
+            f"launches a matvec predicted {per}; steps {info.steps}, "
+            f"matvecs (applies counted apart from the launches) "
+            f"{matvecs}, E0 {eng.ground_energy!r}, time to E0 {wall:.3f} s "
+            f"= factored build {sum(builds):.3f} s + basis and solve "
+            f"{solve_s:.3f} s ({1e3 * solve_s / max(matvecs, 1):.3f} ms a "
+            f"matvec), launches {counts}, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        check(info.converged, f"{label} unconverged")
+        run_record(label, counts, forms, applies,
+                   {k: n * matvecs for k, n in per.items()})
+        check(matvecs > 0, f"{label}: no apply")
+        vec = eng.eigenvector(0)
+        check(vec.device.type == "cuda" and vec.shape == (ham.dim,),
+              f"{label}: eigenvector {tuple(vec.shape)}")
+        if want is not None:
+            agree(f"{label} against the flat form", eng.ground_energy, want)
+        if plain:
+            plain_solve(label, form, eng.config.seed,
+                        eng.config.lanczos_steps, eng.ground_energy)
+        return eng, form
+
+    def cross_case(name, run, form):
+        """perm_gather on the largest PermCrossTerm of a form (channels
+        times destination block), its own tables on random blocks."""
+        term = max(form.perm_cross, key=lambda t: t.row_src.numel()
+                   * t.col_src.shape[1])
+        src, dst = form.shapes[term.src], form.shapes[term.dst]
+        case = (f"{'c128' if form.dtype.is_complex else 'f64'} {name} "
+                f"largest PermCrossTerm ({term.row_src.shape[0]} channels, "
+                f"block {term.src} {src} -> {term.dst} {dst})")
+        perm_gather_case(
+            results, case,
+            torch.randn(src, generator=gen, device=dev, dtype=form.dtype),
+            torch.randn(dst, generator=gen, device=dev, dtype=form.dtype),
+            {"rs": term.row_src, "a": term.row_amp, "cs": term.col_src,
+             "beta": term.col_amp})
+        cross_cases[case] = run
+
+    # t-J: 18 sites through the CLI; its largest cross term and tier
+    label = "18-site t-J ring, 8 up 8 down"
+    eng, form = solve_factored(label, tj_ring_text(18, 8, 8),
+                               want=refs[label], cli=True)
+    cross_case("18-site t-J", label, form)
+    t_big = max(range(len(form.tiers)), key=lambda i: form.col_t[i].numel())
+    a3 = form.col_t[t_big]
+    nblk, rt = form.diag_t[t_big].shape[:2]
+    x3 = torch.randn(nblk, rt, a3.shape[1], generator=gen, device=dev,
+                     dtype=f64)
+    y0 = torch.randn_like(x3)
+    got = y0.clone()
+    K.factor_matmul(x3, a3, out=got, accumulate=True)
+    ref = y0 + torch.matmul(x3, a3.transpose(1, 2))
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    record(results, "factor_matmul",
+           f"f64 18-site t-J tier: {nblk} blocks of {rt}x{a3.shape[1]} . "
+           f"their own {a3.shape[1]}^2 factors, one launch (A batch "
+           f"stride)", got, ref, TOL_F64,
+           (lambda: K.factor_matmul(x3, a3, out=y1, accumulate=True),
+            lambda: y1.add_(K.factor_matmul_ref(x3, a3)),
+            lambda: y1.baddbmm_(x3, a3.transpose(1, 2))),
+           1e3 * 2 * x3.numel() * a3.shape[1] / PEAK_FLOPS, "operations")
+    del eng, form, x3, y0, y1, got, ref, a3
+
+    # Heisenberg: 24 sites; its eigenvector against the flat one, and its
+    # largest block's row product
+    eng, form = solve_factored("24-site Heisenberg ring",
+                               heisenberg_ring_text(24),
+                               want=refs["24-site Heisenberg ring"])
+    overlap = abs(torch.vdot(eng.eigenvector(0),
+                             refs["heisenberg24 vector"]).item())
+    say(f"  24-site Heisenberg: |<flat|factored>| of the ground states in "
+        f"flat order {overlap!r}")
+    check(abs(overlap - 1.0) <= 1e-8, f"eigenvector overlap {overlap!r}")
+    b = max((b for b in range(len(form.shapes))
+             if form.row_ops[b] is not None),
+            key=lambda b: form.shapes[b][0] * form.shapes[b][1])
+    r, c = form.shapes[b]
+    a2 = form.row_ops[b]
+    x2 = torch.randn(r, c, generator=gen, device=dev, dtype=f64)
+    y0 = torch.randn(r, c, generator=gen, device=dev, dtype=f64)
+    got = y0.clone()
+    K.factor_matmul(x2.T, a2, out=got.T, accumulate=True)
+    ref = y0 + a2 @ x2
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    record(results, "factor_matmul",
+           f"f64 24-site Heisenberg largest block: Y+=row_op.X, {r}^2 "
+           f"factor on a {r}x{c} block (transposed views)", got, ref, TOL_F64,
+           (lambda: K.factor_matmul(x2.T, a2, out=y1.T, accumulate=True),
+            lambda: y1.T.add_(K.factor_matmul_ref(x2.T, a2)),
+            lambda: y1.addmm_(a2, x2)),
+           1e3 * 2 * r * r * c / PEAK_FLOPS, "operations")
+    del eng, form, a2, x2, y0, y1, got, ref
+
+    # Rashba half-cut: the 12-site complex ring, then bench.py's 13 sites
+    label = "12-site Rashba ring, 12 electrons"
+    eng, form = solve_factored(label, rashba_ring_text(12, 12),
+                               want=refs[label])
+    cross_case("12-site Rashba half-cut", label, form)
+    del eng, form
+    torch.cuda.empty_cache()
+    label = "13-site Rashba ring, 13 electrons"
+    eng, form = solve_factored(label, rashba_ring_text(
+        13, 13, amplitude="0.5", options="none"), plain=True)
+    cross_case("13-site Rashba half-cut", label, form)
+    # the solve runs in block order; the flat-order wrap (a signed gather
+    # before and after each matvec) is timed once beside it
+    step_ms("13-site Rashba half-cut, block order against the flat-order "
+            "wrap", (("factored", form),
+                     ("wrapped", eng._cached_hamiltonian(eng.parts))),
+            eng.eigenvector(0).to(form.dtype))
+    del eng, form
+    torch.cuda.empty_cache()
+
+    # Kitaev: 16 sites against the flat form, 24 sites for time
+    inp = parse_input(kitaev_ring_text(16))
+    flat16 = Engine(build_model(inp, Geometry(inp)), inp,
+                    config=Config.from_input(inp, device=dev))
+    solve_factored("16-site Kitaev ring", kitaev_ring_text(16),
+                   want=flat16.ground_energy)
+    del flat16
+    eng, form = solve_factored("24-site Kitaev ring", kitaev_ring_text(24),
+                               plain=True)
+    half = form.hl.shape[0]
+    x2 = torch.randn(half, half, generator=gen, device=dev, dtype=f64)
+    y0 = torch.randn(half, half, generator=gen, device=dev, dtype=f64)
+    got = y0.clone()
+    K.factor_matmul(x2.T, form.hl, out=got.T, accumulate=True)
+    ref = y0 + form.hl @ x2
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    hl = form.hl
+    record(results, "factor_matmul",
+           f"f64 24-site Kitaev left half: Y+=H_L.X, {half}^3 (transposed "
+           f"views)", got, ref, TOL_F64,
+           (lambda: K.factor_matmul(x2.T, hl, out=y1.T, accumulate=True),
+            lambda: y1.T.add_(K.factor_matmul_ref(x2.T, hl)),
+            lambda: y1.addmm_(hl, x2)),
+           1e3 * 2 * half ** 3 / PEAK_FLOPS, "operations")
+    del eng, form, hl, x2, y0, y1, got, ref
+    torch.cuda.empty_cache()
+
+    # FeAs: the 8-site sector's single block, and the spin-orbit union
+    label = "8-site two-orbital FeAs sector, 4 up 4 down"
+    eng, form = solve_factored(label, feas_ring_text(8, 4, 4),
+                               want=refs[label])
+    cross_case("8-site FeAs interaction", label, form)
+    del eng, form
+    torch.cuda.empty_cache()
+    so_text = feas_spinorbit_chain_text(*FEAS_SO_SECTOR)
+    inp = parse_input(so_text)
+    model = build_model(inp, Geometry(inp))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flat_so = Engine(model, inp, config=Config.from_input(inp, device=dev))
+    torch.cuda.synchronize()
+    say(f"phase 10 FeAs spin-orbit flat form, {FEAS_SO_SECTOR[0]} sites, "
+        f"{sum(FEAS_SO_SECTOR[1:])} electrons: dim {flat_so.basis.size}, "
+        f"time to E0 {time.perf_counter() - t:.3f} s")
+    label = f"{FEAS_SO_SECTOR[0]}-site FeAs spin-orbit chain"
+    eng, form = solve_factored(label, so_text, want=flat_so.ground_energy)
+    cross_case(f"{FEAS_SO_SECTOR[0]}-site FeAs spin-orbit", label, form)
+    del flat_so, eng, form
+
+    # t-J 8 sites, -g c under SolverOptions=factored
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmarks", "goldens.json")) as fh:
+        goldens = json.load(fh)
+    K.reset_launches()
+    with launches_by_site() as (forms, applies):
+        eng, _, _, combs, wall = run_cli(
+            lanczos_main,
+            factored(tj_ring_text(8, 3, 3)) + "TSPSites 2 0 0\n", ["-g", "c"])
+    counts = dict(K.LAUNCHES)
+    run_record("8-site t-J -g", counts, forms, applies, None)
+    got = combs[0].evaluate(np.asarray(goldens["gf_tj_omegas"]),
+                            goldens["gf_tj_delta"])
+    want = np.asarray(goldens["gf_tj_re"]) + 1j * np.asarray(
+        goldens["gf_tj_im"])
+    gf_err = np.abs(got - want).max() / np.abs(want).max()
+    flat_err = np.abs(got - refs["gf_tj"]).max() / np.abs(
+        refs["gf_tj"]).max()
+    say(f"phase 10 8-site t-J ring via CLI -g c, SolverOptions=factored: "
+        f"G_00(omega + 0.25i) against goldens.json max rel err {gf_err:.3e} "
+        f"(tolerance 1e-9), against the flat -g {flat_err:.3e} (tolerance "
+        f"1e-12), wall {wall:.3f} s, launches {counts}")
+    check(eng._factored and gf_err <= 1e-9 and flat_err <= 1e-12,
+          f"factored -g: golden {gf_err:.3e}, flat {flat_err:.3e}")
+    check(counts["perm_gather"] > 0 and counts["factor_matmul"] > 0,
+          f"factored -g launches {counts}")
+    return runs, cross_cases
+
+
 def main() -> None:
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -460,7 +1179,13 @@ def main() -> None:
         # BM, BN, X k-major, A k-major
         found = re.search(r"dmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)",
                           r["name"])
-        if found:
+        gather = re.search(r"perm_gather_kernelI(NS_4CplxE|d)E", r["name"])
+        if gather:
+            tag = "c128" if "Cplx" in gather.group(1) else "f64"
+            label = (f"perm_gather {tag}, static smem "
+                     f"{r['static_smem_bytes']} B")
+            built.add(f"perm_gather {tag}")
+        elif found:
             bm, bn, xk, ak = map(int, found.groups())
             bits = K.MatmulPlan(bool(xk), False, bool(ak), False, False,
                                 bm).bits
@@ -485,7 +1210,8 @@ def main() -> None:
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
               f"{r['name']} spills registers")
     check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
-           "ell_spmv c64"} <= built, f"ell_spmv instantiations: {built}")
+           "ell_spmv c64", "perm_gather f64", "perm_gather c128"} <= built,
+          f"ell_spmv and perm_gather instantiations: {built}")
     dmma = build.sass_opcode_counts(lib, "DMMA")
     say(f"  DMMA instructions in the library's machine code: {dmma} "
         f"(None: no cuobjdump)")
@@ -497,41 +1223,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     say("phase 3 kernels: torch.backends.cuda.matmul.allow_tf32 = False")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {"factor_matmul": [], "ell_spmv": []}
-
-    def record(kernel, case, got, ref, tol, times, bound_ms, bound_by):
-        """`times`: kernel, plain and (or None) library callables."""
-        abs_err, rel = rel_err(got, ref)
-        check(rel <= tol, f"{kernel} {case}: rel err {rel:.3e} > {tol:g}")
-        run, plain, library = times
-        reps = 5 if bound_ms > 5 else 20 if bound_ms > 0.2 else 100
-        turns = {"kernel": [], "library": []}
-        for name in ("library", "kernel", "kernel", "library"):
-            fn = run if name == "kernel" else library
-            if fn is not None:
-                turns[name].append(median_ms(fn, reps))
-        ms = float(np.mean(turns["kernel"]))
-        library_ms = (float(np.mean(turns["library"])) if library is not None
-                      else None)
-        plain_ms = median_ms(plain, reps)
-        # what a caller sees on an idle card: the host's way to the launch
-        # is in it (the method of this script's first version)
-        from_idle_ms = median_ms(run, reps, ahead=False)
-        say(f"  {kernel} {case}: max rel err {rel:.3e} (tol {tol:g}), max "
-            f"abs err {abs_err:.3e}, kernel {ms:.4f} ms (turns "
-            f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f}), bound "
-            f"{bound_ms:.4f} ms by {bound_by} (share {bound_ms / ms:.3f}), "
-            f"library "
-            + ("none" if library_ms is None else
-               f"{library_ms:.4f} ms (turns {turns['library'][0]:.4f}, "
-               f"{turns['library'][1]:.4f})")
-            + f", plain {plain_ms:.4f} ms, kernel from an idle card "
-              f"{from_idle_ms:.4f} ms")
-        results[kernel].append(dict(
-            case=case, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            share_of_bound=bound_ms / ms, library_ms=library_ms,
-            from_idle_ms=from_idle_ms))
+    results = {"factor_matmul": [], "ell_spmv": [], "perm_gather": []}
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt, tol, shapes in (
@@ -556,7 +1248,7 @@ def main() -> None:
             got = K.factor_matmul(x, a)
             ref = K.factor_matmul_ref(x, a)
             torch.cuda.synchronize()
-            record("factor_matmul", f"{tag} {m}x{k}.{n}x{k}^T ({path})", got,
+            record(results, "factor_matmul", f"{tag} {m}x{k}.{n}x{k}^T ({path})", got,
                    ref, tol,
                    (lambda: K.factor_matmul(x, a, out=out),
                     lambda: K.factor_matmul_ref(x, a),
@@ -571,7 +1263,7 @@ def main() -> None:
             ref = y0 + a @ x
             torch.cuda.synchronize()
             y1 = y0.clone()
-            record("factor_matmul",
+            record(results, "factor_matmul",
                    f"{tag} {m}^3 Y+=A.X transposed views ({path})", got, ref,
                    tol,
                    (lambda: K.factor_matmul(x.T, a, out=y1.T,
@@ -605,7 +1297,7 @@ def main() -> None:
         ref = K.factor_matmul_ref(xf, a_up)
         torch.cuda.synchronize()
         out = torch.empty_like(xf)
-        record("factor_matmul",
+        record(results, "factor_matmul",
                f"f64 batched up form ({rows}*{szd})x{szu}.{szu}x{szu}^T, "
                f"batch folded into the rows (128-tile, {copies})",
                got, ref, TOL_F64,
@@ -626,7 +1318,7 @@ def main() -> None:
         ref = yb + torch.matmul(a_dn, xb)
         torch.cuda.synchronize()
         y1 = yb.clone()
-        record("factor_matmul",
+        record(results, "factor_matmul",
                f"f64 batched dn form R={rows}: Y[b]+=A.X[b], {szd}^2 factor "
                f"on ({szu}x{szd})^T views, one launch (128-tile, X {copies})",
                got, ref, TOL_F64,
@@ -644,7 +1336,7 @@ def main() -> None:
     ref = K.factor_matmul_ref(xr, ar)
     torch.cuda.synchronize()
     out = torch.empty_like(got)
-    record("factor_matmul", "f64 ragged batch R=3 of 300x257.123x257^T "
+    record(results, "factor_matmul", "f64 ragged batch R=3 of 300x257.123x257^T "
            "(64-tile, 8-byte copies)", got, ref, TOL_F64,
            (lambda: K.factor_matmul(xr, ar, out=out),
             lambda: K.factor_matmul_ref(xr, ar),
@@ -682,7 +1374,7 @@ def main() -> None:
         torch.cuda.synchronize()
         out = torch.empty_like(xc)
         products = 2 if factor_is_real else 4
-        record("factor_matmul",
+        record(results, "factor_matmul",
                f"c128 planes {size}x{size}.{size}x{size}^T, "
                f"{'real' if factor_is_real else 'complex'} factor "
                f"({went} launch{'es' if went > 1 else ''} of the f64 kernel "
@@ -768,14 +1460,26 @@ def main() -> None:
                                   K.ell_spmv(diag, cols, vals, x[b])),
                       f"ell_spmv: row {b} of the batch differs from its 1-D "
                       f"call")
+        # the library's form: one CSR matrix, diagonal folded in, applied
+        # by csr @ x (a block as a column-major (dim, R) copy), built
+        # outside the timed region
+        csr = ell_csr(diag, cols, vals)
+        xl = x if x.dim() == 1 else x.T.contiguous()
+        lib_err = rel_err((csr @ xl) if x.dim() == 1 else (csr @ xl).T,
+                          ref)[1]
+        check(lib_err <= 1e-12 if diag.dtype != torch.float32 else
+              lib_err <= TOL_F32, f"ell_spmv {case}: the CSR form differs "
+                                  f"by {lib_err:.3e}")
         # per row: K indices and K values and diag read once; per batch
         # member x read and y written
         size = x.element_size()
         row_bytes = cols.shape[1] * (4 + size) + size \
             + 2 * size * (shape[0] if len(shape) == 2 else 1)
-        record("ell_spmv", case, got, ref, tol,
-               (lambda: K.ell_spmv(diag, cols, vals, x), plain, None),
+        record(results, "ell_spmv", case, got, ref, tol,
+               (lambda: K.ell_spmv(diag, cols, vals, x), plain,
+                lambda: csr @ xl),
                1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes")
+        del csr, xl
 
     for case in ell_cases:
         ell_case(*case)
@@ -842,6 +1546,8 @@ def main() -> None:
         f"{1e3 * wall_u4 / mv_u4:.3f} ms per Lanczos step, peak device "
         f"memory {peak_gb:.2f} GB")
     check(eng_u4.solve_info.converged, "14-site U=4 unconverged")
+    # what phase 10 holds the factored forms and the gather apply against
+    refs = {"e0_u4": eng_u4.ground_energy, "v0_u4": v0_u4}
     check(K.LAUNCHES["factor_matmul"] > 0, "factor_matmul never launched")
 
     v0_she = lz.random_start_vector(she_basis.size, SEED, torch.float64,
@@ -855,15 +1561,18 @@ def main() -> None:
 
     launches = dict(K.LAUNCHES)
     say(f"main path kernel launches: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in ("factor_matmul", "ell_spmv"):
+        check(launches[name] > 0, f"{name} was not launched on the main "
+                                  f"path")
+    check(launches["perm_gather"] == 0,
+          "the dense one-spin factors' path launched perm_gather")
 
     # -- 7. the same solves with the plain versions ------------------------
     for label, eng, v0 in (("14-site U=4", eng_u4, v0_u4),
                            ("12-site SuperHubbardExtended", eng_she,
                             v0_she)):
         t = time.perf_counter()
-        evals, _ = lz.lowest_states(PlainOperator(eng.hamiltonian),
+        evals, _ = lz.lowest_states(PlainForm(eng.hamiltonian),
                                     seed=SEED,
                                     max_steps=eng.config.lanczos_steps,
                                     v0=v0)
@@ -879,7 +1588,7 @@ def main() -> None:
     ham14 = eng_u4.hamiltonian
     x = eng_u4.eigenvector(0).contiguous()
     mv_ms = median_ms(lambda: ham14.matvec(x), 10)
-    plain = PlainOperator(ham14)
+    plain = PlainForm(ham14)
     mv_plain_ms = median_ms(lambda: plain.matvec(x), 10)
     say(f"phase 7 14-site matvec: kernels {mv_ms:.4f} ms, plain versions "
         f"{mv_plain_ms:.4f} ms")
@@ -920,7 +1629,8 @@ def main() -> None:
         # ground state: two GEMMs a matvec; fleet: two sectors, two
         # batched GEMMs a step, no ELL part in this model
         expect = 2 * gs_matvecs + 2 * 2 * steps8
-        check(counts == {"factor_matmul": expect, "ell_spmv": 0},
+        check(counts == {"factor_matmul": expect, "ell_spmv": 0,
+                         "perm_gather": 0},
               f"U={u} DOS launches {counts}, predicted factor_matmul "
               f"{expect}, ell_spmv 0")
         return engine, combs
@@ -1047,7 +1757,7 @@ def main() -> None:
         f"{[round(1e3 * t / steps_she, 3) for t in rec]} ms per batched "
         f"step, launches {counts}")
     expect = {"factor_matmul": 2 * mv_she + 2 * 2 * steps_she,
-              "ell_spmv": mv_she + 2 * steps_she}
+              "ell_spmv": mv_she + 2 * steps_she, "perm_gather": 0}
     check("TSPCenter=0" in out8 and len(combs) == 12 and rows8 == [23, 23],
           f"TSPCenter fleet: {len(combs)} files, rows {rows8}")
     check(counts == expect, f"TSPCenter launches {counts}, predicted "
@@ -1134,8 +1844,9 @@ def main() -> None:
             check(abs(trace - 6) <= 1e-10, f"trace of <c^dag_j c_i> {trace!r}")
     check(dict(K.LAUNCHES) == before, "two_point launched a kernel")
     say(f"spectral path kernel launches: {spectral_launches}")
-    for name, count in spectral_launches.items():
-        check(count > 0, f"{name} was not launched on the spectral path")
+    for name in ("factor_matmul", "ell_spmv"):
+        check(spectral_launches[name] > 0,
+              f"{name} was not launched on the spectral path")
 
     # -- 9. the flat models at full width -------------------------------
     del eng_she, cpu_engine
@@ -1198,8 +1909,9 @@ def main() -> None:
                else " (dense branch)")
             + f", launches {counts}, peak device memory {peak:.2f} GB")
         check(info.converged, f"{label} unconverged")
+        refs[label] = engine.ground_energy
         check(counts == {"factor_matmul": gemms * matvecs,
-                         "ell_spmv": ells * matvecs},
+                         "ell_spmv": ells * matvecs, "perm_gather": 0},
               f"{label}: launches {counts}, predicted factor_matmul "
               f"{gemms * matvecs}, ell_spmv {ells * matvecs}")
         check(engine.eigenvector(0).device.type == "cuda"
@@ -1211,7 +1923,7 @@ def main() -> None:
             check(err <= TOL_E0, f"{label} E0 off its golden by {err:.3e}")
         if matvecs:
             t = time.perf_counter()
-            evals, _ = lz.lowest_states(PlainOperator(ham), seed=SEED,
+            evals, _ = lz.lowest_states(PlainForm(ham), seed=SEED,
                                         max_steps=config.lanczos_steps,
                                         v0=v0)
             torch.cuda.synchronize()
@@ -1257,6 +1969,7 @@ def main() -> None:
     check(eng9.basis.size == 2_704_156
           and eng9.hamiltonian.ell.cols.shape[1] == 48,
           f"24-site Heisenberg: dim {eng9.basis.size}")
+    refs["heisenberg24 vector"] = eng9.eigenvector(0)
     del eng9
     torch.cuda.empty_cache()
 
@@ -1279,6 +1992,7 @@ def main() -> None:
     want = np.asarray(goldens["gf_tj_re"]) + 1j * np.asarray(
         goldens["gf_tj_im"])
     gf_err = np.abs(got - want).max() / np.abs(want).max()
+    refs["gf_tj"] = got
     say(f"phase 9 8-site t-J ring via CLI -g c, G_00(omega + 0.25i) on "
         f"{len(want)} points against the dense Lehmann sum of goldens.json: "
         f"max rel err {gf_err:.3e} (tolerance 1e-9), wall {wall:.3f} s, "
@@ -1326,11 +2040,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     say(f"flat models' kernel launches: {flat_launches}")
 
+    # -- 10. the factored forms and the one-spin gather apply -----------
+    factored_runs, cross_cases = factored_phase(dev, gen, results, refs)
+    say(f"factored forms' kernel launches: "
+        f"{ {label: run['counts'] for label, run in factored_runs.items()} }")
+    del refs
+
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
                                  "lanczosplusplus_tpu/ops/pallas_kernels.py:47"),
                "ell_spmv": ("lanczosplusplus_tpu_torch/csrc/ell_spmv.cu",
-                            "lanczosplusplus_tpu/ops/pallas_kernels.py:102")}
+                            "lanczosplusplus_tpu/ops/pallas_kernels.py:102"),
+               # no TPU kernel: the JAX package's gathers run outside
+               # Pallas, as bond loops
+               "perm_gather": ("lanczosplusplus_tpu_torch/csrc/perm_gather.cu",
+                               "none: no TPU kernel; the JAX package's bond "
+                               "loops lanczosplusplus_tpu/core/blockkron.py:"
+                               "169 and core/sparse.py:126")}
     # One entry for each kernel and form of a path.  The counts of the
     # spectral runs were checked against the code's prediction above, so
     # their batched share is known: two DOS runs and the fleet, two sectors
@@ -1346,6 +2072,22 @@ def main() -> None:
         of `words`."""
         return sum(counts[kernel] for label, counts in flat_launches.items()
                    if any(w in label for w in words))
+
+    def form_count(form):
+        """Launches of one form over phase 10's runs, as counted at the
+        form's call sites."""
+        return sum(run["forms"].get(form, 0)
+                   for run in factored_runs.values())
+
+    # the PermCrossTerm case that carries the most device time on its run
+    # (its ms times the run's applies, one launch of the term each) stands
+    # for the cross terms; the others are listed beside it
+    cross = [dict(case=r["case"], ms=r["ms"], bound_ms=r["bound_ms"],
+                  library_ms=r["library_ms"], run=cross_cases[r["case"]],
+                  device_ms_on_run=r["ms"] * factored_runs[
+                      cross_cases[r["case"]]]["applies"]["blockkron"])
+             for r in results["perm_gather"] if r["case"] in cross_cases]
+    cross.sort(key=lambda c: -c["device_ms_on_run"])
     entries = (  # name, path, the phase 3 case of its shape, launches
         ("factor_matmul", unbatched, "f64 3432x3432.3432x3432^T",
          launches["factor_matmul"] + spectral_launches["factor_matmul"]
@@ -1374,7 +2116,22 @@ def main() -> None:
          flat_count("ell_spmv", "Rashba", "input100", "input104")),
         ("ell_spmv (FeAs interaction ELL)", "flat models",
          "f64 8-site FeAs interaction ELL, R=1",
-         flat_count("ell_spmv", "FeAs")))
+         flat_count("ell_spmv", "FeAs")),
+        # the factored forms and the one-spin gather apply (phase 10)
+        ("perm_gather", "factored forms: cross terms", cross[0]["case"],
+         form_count("cross term")),
+        ("perm_gather (one-spin up)", "one-spin gather apply",
+         "f64 14-site one-spin up gather form, R=1",
+         form_count("one-spin up")),
+        ("perm_gather (one-spin dn)", "one-spin gather apply",
+         "f64 14-site one-spin dn gather form, R=1",
+         form_count("one-spin dn")),
+        ("factor_matmul (factored, within-block)", "factored forms",
+         "f64 24-site Heisenberg largest block", form_count("within")),
+        ("factor_matmul (factored, tier)", "factored forms",
+         "f64 18-site t-J tier", form_count("tier")),
+        ("factor_matmul (factored, Kitaev)", "factored forms",
+         "f64 24-site Kitaev left half", form_count("kitaev")))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -1394,7 +2151,11 @@ def main() -> None:
                 launches_ground_state_path=launches[kernel],
                 launches_spectral_path=spectral_launches[kernel],
                 launches_flat_models=flat_count(kernel, ""),
+                launches_phase_10=sum(
+                    run["counts"][kernel] for run in factored_runs.values()),
                 cases=results[kernel])
+        if name == "perm_gather":
+            kernels_line[-1].update(cross_term_cases=cross)
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,12 @@ Layout.  ED Hamiltonians have bounded row sparsity, so the generic part
 is ELL: padded (dim, K) ``cols``/``vals`` with padding pointing at its
 own row with value 0.  Terms acting on one spin species are Kronecker
 products I (x) A_up and A_dn (x) I, applied to the state viewed as the
-(size_down, size_up) matrix X: either as per-bond gathers of the
-one-spin ELL maps (the CPU form), or, after ``densify_factors``, as two
-GEMMs Y += X . A_up^T and Y += A_dn . X through the hand-written
-``factor_matmul`` kernel (the accelerator form).  The diagonal plus the
+(size_down, size_up) matrix X: either as gathers of the one-spin ELL
+maps through the hand-written ``perm_gather`` kernel (the CPU form, and
+the card's for a factor too large to densify), or, after
+``densify_factors``, as two GEMMs Y += X . A_up^T and Y += A_dn . X
+through the hand-written ``factor_matmul`` kernel (the card's form where
+the factors fit).  A sector may mix the two.  The diagonal plus the
 generic ELL part go through the ``ell_spmv`` kernel.  A batch of states
 is a batch-major (R, dim) block, viewed as (R, size_down, size_up): the
 up GEMM folds (R, size_down) into its rows, the dn GEMM and the ELL
@@ -35,9 +37,6 @@ from lanczosplusplus_tpu_torch.config import numpy_dtype
 from lanczosplusplus_tpu_torch.ops import kernels
 
 DEFAULT_DENSE_FACTOR_BYTES = 2 << 30
-GATHER_ON_CUDA = ("the one-spin gather apply has no CUDA kernel yet "
-                  "(ROADMAP Queue 2 item 3); on the card every one-spin "
-                  "factor must be densified")
 
 
 def coo_to_ell(dim: int, rows: np.ndarray, cols: np.ndarray,
@@ -142,8 +141,11 @@ class SpinFactorizedPart:
 
     x is viewed as X[size_down, size_up]; `up` acts along axis 1
     (I_down (x) A_up), `dn` along axis 0 (A_dn (x) I_up).  Gather form:
-    the ELL maps `*_cols`/`*_vals`.  Dense form: `up_dense`/`dn_dense`,
-    the (size, size) one-spin matrices, applied through ``factor_matmul``.
+    the ELL maps `*_cols`/`*_vals`, applied through ``perm_gather`` from
+    their (K, size) transposes, which are made once, on the maps' device,
+    when the part is built, for a factor with no dense form only.  Dense
+    form: `up_dense`/`dn_dense`, the (size, size) one-spin matrices,
+    applied through ``factor_matmul``.
     """
     up_cols: torch.Tensor | None  # (size_up, Ku) int32
     up_vals: torch.Tensor | None
@@ -151,36 +153,45 @@ class SpinFactorizedPart:
     dn_vals: torch.Tensor | None
     up_dense: torch.Tensor | None = None  # (size_up, size_up)
     dn_dense: torch.Tensor | None = None  # (size_down, size_down)
+    # (cols^T, vals^T), each (K, size) contiguous: perm_gather's tables,
+    # for a factor in gather form
+    up_gather: tuple | None = dataclasses.field(init=False, default=None)
+    dn_gather: tuple | None = dataclasses.field(init=False, default=None)
+
+    def __post_init__(self):
+        for side in ("up", "dn"):
+            cols = getattr(self, f"{side}_cols")
+            if cols is not None and getattr(self, f"{side}_dense") is None:
+                object.__setattr__(self, f"{side}_gather", (
+                    cols.T.contiguous(),
+                    getattr(self, f"{side}_vals").T.contiguous()))
 
     def apply_(self, x: torch.Tensor, y: torch.Tensor) -> None:
         """y += (I (x) A_up + A_dn (x) I) x, in place on y, for one state
         viewed as (size_down, size_up) or a block of them viewed as
-        (R, size_down, size_up).  On CUDA every factor must be dense: the
-        gather form has no kernel on the card yet, so it raises there.
-        A block takes two launches: the up product with (R, size_down)
-        folded into its rows, the dn product batched over transposed
-        views."""
-        if x.is_cuda and ((self.up_cols is not None and
-                           self.up_dense is None) or
-                          (self.dn_cols is not None and
-                           self.dn_dense is None)):
-            raise NotImplementedError(GATHER_ON_CUDA)
+        (R, size_down, size_up).  Each factor takes one launch over the
+        whole block: a dense up factor with (R, size_down) folded into the
+        GEMM's rows, a dense dn factor batched over transposed views; a
+        factor in gather form one ``perm_gather``, up with the rows the
+        identity and the columns gathered, dn the other way round."""
         if self.up_dense is not None:
             # y[b, d, u] += sum_c x[b, d, c] A_up[u, c]
             szu = x.shape[-1]
             kernels.factor_matmul(x.view(-1, szu), self.up_dense,
                                   out=y.view(-1, szu), accumulate=True)
-        elif self.up_cols is not None:
-            for k in range(self.up_cols.shape[1]):
-                y += self.up_vals[:, k] * x[..., self.up_cols[:, k]]
+        elif self.up_gather is not None:
+            # y[b, d, u] += sum_k vals[u, k] x[b, d, cols[u, k]]
+            cs, beta = self.up_gather
+            kernels.perm_gather(x, y, cs=cs, beta=beta)
         if self.dn_dense is not None:
             # y[b, d, u] += sum_c A_dn[d, c] x[b, c, u], as
             # y[b]^T += x[b]^T . A_dn^T on transposed views
             kernels.factor_matmul(x.transpose(-1, -2), self.dn_dense,
                                   out=y.transpose(-1, -2), accumulate=True)
-        elif self.dn_cols is not None:
-            for k in range(self.dn_cols.shape[1]):
-                y += self.dn_vals[:, k, None] * x[..., self.dn_cols[:, k], :]
+        elif self.dn_gather is not None:
+            # y[b, d, u] += sum_k vals[d, k] x[b, cols[d, k], u]
+            rs, a = self.dn_gather
+            kernels.perm_gather(x, y, rs=rs, a=a)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,10 +251,10 @@ class Hamiltonian:
         """Materialize the Kronecker one-spin factors as dense matrices
         when each fits in `max_bytes`, so matvec runs as GEMMs.  By
         default a factor may take a quarter of the card's free memory
-        (``torch.cuda.mem_get_info``), or 2 GiB on the CPU.  On the CPU a
-        factor too large stays in gather form; on CUDA it raises
-        ``NotImplementedError``, since the gather form has no kernel on
-        the card.  The ELL maps are kept alongside, so ``to_dense`` keeps
+        (``torch.cuda.mem_get_info``), or 2 GiB on the CPU.  A factor too
+        large stays in gather form, applied through ``perm_gather``, so a
+        sector may mix the two forms; ``max_bytes=0`` keeps both in gather
+        form.  The ELL maps are kept alongside, so ``to_dense`` keeps
         working.  A Hamiltonian that is densified already comes back as it
         is."""
         f = self.factorized
@@ -258,13 +269,7 @@ class Hamiltonian:
             if cols is None:
                 return None
             size = cols.shape[0]
-            nbytes = size * size * vals.element_size()
-            if nbytes > max_bytes:
-                if on_cuda:
-                    raise NotImplementedError(
-                        f"dense one-spin factor {size}x{size} needs "
-                        f"{nbytes} B, over the {max_bytes} B allowed; "
-                        + GATHER_ON_CUDA)
+            if size * size * vals.element_size() > max_bytes:
                 return None
             return _dense_from_ell(cols, vals)
 

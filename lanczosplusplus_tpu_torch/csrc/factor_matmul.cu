@@ -59,10 +59,13 @@
 // `accumulate` adds the product into Y so the diagonal term and both
 // factor applies can write one output.
 //
-// Batch.  Y[b] (+)= X[b] . A^T for b < batch with one shared factor A: X
-// and Y carry a batch stride besides their two strides, so the batched dn
-// apply of a block of states runs on transposed views of every state at
-// once.  The float64 kernel folds the batch into its tile index (a block's
+// Batch.  Y[b] (+)= X[b] . A[b]^T for b < batch: X, A and Y each carry a
+// batch stride besides their two strides, so the batched dn apply of a
+// block of states runs on transposed views of every state at once.  A
+// batch stride of 0 shares one operand: every caller of the one-spin
+// factors shares A that way, and the block-Kronecker forms give a factor
+// per batch member (a tier of same-shaped blocks, the cross couplings'
+// stacked factors) or share X.  The float64 kernel folds the batch into its tile index (a block's
 // number is b * tiles + tile), so one launch fills the card where a single
 // state's tiles would not; the float32 kernel takes it as blockIdx.z.  A
 // plain 2-D product is the case batch = 1.  16-byte copies then also need
@@ -262,10 +265,11 @@ __global__ void __launch_bounds__(
     (DmmaConfig<BM, BN, XK, AK>::MIN_BLOCKS))
 factor_matmul_dmma_kernel(const double* __restrict__ X, long long xsb,
                           long long xs0, long long xs1,
-                          const double* __restrict__ A, long long as0,
-                          long long as1, double* __restrict__ Y,
-                          long long ysb, long long ys0, long long ys1, int m,
-                          int n, int k, int accumulate, int plan) {
+                          const double* __restrict__ A, long long asb,
+                          long long as0, long long as1,
+                          double* __restrict__ Y, long long ysb,
+                          long long ys0, long long ys1, int m, int n, int k,
+                          int accumulate, int plan) {
   using C = DmmaConfig<BM, BN, XK, AK>;
   extern __shared__ __align__(16) double smem[];
 
@@ -281,6 +285,7 @@ factor_matmul_dmma_kernel(const double* __restrict__ X, long long xsb,
   const int b = blockIdx.x / tiles;        // batch member
   const int tile = blockIdx.x % tiles;
   X += b * xsb;
+  A += b * asb;
   Y += b * ysb;
   const int m0 = (tile / tiles_n) * BM;
   const int n0 = (tile % tiles_n) * BN;
@@ -387,8 +392,8 @@ factor_matmul_dmma_kernel(const double* __restrict__ X, long long xsb,
 
 template <int BM, int BN, bool XK, bool AK>
 cudaError_t launch_dmma(const double* x, long long xsb, long long xs0,
-                        long long xs1, const double* a, long long as0,
-                        long long as1, double* y, long long ysb,
+                        long long xs1, const double* a, long long asb,
+                        long long as0, long long as1, double* y, long long ysb,
                         long long ys0, long long ys1, int batch, int m, int n,
                         int k, int accumulate, int plan, cudaStream_t stream) {
   using C = DmmaConfig<BM, BN, XK, AK>;
@@ -401,23 +406,24 @@ cudaError_t launch_dmma(const double* x, long long xsb, long long xs0,
       static_cast<long long>((n + BN - 1) / BN) * ((m + BM - 1) / BM);
   if (tiles * batch > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(tiles * batch), C::NT, C::SMEM_BYTES,
-           stream>>>(x, xsb, xs0, xs1, a, as0, as1, y, ysb, ys0, ys1, m, n, k,
-                     accumulate, plan);
+           stream>>>(x, xsb, xs0, xs1, a, asb, as0, as1, y, ysb, ys0, ys1, m,
+                     n, k, accumulate, plan);
   return cudaGetLastError();
 }
 
 template <int BM, int BN>
 cudaError_t launch_dmma_layout(const double* x, long long xsb, long long xs0,
-                               long long xs1, const double* a, long long as0,
-                               long long as1, double* y, long long ysb,
+                               long long xs1, const double* a, long long asb,
+                               long long as0, long long as1, double* y,
+                               long long ysb,
                                long long ys0, long long ys1, int batch, int m,
                                int n, int k, int accumulate, int plan,
                                cudaStream_t stream) {
   const bool xk = plan & PLAN_X_KMAJOR, ak = plan & PLAN_A_KMAJOR;
 #define LPP_GO(XK, AK)                                                     \
   return launch_dmma<BM, BN, XK, AK>(                                      \
-      x, xsb, xs0, xs1, a, as0, as1, y, ysb, ys0, ys1, batch, m, n, k,     \
-      accumulate, plan, stream)
+      x, xsb, xs0, xs1, a, asb, as0, as1, y, ysb, ys0, ys1, batch, m, n,   \
+      k, accumulate, plan, stream)
   if (xk && ak) LPP_GO(true, true);
   if (xk) LPP_GO(true, false);
   if (ak) LPP_GO(false, true);
@@ -485,10 +491,10 @@ template <typename T>
 __global__ void __launch_bounds__(SNT)
 factor_matmul_simt_kernel(const T* __restrict__ X, long long xsb,
                           long long xs0, long long xs1,
-                          const T* __restrict__ A, long long as0,
-                          long long as1, T* __restrict__ Y, long long ysb,
-                          long long ys0, long long ys1, int m, int n, int k,
-                          int accumulate) {
+                          const T* __restrict__ A, long long asb,
+                          long long as0, long long as1, T* __restrict__ Y,
+                          long long ysb, long long ys0, long long ys1, int m,
+                          int n, int k, int accumulate) {
   __shared__ T Xs[SBK][SBM + PAD];
   __shared__ T As[SBK][SBN + PAD];
 
@@ -498,6 +504,7 @@ factor_matmul_simt_kernel(const T* __restrict__ X, long long xsb,
   const int m0 = blockIdx.y * SBM;
   const int n0 = blockIdx.x * SBN;
   X += blockIdx.z * xsb;  // batch member
+  A += blockIdx.z * asb;
   Y += blockIdx.z * ysb;
 
   T acc[TM][TN];
@@ -541,22 +548,23 @@ factor_matmul_simt_kernel(const T* __restrict__ X, long long xsb,
 
 }  // namespace
 
-// Strides in elements; xsb and ysb step from one batch member to the next
-// (any value when batch is 1).  `plan` is the bit set of ops/kernels.py
+// Strides in elements; xsb, asb and ysb step from one batch member to the
+// next (0 shares the operand; any value when batch is 1).  `plan` is the bit set of ops/kernels.py
 // factor_matmul_plan: staging axis and copy width of X and of A, store
 // width of Y, tile size.  Returns the launch's cudaError (0 on success).
 extern "C" int lpp_factor_matmul_f64(const void* x, long long xsb,
                                      long long xs0, long long xs1,
-                                     const void* a, long long as0,
-                                     long long as1, void* y, long long ysb,
-                                     long long ys0, long long ys1, int batch,
-                                     int m, int n, int k, int accumulate,
-                                     int plan, void* stream) {
-  if (batch == 1) xsb = ysb = 0;
+                                     const void* a, long long asb,
+                                     long long as0, long long as1, void* y,
+                                     long long ysb, long long ys0,
+                                     long long ys1, int batch, int m, int n,
+                                     int k, int accumulate, int plan,
+                                     void* stream) {
+  if (batch == 1) xsb = asb = ysb = 0;
   if (((plan & PLAN_X_VEC16) &&
        misplanned(x, xsb, xs0, xs1, plan & PLAN_X_KMAJOR)) ||
       ((plan & PLAN_A_VEC16) &&
-       misplanned(a, 0, as0, as1, plan & PLAN_A_KMAJOR)) ||
+       misplanned(a, asb, as0, as1, plan & PLAN_A_KMAJOR)) ||
       ((plan & PLAN_Y_VEC16) && misplanned(y, ysb, ys0, ys1, true)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const double* xp = static_cast<const double*>(x);
@@ -565,11 +573,11 @@ extern "C" int lpp_factor_matmul_f64(const void* x, long long xsb,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       (plan & PLAN_TILE128)
-          ? launch_dmma_layout<128, 128>(xp, xsb, xs0, xs1, ap, as0, as1, yp,
-                                         ysb, ys0, ys1, batch, m, n, k,
-                                         accumulate, plan, s)
-          : launch_dmma_layout<64, 64>(xp, xsb, xs0, xs1, ap, as0, as1, yp,
-                                       ysb, ys0, ys1, batch, m, n, k,
+          ? launch_dmma_layout<128, 128>(xp, xsb, xs0, xs1, ap, asb, as0,
+                                         as1, yp, ysb, ys0, ys1, batch, m, n,
+                                         k, accumulate, plan, s)
+          : launch_dmma_layout<64, 64>(xp, xsb, xs0, xs1, ap, asb, as0, as1,
+                                       yp, ysb, ys0, ys1, batch, m, n, k,
                                        accumulate, plan, s);
   return static_cast<int>(err);
 }
@@ -585,17 +593,17 @@ extern "C" int lpp_factor_matmul_f64_smem_bytes(int plan) {
 
 extern "C" int lpp_factor_matmul_f32(const void* x, long long xsb,
                                      long long xs0, long long xs1,
-                                     const void* a, long long as0,
-                                     long long as1, void* y, long long ysb,
-                                     long long ys0, long long ys1, int batch,
-                                     int m, int n, int k, int accumulate,
-                                     void* stream) {
+                                     const void* a, long long asb,
+                                     long long as0, long long as1, void* y,
+                                     long long ysb, long long ys0,
+                                     long long ys1, int batch, int m, int n,
+                                     int k, int accumulate, void* stream) {
   if (batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid((n + SBN - 1) / SBN, (m + SBM - 1) / SBM, batch);
   factor_matmul_simt_kernel<float>
       <<<grid, SNT, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(x), xsb, xs0, xs1,
-          static_cast<const float*>(a), as0, as1, static_cast<float*>(y),
-          ysb, ys0, ys1, m, n, k, accumulate);
+          static_cast<const float*>(a), asb, as0, as1,
+          static_cast<float*>(y), ysb, ys0, ys1, m, n, k, accumulate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,20 +37,26 @@ _L = ctypes.c_longlong
 # cudaGetLastError().
 # Strides are in elements and 64 bits wide.
 SIGNATURES = {
-    # x, xsb, xs0, xs1, a, as0, as1, y, ysb, ys0, ys1, batch, m, n, k,
-    # accumulate, plan, stream (xsb, ysb: the batch strides)
-    "lpp_factor_matmul_f64": (_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _L,
-                              _I, _I, _I, _I, _I, _I, _P),
+    # x, xsb, xs0, xs1, a, asb, as0, as1, y, ysb, ys0, ys1, batch, m, n,
+    # k, accumulate, plan, stream (xsb, asb, ysb: the batch strides)
+    "lpp_factor_matmul_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
+                              _L, _I, _I, _I, _I, _I, _I, _P),
     # plan -> bytes of dynamic shared memory (not a launcher)
     "lpp_factor_matmul_f64_smem_bytes": (_I,),
     # as the float64 one, without the plan
-    "lpp_factor_matmul_f32": (_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _L,
-                              _I, _I, _I, _I, _I, _P),
+    "lpp_factor_matmul_f32": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
+                              _L, _I, _I, _I, _I, _I, _P),
     # diag, cols, vals, x, y, dim, K, batch, stream
     "lpp_ell_spmv_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs, ca, nb, rows, cols,
+    # batch, stream (a null table: the identity, amplitude 1)
+    "lpp_perm_gather_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P),
+    "lpp_perm_gather_c128": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _P),
 }
 
 

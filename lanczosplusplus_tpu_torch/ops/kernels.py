@@ -1,17 +1,23 @@
 """The hot-path kernels, their plain PyTorch versions and the dispatch.
 
-Counterpart of ``lanczosplusplus_tpu/ops/pallas_kernels.py``.  Two
+Counterpart of ``lanczosplusplus_tpu/ops/pallas_kernels.py``.  Three
 kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
 
-- ``factor_matmul``: ``Y[b] (+)= X[b] . A^T`` on strided operands, the
-  dense Kronecker hop factors of every Lanczos matvec and, with a batch
-  of states, of every batched step, on the FP64 tensor cores in float64
-  (``csrc/factor_matmul.cu``);
+- ``factor_matmul``: ``Y[b] (+)= X[b] . A[b]^T`` on strided operands, A
+  shared or one per batch member: the dense Kronecker hop factors of every
+  Lanczos matvec and, with a batch of states, of every batched step, and
+  every product of the block-Kronecker forms, on the FP64 tensor cores in
+  float64 (``csrc/factor_matmul.cu``);
 - ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
   over a padded ELL matrix and one vector or a batch-major block of them,
-  real or complex (``csrc/ell_spmv.cu``).
+  real or complex (``csrc/ell_spmv.cu``);
+- ``perm_gather``: ``Y[b, r, c] += sum_n a[n, r] beta[n, c]
+  X[b, rs[n, r], cs[n, c]]``, the partial permutations of the
+  block-Kronecker forms and the one-spin hop maps in gather form
+  (``csrc/perm_gather.cu``; it has no TPU counterpart: the JAX package
+  runs these gathers outside Pallas).
 
-Both take the batch in one launch; a single matrix or vector is the case
+Each takes the batch in one launch; a single matrix or vector is the case
 batch = 1 of the same kernel.  A complex state goes through
 ``factor_matmul`` as its real and imaginary planes, a batch of two for the
 real kernel.
@@ -30,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-LAUNCHES = {"factor_matmul": 0, "ell_spmv": 0}
+LAUNCHES = {"factor_matmul": 0, "ell_spmv": 0, "perm_gather": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32",
            torch.complex128: "c128", torch.complex64: "c64"}
@@ -45,10 +51,11 @@ def reset_launches() -> None:
 
 
 def factor_matmul_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``factor_matmul``: ``x @ a.T``, for one (m, k)
-    matrix or a (batch, m, k) block against the shared factor; a complex
-    state may meet a real factor."""
-    return x @ a.T.to(x.dtype)
+    """Plain version of ``factor_matmul``: ``x @ a^T``, for one (m, k)
+    matrix or a (batch, m, k) block against the shared factor or a
+    (batch, n, k) stack of them; a complex state may meet a real
+    factor."""
+    return x @ a.transpose(-1, -2).to(x.dtype)
 
 
 def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
@@ -126,14 +133,15 @@ def _staging(ptr: int, row_stride: int, k_stride: int,
 
 
 def factor_matmul_plan(x_ptr: int, x_strides: tuple[int, ...],
-                       a_ptr: int, a_strides: tuple[int, int],
+                       a_ptr: int, a_strides: tuple[int, ...],
                        y_ptr: int, y_strides: tuple[int, ...],
                        m: int, n: int, sm_count: int = H100_SMS,
                        batch: int = 1) -> MatmulPlan:
     """The float64 kernel's path for one product, from pointers (byte
-    addresses), strides (in elements) and shape alone.  `x_strides` and
-    `y_strides` are (row, k) pairs, or (batch, row, k) triples for a
-    batched product.
+    addresses), strides (in elements) and shape alone.  `x_strides`,
+    `a_strides` and `y_strides` are (row, k) pairs, or (batch, row, k)
+    triples for a batched product (a batch stride of 0 shares the
+    operand).
 
     Tile rule: 128 x 128 output tiles when the whole batch has at least
     one for every SM of the card, else 64 x 64 (four times the blocks,
@@ -142,8 +150,9 @@ def factor_matmul_plan(x_ptr: int, x_strides: tuple[int, ...],
     products gives 896 and takes the large ones."""
     *xb, xs0, xs1 = x_strides
     *yb, ys0, ys1 = y_strides
+    *ab, as0, as1 = a_strides
     x_kmajor, x_vec16 = _staging(x_ptr, xs0, xs1, *xb)
-    a_kmajor, a_vec16 = _staging(a_ptr, *a_strides)
+    a_kmajor, a_vec16 = _staging(a_ptr, as0, as1, *ab)
     y_vec16 = (ys1 == 1 and ys0 % 2 == 0 and y_ptr % 16 == 0
                and all(s % 2 == 0 for s in yb))
     big_tiles = batch * -(-m // BIG_TILE) * -(-n // BIG_TILE)
@@ -176,8 +185,10 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     ``accumulate``.  Same semantics as the TPU ``factor_matmul``.
 
     x: (m, k), a: (n, k), out: (m, n); or a batch, x: (batch, m, k) and
-    out: (batch, m, n) against the one shared a, in a single launch.  Any
-    of them may be a strided view (a transpose, for instance).  The kernel
+    out: (batch, m, n) against the one shared a or a factor per member,
+    a: (batch, n, k), in a single launch.  Any of them may be a strided
+    view (a transpose, an expanded operand of batch stride 0, for
+    instance).  The kernel
     reads and writes through each operand's strides, so ``A_dn . X`` runs
     as ``factor_matmul(X.T, A_dn, out=Y.T, accumulate=True)`` with no
     copy, and for a block of states as
@@ -191,15 +202,16 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     hop factors are real-valued unless the hoppings are complex) takes one
     launch over both planes; a complex one three (both planes times
     Re a, then Im x times -Im a into the real plane and Re x times Im a
-    into the imaginary one).
+    into the imaginary one).  A real factor per batch member takes two
+    launches, the planes apart.
     """
-    if x.dim() not in (2, 3) or a.dim() != 2:
+    if x.dim() not in (2, 3) or a.dim() not in (2, x.dim()):
         raise ValueError(f"factor_matmul: x of 2 or 3 dimensions and a 2-D "
-                         f"factor expected, got {tuple(x.shape)} and "
-                         f"{tuple(a.shape)}")
+                         f"factor or one per batch member expected, got "
+                         f"{tuple(x.shape)} and {tuple(a.shape)}")
     *lead, m, k = x.shape
-    n = a.shape[0]
-    if a.shape[1] != k:
+    n = a.shape[-2]
+    if a.shape[-1] != k or (a.dim() == 3 and a.shape[0] != x.shape[0]):
         raise ValueError(f"factor_matmul: contraction mismatch "
                          f"{tuple(x.shape)} . {tuple(a.shape)}^T")
     if out is None:
@@ -229,8 +241,10 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     batch = lead[0] if lead else 1
     # (batch, row, k) strides; the batch stride of one member is never used
     x_strides = (x.stride(0) if batch > 1 else 0, *x.stride()[-2:])
+    a_strides = (a.stride(0) if batch > 1 and a.dim() == 3 else 0,
+                 *a.stride()[-2:])
     y_strides = (out.stride(0) if batch > 1 else 0, *out.stride()[-2:])
-    strides = (*x_strides, *a.stride(), *y_strides)
+    strides = (*x_strides, *a_strides, *y_strides)
     if max(batch, m, n, k) > _INT_MAX or min(strides) < 0:
         raise ValueError("factor_matmul: a size over int32 range or a "
                          "negative stride")
@@ -238,11 +252,11 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
         return out
     from lanczosplusplus_tpu_torch.ops.build import load_library
     fn = getattr(load_library(), f"lpp_factor_matmul_{_SUFFIX[x.dtype]}")
-    args = [x.data_ptr(), *x_strides, a.data_ptr(), *a.stride(),
+    args = [x.data_ptr(), *x_strides, a.data_ptr(), *a_strides,
             out.data_ptr(), *y_strides, batch, m, n, k, int(accumulate)]
     if x.dtype == torch.float64:
         args.append(factor_matmul_plan(
-            x.data_ptr(), x_strides, a.data_ptr(), a.stride(),
+            x.data_ptr(), x_strides, a.data_ptr(), a_strides,
             out.data_ptr(), y_strides, m, n,
             _sm_count(x.device.index), batch).bits)
     with torch.cuda.device(x.device):
@@ -270,7 +284,7 @@ def _factor_matmul_planes(x: torch.Tensor, a: torch.Tensor,
                         f"{out.dtype}: a complex state takes a factor of "
                         f"its type or of {real}")
     *lead, m, k = x.shape
-    n = a.shape[0]
+    n = a.shape[-2]
     half = lead[0] if lead else 1
     if half == 0 or m == 0 or n == 0:
         return out
@@ -278,11 +292,18 @@ def _factor_matmul_planes(x: torch.Tensor, a: torch.Tensor,
     yp = (_planes(out) if accumulate else
           torch.empty((2, *lead, m, n), dtype=real, device=x.device)
           ).view(2 * half, m, n)
+
+    def both_planes(a_re):
+        if a_re.dim() == 2:
+            factor_matmul(xp, a_re, out=yp, accumulate=accumulate)
+        else:   # a factor per member: each plane is a batch of its own
+            for p in (slice(None, half), slice(half, None)):
+                factor_matmul(xp[p], a_re, out=yp[p], accumulate=accumulate)
     if not a.is_complex():
-        factor_matmul(xp, a, out=yp, accumulate=accumulate)
+        both_planes(a)
     else:
         a_re, a_im = _planes(a)
-        factor_matmul(xp, a_re, out=yp, accumulate=accumulate)
+        both_planes(a_re)
         factor_matmul(xp[half:], -a_im, out=yp[:half], accumulate=True)
         factor_matmul(xp[:half], a_im, out=yp[half:], accumulate=True)
     yp = yp.view(2, *lead, m, n)
@@ -342,3 +363,124 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed, cudaError {err}")
     return y
+
+
+def _channels(rs, a, cs, beta) -> int:
+    tables = [t for t in (rs, a, cs, beta) if t is not None]
+    if not tables:
+        raise ValueError("perm_gather: both sides are the identity")
+    nb = tables[0].shape[0]
+    if any(t.shape[0] != nb for t in tables):
+        raise ValueError(f"perm_gather: tables of {[t.shape[0] for t in tables]}"
+                         f" channels")
+    return nb
+
+
+def perm_gather_ref(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
+                    cs=None, beta=None, groups=None,
+                    col_groups=None) -> torch.Tensor:
+    """Plain version of ``perm_gather``: ``out += sum_n a[n][:, None] *
+    x[..., rs[n], :][..., cs[n]] * beta[n][None, :]``, the bond loop of the
+    JAX package's ``_perm_cross_apply(_batched)`` (``core/blockkron.py``).
+    Channels in one of `groups` share their row gather; channels in one
+    of `col_groups` (same column map and amplitudes) sum their row sides
+    before one column gather.  Each term is added into `out` in place.
+    None for a table is the identity with amplitude 1."""
+    nb = _channels(rs, a, cs, beta)
+    groups = groups or tuple((n,) for n in range(nb))
+    rows_of = {}
+    for group in groups:
+        rows = x if rs is None else x[..., rs[group[0]], :]
+        for n in group:
+            rows_of[n] = rows
+
+    def row_side(n):
+        return rows_of[n] if a is None else a[n][:, None] * rows_of[n]
+
+    def col_side(v, n):
+        v = v if cs is None else v[..., cs[n]]
+        return v if beta is None else v * beta[n][None, :]
+    if col_groups is not None and any(len(g) > 1 for g in col_groups):
+        for cgroup in col_groups:
+            pre = None
+            for n in cgroup:
+                pre = row_side(n) if pre is None else pre + row_side(n)
+            out += col_side(pre, cgroup[0])
+    else:
+        for group in groups:
+            for n in group:
+                out += col_side(row_side(n), n)
+    return out
+
+
+def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
+                cs=None, beta=None, groups=None,
+                col_groups=None) -> torch.Tensor:
+    """``out[b, r, c] += sum_n a[n, r] * beta[n, c] * x[b, rs[n, r],
+    cs[n, c]]``, in place on `out`, for one (rows_src, cols_src) block x
+    and (rows, cols) out, or a batch of them, (batch, ., .), in a single
+    launch.  x and out may be strided views, out must not overlap x.
+
+    rs: (nb, rows) int32 indices into x's rows, a: (nb, rows) amplitudes;
+    cs: (nb, cols) int32 indices into x's columns, beta: (nb, cols); all
+    contiguous, amplitudes of out's dtype.  None for an index table is the
+    identity, None for an amplitude table 1.  The channel groups only
+    steer the plain version (``perm_gather_ref``), which a CPU tensor
+    takes; the CUDA kernel needs none and takes float64 or complex128.
+    """
+    nb = _channels(rs, a, cs, beta)
+    if x.dim() not in (2, 3) or out.dim() != x.dim() or \
+            x.shape[:-2] != out.shape[:-2]:
+        raise ValueError(f"perm_gather: x {tuple(x.shape)} and out "
+                         f"{tuple(out.shape)} must be one or a batch of "
+                         f"2-D blocks")
+    *lead, rows, cols = out.shape
+    for name, t, length in (("rs", rs, rows), ("a", a, rows),
+                            ("cs", cs, cols), ("beta", beta, cols)):
+        if t is None:
+            continue
+        if t.shape != (nb, length) or not t.is_contiguous():
+            raise ValueError(f"perm_gather: {name} must be a contiguous "
+                             f"({nb}, {length}), got {tuple(t.shape)}")
+        if name in ("rs", "cs") and t.dtype != torch.int32:
+            raise TypeError(f"perm_gather: {name} must be int32")
+    if (rs is None and x.shape[-2] != rows) or \
+            (cs is None and x.shape[-1] != cols):
+        raise ValueError(f"perm_gather: an identity side needs x "
+                         f"{tuple(x.shape)} and out {tuple(out.shape)} to "
+                         f"agree on it")
+
+    if x.device.type == "cpu":
+        return perm_gather_ref(x, out, rs, a, cs, beta, groups, col_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"perm_gather: no kernel for device {x.device}")
+    amps = [t for t in (a, beta) if t is not None]
+    _check_cuda_operands("perm_gather", x, out, *amps,
+                         dtypes=(torch.float64, torch.complex128))
+    if any(t.device != x.device for t in (rs, cs) if t is not None):
+        raise ValueError("perm_gather: index tables on another device")
+    if _overlaps(out, x):
+        raise ValueError("perm_gather: out overlaps x")
+    batch = lead[0] if lead else 1
+    if max(batch, rows, cols, nb) > _INT_MAX or min(x.stride()) < 0 \
+            or min(out.stride()) < 0:
+        raise ValueError("perm_gather: a size over int32 range or a "
+                         "negative stride")
+    if batch == 0 or rows == 0 or cols == 0:
+        return out
+    from lanczosplusplus_tpu_torch.ops.build import load_library
+    fn = getattr(load_library(), f"lpp_perm_gather_{_SUFFIX[x.dtype]}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.stride(0) if lead else 0,
+                 *x.stride()[-2:], out.data_ptr(),
+                 out.stride(0) if lead else 0, *out.stride()[-2:],
+                 ptr(rs), ptr(a), ptr(cs), ptr(beta), nb, rows, cols, batch,
+                 _stream(x))
+    LAUNCHES["perm_gather"] += 1
+    if err != 0:
+        raise RuntimeError(f"perm_gather: kernel launch failed, "
+                           f"cudaError {err}")
+    return out

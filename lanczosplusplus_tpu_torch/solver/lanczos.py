@@ -6,6 +6,10 @@ Counterpart of ``lanczosplusplus_tpu/solver/lanczos.py``: ``lowest_states``
 ``tridiagonalize_plain``, ``tridiagonalize_plain_batched``,
 ``lowest_states_plain``, ``trim_at_breakdown``, ``tridiag_eigh``,
 ``finish_lanczos``, ``ritz_vectors``, ``_dense_solve`` and ``SolveInfo``.
+Every entry point takes any operator with ``dim``, ``dtype``, ``device``
+and ``matvec`` (``matmat_t`` for the batched recurrence): a sector
+``Hamiltonian`` or a block-Kronecker form.  ``lowest_states`` solves a
+``PermutedHamiltonian`` in its inner block order.
 It replaces PsimagLite::LanczosSolver as the reference uses it
 (reference: src/Engine/Engine.h:601-657).
 
@@ -350,6 +354,8 @@ class SolveInfo:
     residual: float          # a-posteriori Ritz residual (relative)
     steps: int               # Lanczos steps actually run
     used_dense_fallback: bool = False
+    # why SolverOptions=factored took the flat form (Engine), or None
+    factored_fallback: str | None = None
 
 
 def _dense_solve(ham, num_states: int):
@@ -389,6 +395,20 @@ def lowest_states(ham, num_states: int = 1, seed: int = 7239443,
     """
     def ret(evals, vecs, info):
         return (evals, vecs, info) if return_info else (evals, vecs)
+
+    if hasattr(ham, "inner") and hasattr(ham, "perm"):
+        # PermutedHamiltonian: solve in the inner (block) order, where the
+        # matvec needs no whole-dim gathers, and map only the returned
+        # eigenvectors (the sign of a twisted form on both sides)
+        if v0 is not None:
+            v0 = ham.to_inner(torch.as_tensor(v0, device=ham.device))
+        evals, vecs, info = lowest_states(
+            ham.inner, num_states=num_states, seed=seed,
+            max_steps=max_steps, tol=tol,
+            krylov_budget_bytes=krylov_budget_bytes, reorth=reorth,
+            return_info=True, dense_fallback_dim=dense_fallback_dim,
+            strict=strict, v0=v0)
+        return ret(evals, ham.to_flat(vecs), info)
 
     dim = ham.dim
     dtype = ham.dtype

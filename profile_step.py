@@ -11,7 +11,7 @@ It builds the half-filled 14-site periodic HubbardOneBand chain at U=4
 card, then traces 40 selective-reorthogonalization Lanczos steps
 (``solver.lanczos.tridiagonalize``) with ``torch.profiler``, once through
 the hand-written kernels and once through their plain PyTorch versions
-(``chip_smoke.PlainOperator``), in the turns plain, kernel, kernel, plain.
+(``chip_smoke.PlainForm``), in the turns plain, kernel, kernel, plain.
 Each turn runs 5 untraced warm-up steps first.
 
 With ``--spectral`` it traces the batched step of the spectral path
@@ -29,7 +29,15 @@ full width instead, built as ``chip_smoke.py`` phase 9 builds it:
 8-site two-orbital FeAs sector, dim 3 312 400, two 1820 x 1820 factors and
 an ELL of K = 16).  The host's build of the arrays is timed apart.  Where
 the plain version's gather intermediates (four times the ELL's values)
-would not fit the card's free memory, only the kernel turns run.
+would not fit the card's free memory, only the kernel turns run.  The
+names ending in ``f`` trace the factored form that SolverOptions=factored
+solves instead (``chip_smoke.py`` phase 10), in its inner block order:
+``tj18f`` and ``rashba13f`` (half-cut block-Kronecker forms: within-block
+and tier products through ``factor_matmul``, the cut-crossing terms one
+``perm_gather`` each), ``heis24f`` (half-cut Sz blocks) and ``kitaev24f``
+(the 24-site Kitaev ring of bench.py, dim 16 777 216, two 4096-wide
+halves); their plain turns run the same form through the kernels' plain
+versions, and the launches of one matvec are printed.
 
 For each turn it prints the host wall time of the traced steps (ending
 in ``torch.cuda.synchronize()``), the device busy time and the device time
@@ -57,7 +65,12 @@ FLAT_MODELS = {"heisenberg24": ("heisenberg_ring_text", (24,)),
                "tj18": ("tj_ring_text", (18, 8, 8)),
                "rashba12": ("rashba_ring_text", (12, 12)),
                "rashba13": ("rashba_ring_text", (13, 13)),
-               "feas8": ("feas_ring_text", (8, 4, 4))}
+               "feas8": ("feas_ring_text", (8, 4, 4)),
+               # factored forms (SolverOptions=factored)
+               "tj18f": ("tj_ring_text", (18, 8, 8)),
+               "heis24f": ("heisenberg_ring_text", (24,)),
+               "rashba13f": ("rashba_ring_text", (13, 13, "0.5", "none")),
+               "kitaev24f": ("kitaev_ring_text", (24,))}
 STEPS = 40
 WARMUP_STEPS = 5
 SPECTRAL_STEPS = 10
@@ -136,11 +149,14 @@ def main() -> None:
         raise SystemExit("profile_step: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     import chip_smoke
-    from chip_smoke import SEED, PlainOperator, hubbard_chain_text
+    from chip_smoke import SEED, PlainForm, hubbard_chain_text
     from lanczosplusplus_tpu_torch import Config
     from lanczosplusplus_tpu_torch.geometry import Geometry
     from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
     from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.factored import (
+        factored_hamiltonian_or_none)
+    from lanczosplusplus_tpu_torch.ops import kernels
     from lanczosplusplus_tpu_torch.solver import lanczos as lz
 
     dev = torch.device("cuda:0")
@@ -158,19 +174,32 @@ def main() -> None:
     inp = parse_input(text)
     model = build_model(inp, Geometry(inp))
     parts = (8, 7) if args.spectral else model.default_parts(inp)
-    ham = model.hamiltonian(
-        model.create_basis(parts), device=dev,
-        dtype=Config.from_input(inp, device=dev).scalar_dtype)
-    ham = ham.densify_factors()
+    dtype = Config.from_input(inp, device=dev).scalar_dtype
+    basis = model.create_basis(parts)
+    factored = bool(args.flat) and args.flat.endswith("f")
+    if factored:
+        ham = factored_hamiltonian_or_none(model, basis, parts, dtype,
+                                           device=dev)
+        ham = getattr(ham, "inner", ham)   # solved in its block order
+    else:
+        ham = model.hamiltonian(basis, device=dev, dtype=dtype)
+        ham = ham.densify_factors()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
-    width = ham.ell.cols.shape[1] if ham.ell is not None else 0
-    print(f"Hamiltonian build and densify: {build_s:.3f} s, dim {ham.dim}, "
-          f"{ham.dtype}, ELL K {width}", flush=True)
-    ops = {"kernel": ham, "plain": PlainOperator(ham)}
+    ell = getattr(ham, "ell", None)
+    width = ell.cols.shape[1] if ell is not None else 0
+    print(f"Hamiltonian build{'' if factored else ' and densify'}: "
+          f"{build_s:.3f} s, dim {ham.dim}, {ham.dtype}, "
+          + (type(ham).__name__ if factored else f"ELL K {width}"),
+          flush=True)
+    kernels.reset_launches()
+    ham.matvec(torch.zeros(ham.dim, dtype=ham.dtype, device=dev))
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches of one matvec: {launches}", flush=True)
+    ops = {"kernel": ham, "plain": PlainForm(ham)}
     paths = ("plain", "kernel", "kernel", "plain")
-    if ham.ell is not None and 4 * ham.ell.vals.numel() \
-            * ham.ell.vals.element_size() > torch.cuda.mem_get_info(dev)[0]:
+    if ell is not None and 4 * ell.vals.numel() \
+            * ell.vals.element_size() > torch.cuda.mem_get_info(dev)[0]:
         paths = ("kernel", "kernel")
         print("the plain version's intermediates do not fit: kernel turns "
               "only", flush=True)
@@ -203,6 +232,7 @@ def main() -> None:
                 print(f"  {ms:10.3f} ms  {name[:100]}", flush=True)
     print(json.dumps({"card": smi, "spectral": args.spectral,
                       "flat": args.flat, "dim": ham.dim, "build_s": build_s,
+                      "launches_per_matvec": launches,
                       "peak_device_gb":
                           torch.cuda.max_memory_allocated(dev) / 1e9,
                       "turns": turns}),

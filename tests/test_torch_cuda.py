@@ -353,18 +353,180 @@ def test_factor_matmul_complex_planes(cuda, dtype, tol, rows, szd, szu,
     torch.cuda.synchronize()
 
 
-def test_gather_form_on_card_raises(cuda):
-    """A one-spin factor that cannot be densified is refused on the card,
-    never applied by plain PyTorch there."""
-    inp = parse_input(SUPER6)
+def test_gather_form_on_card_matches_cpu(cuda):
+    """A one-spin factor kept in gather form (``max_bytes=0``, or only the
+    larger one) runs on the card through ``perm_gather``, one launch per
+    factor, and gives the CPU's matvec, alone or beside a dense factor."""
+    inp = parse_input(SUPER6.replace("TargetElectronsDown=3",
+                                     "TargetElectronsDown=2"))
     model = build_model(inp, Geometry(inp))
-    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
-                            dtype=torch.float64, device=cuda)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        ham.densify_factors(max_bytes=0)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        ham.matvec(torch.zeros(ham.dim, dtype=torch.float64, device=cuda))
-    assert ham.densify_factors().factorized.up_dense is not None
+    basis = model.create_basis(model.default_parts(inp))
+    cpu = model.hamiltonian(basis, dtype=torch.float64, device="cpu")
+    ham = model.hamiltonian(basis, dtype=torch.float64, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, ham.dim)))
+    want = cpu.matmat_t(x)
+    up, dn = basis.up.size, basis.down.size
+    for max_bytes, gathered in ((0, 2), (8 * up * up - 1, 1)):
+        form = ham.densify_factors(max_bytes=max_bytes)
+        f = form.factorized
+        assert f.up_dense is None and (f.dn_dense is None) == (gathered == 2)
+        kernels.reset_launches()
+        got = form.matmat_t(x.to(cuda))
+        assert kernels.LAUNCHES["perm_gather"] == gathered
+        assert _rel(got.cpu(), want) <= 1e-13
+        assert _rel(form.matvec(x[1].to(cuda)).cpu(), want[1]) <= 1e-13
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("rows", [None, 1, 14])
+@pytest.mark.parametrize("sides", ["both", "rows_identity",
+                                   "cols_identity", "no_amplitudes"])
+def test_perm_gather_kernel(cuda, dtype, rows, sides):
+    """perm_gather against its plain version on random tables, for one
+    block and a batch, either side the identity, on strided views."""
+    g = torch.Generator().manual_seed(11)
+    lead = () if rows is None else (rows,)
+    rs_, cs_, rd, cd, nb = 37, 300, 37, 300, 5
+    if sides != "rows_identity":
+        rd = 29
+    if sides != "cols_identity":
+        cd = 257
+    x = torch.randn((*lead, cs_, rs_), generator=g, dtype=torch.float64)
+    if dtype.is_complex:
+        x = torch.complex(x, torch.randn(x.shape, generator=g,
+                                         dtype=torch.float64))
+    x = x.transpose(-1, -2)                       # a strided view
+    y0 = torch.randn((*lead, rd, cd), generator=g,
+                     dtype=torch.float64).to(dtype)
+
+    def table(n, src):
+        return torch.randint(0, src, (nb, n), generator=g, dtype=torch.int32)
+
+    def amps(n):
+        a = torch.randn(nb, n, generator=g, dtype=torch.float64)
+        a[:, ::7] = 0.0                           # unreached destinations
+        return a.to(dtype)
+    tabs = dict(rs=None if sides == "rows_identity" else table(rd, rs_),
+                a=None if sides == "no_amplitudes" else amps(rd),
+                cs=None if sides == "cols_identity" else table(cd, cs_),
+                beta=None if sides == "no_amplitudes" else amps(cd))
+    want = kernels.perm_gather_ref(x, y0.clone(), **tabs)
+    got = y0.to(cuda)
+    kernels.reset_launches()
+    kernels.perm_gather(x.to(cuda).transpose(-1, -2).contiguous()
+                        .transpose(-1, -2), got,
+                        **{k: None if v is None else v.to(cuda)
+                           for k, v in tabs.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["perm_gather"] == 1
+    assert _rel(got.cpu(), want) <= 1e-13
+
+
+def test_perm_gather_64bit_offsets(cuda):
+    """The second member of a batch starts 2^31 elements into x: offsets
+    are 64-bit."""
+    big = torch.zeros(2 ** 31 + 64, dtype=torch.float64, device=cuda)
+    x = big.as_strided((2, 4, 8), (2 ** 31, 8, 1))
+    x.copy_(torch.arange(64, dtype=torch.float64).view(2, 4, 8).to(cuda))
+    rs = torch.tensor([[3, 2, 1, 0]], dtype=torch.int32, device=cuda)
+    cs = torch.tensor([[7, 6, 5, 4, 3, 2, 1, 0]], dtype=torch.int32,
+                      device=cuda)
+    out = torch.zeros(2, 4, 8, dtype=torch.float64, device=cuda)
+    kernels.perm_gather(x, out, rs=rs, cs=cs)
+    assert torch.equal(out.cpu(), x.cpu().flip(1).flip(2))
+    del big, x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rows,m,n,k", [(3, 300, 123, 257), (7, 64, 64, 16),
+                                        (6, 40, 40, 40)])
+def test_factor_matmul_factor_per_member(cuda, rows, m, n, k):
+    """A factor per batch member (the tiers' and the cross terms' stacks)
+    through the batch stride on A: each member equals its own 2-D call
+    bit for bit and torch.matmul to 1e-12; an expanded X (batch stride 0)
+    shares one state."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, m, k, generator=g, device=cuda,
+                    dtype=torch.float64)
+    a = torch.randn(rows, n, k, generator=g, device=cuda,
+                    dtype=torch.float64)
+    kernels.reset_launches()
+    got = kernels.factor_matmul(x, a)
+    assert kernels.LAUNCHES["factor_matmul"] == 1
+    assert _rel(got, torch.matmul(x, a.transpose(1, 2))) <= 1e-12
+    for b in range(rows):
+        assert torch.equal(got[b], kernels.factor_matmul(x[b], a[b]))
+    shared = kernels.factor_matmul(x[0].expand(rows, m, k), a)
+    for b in range(rows):
+        assert torch.equal(shared[b], kernels.factor_matmul(x[0], a[b]))
+    # transposed views, accumulating, a complex state on real factors
+    y0 = torch.randn(rows, n, m, generator=g, device=cuda,
+                     dtype=torch.float64)
+    y = y0.clone()
+    kernels.factor_matmul(x, a, out=y.transpose(1, 2), accumulate=True)
+    assert _rel(y, y0 + torch.matmul(a, x.transpose(1, 2))) <= 1e-12
+    xc = torch.complex(x, x.flip(0))
+    assert _rel(kernels.factor_matmul(xc, a),
+                kernels.factor_matmul_ref(xc, a)) <= 1e-12
+
+
+FACTORED = {
+    "heisenberg": heisenberg_text(10, 1, 5),
+    "heisenberg_spin1": heisenberg_text(6, 2, 5),
+    "kitaev": kitaev_text(8, 1.1, 0.7, 0.9, periodic=1),
+    "tj": tj_text(10, 4, 3, j=0.3, periodic=1),
+    "rashba_complex": rashba_text(6, 5, r="(0.3,0.4)", periodic=1,
+                                  options="useComplex"),
+    "feas": feas_text(4, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1], 2, 2),
+    "feas_spinorbit": feas_so_text(2, 2, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FACTORED))
+def test_factored_form_on_card_matches_cpu(cuda, name):
+    """Each factored form applies on the card as on the CPU (one state and
+    a block of 3), the card's launches are the kernels', and the Engine
+    with SolverOptions=factored reaches the CPU's energy."""
+    text = FACTORED[name].replace("SolverOptions=none",
+                                  "SolverOptions=factored").replace(
+        "SolverOptions=useComplex", "SolverOptions=useComplex,factored")
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    cpu = Engine(model, inp, config=Config.from_input(inp, device="cpu"))
+    kernels.reset_launches()
+    gpu = Engine(model, inp, config=Config.from_input(inp, device=cuda),
+                 v0=cpu.eigenvector(0).cpu().numpy())
+    assert cpu._factored and gpu._factored
+    assert abs(gpu.ground_energy - cpu.ground_energy) <= \
+        1e-10 * abs(cpu.ground_energy)
+    h_cpu = cpu._cached_hamiltonian(cpu.parts)
+    h_gpu = gpu._cached_hamiltonian(gpu.parts)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, h_cpu.dim))).to(h_cpu.dtype)
+    kernels.reset_launches()
+    assert _rel(h_gpu.matmat_t(x.to(cuda)).cpu(), h_cpu.matmat_t(x)) <= 1e-12
+    assert _rel(h_gpu.matvec(x[2].to(cuda)).cpu(), h_cpu.matvec(x[2])) <= \
+        1e-12
+    assert kernels.LAUNCHES["factor_matmul"] > 0
+    assert kernels.LAUNCHES["ell_spmv"] == 0
+    gathers = name in ("tj", "rashba_complex", "feas", "feas_spinorbit")
+    assert (kernels.LAUNCHES["perm_gather"] > 0) == gathers
+
+
+def test_rashba_block_kron_on_card_matches_cpu(cuda):
+    """The (nup, ndown) block-Kronecker Rashba form, which no dispatch
+    reaches, applies on the card as on the CPU."""
+    inp = parse_input(rashba_text(5, 4, periodic=1))
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+    h_cpu = model.block_kron_hamiltonian(basis)
+    h_gpu = model.block_kron_hamiltonian(basis, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, basis.size)))
+    kernels.reset_launches()
+    assert _rel(h_gpu.matmat_t(x.to(cuda)).cpu(), h_cpu.matmat_t(x)) <= 1e-12
+    assert kernels.LAUNCHES["perm_gather"] > 0
 
 
 def test_solve_on_card_matches_cpu(cuda):
@@ -436,7 +598,7 @@ def test_spectral_functions_on_card_match_cpu(cuda, text):
     # two sectors, 300 steps (the sectors' dim): two GEMMs and, with a J
     # term, one ELL launch a step
     assert kernels.LAUNCHES == {"factor_matmul": 2 * 2 * 300,
-                                "ell_spmv": 2 * 300 * ell}
+                                "ell_spmv": 2 * 300 * ell, "perm_gather": 0}
     refs = cpu.spectral_functions_batched("c", pairs)
     for (coll, labels), (rcoll, rlabels) in zip(outs, refs):
         assert labels == rlabels
@@ -495,7 +657,7 @@ def test_complex_spectral_run_on_card_matches_cpu(cuda):
     # two sectors of dim 300: a step is one launch over the planes for
     # each real factor and one complex ell_spmv
     assert kernels.LAUNCHES == {"factor_matmul": 2 * 2 * 300,
-                                "ell_spmv": 2 * 300}
+                                "ell_spmv": 2 * 300, "perm_gather": 0}
     refs = cpu.spectral_functions_batched("c", pairs)
     for (coll, labels), (rcoll, rlabels) in zip(outs, refs):
         assert labels == rlabels
@@ -561,13 +723,15 @@ def test_flat_model_on_card_matches_cpu(cuda, name):
     x = lz.random_start_vector(dim, 5, ham.dtype, "cpu")
     kernels.reset_launches()
     got = ham.matvec(x.to(cuda))
-    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell}
+    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell,
+                                "perm_gather": 0}
     want = ref.matvec(x)
     assert _rel(got.cpu(), want) <= 1e-12
     block = torch.stack([x, 2 * x, x.flip(0)])
     kernels.reset_launches()
     got = ham.matmat_t(block.to(cuda))
-    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell}
+    assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell,
+                                "perm_gather": 0}
     assert _rel(got.cpu(), ref.matmat_t(block)) <= 1e-12
     assert gpu.solve_info.converged and not gpu.solve_info.used_dense_fallback
     assert abs(gpu.ground_energy - cpu.ground_energy) <= \
@@ -596,7 +760,8 @@ def test_spin_orbital_chain_on_card(cuda):
     x = lz.random_start_vector(ham.dim, 3, torch.float64, "cpu")
     kernels.reset_launches()
     assert _rel(ham.matvec(x.to(cuda)).cpu(), ref.matvec(x)) <= 1e-12
-    assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 1}
+    assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 1,
+                                "perm_gather": 0}
     evals, _ = lz.lowest_states(ham, seed=3)
     want = np.linalg.eigvalsh(ref.to_dense())[0]
     assert abs(evals[0] - want) <= 1e-10 * abs(want)

@@ -161,10 +161,14 @@ def test_unknown_model_raises():
         build_model(inp, Geometry(inp))
 
 
-@pytest.mark.parametrize("edit", ["UseTranslationSymmetry=1",
-                                  "SolverOptions=factored"])
+@pytest.mark.parametrize("edit", [
+    "UseTranslationSymmetry=1",
+    pytest.param("SolverOptions=factored,bf16cross",
+                 id="SolverOptions=factored")])
 def test_unported_inputs_raise(tmp_path, monkeypatch, edit):
-    """Symmetry sectors and factored forms raise."""
+    """Symmetry sectors and the bf16 cross gathers of the factored forms
+    raise (the factored forms themselves run:
+    tests/test_torch_factored.py)."""
     monkeypatch.chdir(tmp_path)
     text = INPUT0.replace("SolverOptions=none", edit)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

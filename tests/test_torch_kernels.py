@@ -376,7 +376,14 @@ def test_cpu_dispatch_launches_nothing():
     np.testing.assert_array_equal(
         kernels.ell_spmv(diag, cols, vals, vb).numpy(),
         kernels.ell_spmv_ref(diag, cols, vals, vb).numpy())
-    assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 0}
+    rs = torch.randint(0, 40, (2, 40), generator=g, dtype=torch.int32)
+    amp = torch.randn(2, 40, generator=g, dtype=torch.float64)
+    yb = torch.zeros(3, 40, 30, dtype=torch.float64)
+    np.testing.assert_array_equal(
+        kernels.perm_gather(xb, yb.clone(), rs=rs, a=amp).numpy(),
+        kernels.perm_gather_ref(xb, yb.clone(), rs=rs, a=amp).numpy())
+    assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 0,
+                                "perm_gather": 0}
 
 
 def test_non_cpu_device_without_kernel_raises():
@@ -449,8 +456,9 @@ def test_wrappers_reject_bad_operands(case):
             kernels.factor_matmul(torch.zeros(2, 2, 4, 3, dtype=torch.float64),
                                   torch.zeros(5, 3, dtype=torch.float64))
         else:
+            # a factor per member, but not one per member of this batch
             kernels.factor_matmul(torch.zeros(2, 4, 3, dtype=torch.float64),
-                                  torch.zeros(2, 5, 3, dtype=torch.float64))
+                                  torch.zeros(3, 5, 3, dtype=torch.float64))
 
 
 def test_overlap_detection():
@@ -474,6 +482,7 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     before = build.library_path()
     assert before.parent == build.BUILD_DIR
     assert {p.name for p in build.sources()} == {"ell_spmv.cu",
-                                                 "factor_matmul.cu"}
+                                                 "factor_matmul.cu",
+                                                 "perm_gather.cu"}
     (tmp_path / "ell_spmv.cu").write_text("// edited\n")
     assert build.library_path() != before
