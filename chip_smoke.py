@@ -80,14 +80,17 @@ Phases, each printing one line with its numbers:
    and read after and held against the form's count a matvec: the 14-site
    U=4 sector with both one-spin factors in gather form (its E0 against
    phase 5's; a matvec timed in both forms; perm_gather in the up and dn
-   forms at R = 1 and 14 against its plain version and cuSPARSE), the
+   forms at R = 1 and 14 against its plain version, bit for bit, and
+   cuSPARSE; perm_gather carries P (b, r) pairs a thread, their sums in
+   registers, and reads a column's tables once for all P), the
    20-site chain with 10 up and 2 down electrons (dim 35 103 640, the
    184 756^2 up factor in gather form beside the dense 190^2 dn one; U=0
    against free fermions, U=4 against the plain versions), and under
    SolverOptions=factored, each against its flat form's E0 (phase 9's
    where phase 9 solved it) with the factored build timed apart from the
    solve: the 18-site t-J ring through the CLI (its largest cross term
-   through perm_gather, its largest tier through factor_matmul with a
+   through perm_gather, bit for bit, as every form's largest cross term
+   below, its largest tier through factor_matmul with a
    factor per block), the 24-site Heisenberg ring (its eigenvector against
    phase 9's, its largest block's product), the 12-site complex Rashba
    ring (a complex128 cross term) and bench.py's 13-site real one (against
@@ -697,15 +700,18 @@ def perm_csr(tables, src_shape, dst_shape, dtype, device):
 
 def perm_gather_case(results, case, x, y0, tables):
     """perm_gather against its plain version on one block x (or a batch)
-    added into y0, timed beside its bytes bound (Y read and written, X and
-    the tables read once) and beside ``csr @ x`` on the same operator as
-    a CSR matrix, built outside the timed region (the library writes a
-    fresh output where the kernel adds into Y)."""
+    added into y0, bit for bit (each element adds its channels in the
+    plain version's order and rounding), timed beside its bytes bound (Y
+    read and written, X and the tables read once) and beside ``csr @ x``
+    on the same operator as a CSR matrix, built outside the timed region
+    (the library writes a fresh output where the kernel adds into Y)."""
     from lanczosplusplus_tpu_torch.ops import kernels as K
     got = y0.clone()
     K.perm_gather(x, got, **tables)
     ref = K.perm_gather_ref(x, y0.clone(), **tables)
     torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"perm_gather {case}: not bit-equal to "
+                                 f"its plain version")
     csr = perm_csr(tables, x.shape[-2:], y0.shape[-2:], x.dtype, x.device)
     xl = x.reshape(-1) if x.dim() == 2 else \
         x.reshape(x.shape[0], -1).T.contiguous()
@@ -717,11 +723,50 @@ def perm_gather_case(results, case, x, y0, tables):
     y1 = y0.clone()
     nbytes = (2 * y0.numel() + x.numel()) * x.element_size() + sum(
         t.numel() * t.element_size() for t in tables.values())
-    record(results, "perm_gather", case, got, ref, TOL_ELL_F64,
+    record(results, "perm_gather", case, got, ref, 0.0,
            (lambda: K.perm_gather(x, y1, **tables),
             lambda: K.perm_gather_ref(x, y1, **tables),
             lambda: csr @ xl),
            1e3 * nbytes / PEAK_BYTES, "bytes")
+
+
+def one_spin_gather_cases(gen, form, label):
+    """perm_gather's cases on a float64 sector's one-spin factors in
+    gather form (`form`: a Hamiltonian after
+    ``densify_factors(max_bytes=0)``; `label`: its size, as "14-site"),
+    up form (rows the identity) and dn form (columns the identity), on
+    random states, one (R = 1) and a block of 14 (R = 14): yields (case
+    label, x, y0, tables), made one at a time."""
+    f = form.factorized
+    szd, szu = form.spin_shape
+    dev = f.up_gather[0].device
+    for side in ("up", "dn"):
+        idx, amp = f.up_gather if side == "up" else f.dn_gather
+        tables = ({"cs": idx, "beta": amp} if side == "up"
+                  else {"rs": idx, "a": amp})
+        for rows in (1, 14):
+            shape = (szd, szu) if rows == 1 else (rows, szd, szu)
+            yield (f"f64 {label} one-spin {side} gather form, R={rows} "
+                   f"({idx.shape[0]} channels)",
+                   torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float64),
+                   torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float64),
+                   tables)
+
+
+def largest_cross_term(form, name):
+    """The largest PermCrossTerm of a block-Kronecker form (channels
+    times destination block): its case label, source and destination
+    block shapes, and perm_gather's tables."""
+    term = max(form.perm_cross, key=lambda t: t.row_src.numel()
+               * t.col_src.shape[1])
+    src, dst = form.shapes[term.src], form.shapes[term.dst]
+    case = (f"{'c128' if form.dtype.is_complex else 'f64'} {name} "
+            f"largest PermCrossTerm ({term.row_src.shape[0]} channels, "
+            f"block {term.src} {src} -> {term.dst} {dst})")
+    return case, src, dst, {"rs": term.row_src, "a": term.row_amp,
+                            "cs": term.col_src, "beta": term.col_amp}
 
 
 @contextlib.contextmanager
@@ -823,19 +868,8 @@ def factored_phase(dev, gen, results, refs):
     f = gform.factorized
     check(f.up_dense is None and f.dn_dense is None
           and dform.factorized.up_dense is not None, "14-site forms")
-    szd, szu = ham.spin_shape
-    for side in ("up", "dn"):
-        idx, amp = f.up_gather if side == "up" else f.dn_gather
-        tables = ({"cs": idx, "beta": amp} if side == "up"
-                  else {"rs": idx, "a": amp})
-        for rows in (1, 14):
-            shape = (szd, szu) if rows == 1 else (rows, szd, szu)
-            perm_gather_case(
-                results, f"f64 14-site one-spin {side} gather form, "
-                f"R={rows} ({idx.shape[0]} channels)",
-                torch.randn(shape, generator=gen, device=dev, dtype=f64),
-                torch.randn(shape, generator=gen, device=dev, dtype=f64),
-                tables)
+    for case in one_spin_gather_cases(gen, gform, "14-site"):
+        perm_gather_case(results, *case)
     K.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -969,20 +1003,14 @@ def factored_phase(dev, gen, results, refs):
         return eng, form
 
     def cross_case(name, run, form):
-        """perm_gather on the largest PermCrossTerm of a form (channels
-        times destination block), its own tables on random blocks."""
-        term = max(form.perm_cross, key=lambda t: t.row_src.numel()
-                   * t.col_src.shape[1])
-        src, dst = form.shapes[term.src], form.shapes[term.dst]
-        case = (f"{'c128' if form.dtype.is_complex else 'f64'} {name} "
-                f"largest PermCrossTerm ({term.row_src.shape[0]} channels, "
-                f"block {term.src} {src} -> {term.dst} {dst})")
+        """perm_gather on the largest PermCrossTerm of a form, its own
+        tables on random blocks."""
+        case, src, dst, tables = largest_cross_term(form, name)
         perm_gather_case(
             results, case,
             torch.randn(src, generator=gen, device=dev, dtype=form.dtype),
             torch.randn(dst, generator=gen, device=dev, dtype=form.dtype),
-            {"rs": term.row_src, "a": term.row_amp, "cs": term.col_src,
-             "beta": term.col_amp})
+            tables)
         cross_cases[case] = run
 
     # t-J: 18 sites through the CLI; its largest cross term and tier
@@ -1179,12 +1207,16 @@ def main() -> None:
         # BM, BN, X k-major, A k-major
         found = re.search(r"dmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)",
                           r["name"])
-        gather = re.search(r"perm_gather_kernelI(NS_4CplxE|d)E", r["name"])
+        # value type, row tables
+        gather = re.search(r"perm_gather_kernelI(NS_4CplxE|d)Lb(\d)E",
+                           r["name"])
         if gather:
             tag = "c128" if "Cplx" in gather.group(1) else "f64"
-            label = (f"perm_gather {tag}, static smem "
+            side = ("row tables" if gather.group(2) == "1"
+                    else "rows the identity")
+            label = (f"perm_gather {tag}, {side}, static smem "
                      f"{r['static_smem_bytes']} B")
-            built.add(f"perm_gather {tag}")
+            built.add(f"perm_gather {tag} {side}")
         elif found:
             bm, bn, xk, ak = map(int, found.groups())
             bits = K.MatmulPlan(bool(xk), False, bool(ak), False, False,
@@ -1210,7 +1242,10 @@ def main() -> None:
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
               f"{r['name']} spills registers")
     check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
-           "ell_spmv c64", "perm_gather f64", "perm_gather c128"} <= built,
+           "ell_spmv c64"} | {f"perm_gather {t} {side}"
+                              for t in ("f64", "c128")
+                              for side in ("row tables",
+                                           "rows the identity")} <= built,
           f"ell_spmv and perm_gather instantiations: {built}")
     dmma = build.sass_opcode_counts(lib, "DMMA")
     say(f"  DMMA instructions in the library's machine code: {dmma} "
@@ -2154,6 +2189,10 @@ def main() -> None:
                 launches_phase_10=sum(
                     run["counts"][kernel] for run in factored_runs.values()),
                 cases=results[kernel])
+        if kernel == "perm_gather":
+            kernels_line[-1].update(
+                design="(b, r) pairs a thread, their sums in registers; a "
+                       "column's tables read once for them")
         if name == "perm_gather":
             kernels_line[-1].update(cross_term_cases=cross)
     print(json.dumps({"kernels": kernels_line}))

@@ -65,6 +65,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="reduced density matrix split site")
     p.add_argument("--kpm", action="store_true", default=None)
     p.add_argument("--ftlm-dos", dest="ftlm_beta", type=float)
+    p.add_argument("-S", dest="threads", type=int, default=1,
+                   help="the reference's thread count: accepted for "
+                        "compatibility and ignored (the card sets the "
+                        "parallelism)")
     p.add_argument("-V", "--version", action="version", version=__version__)
     return p
 

@@ -21,23 +21,50 @@
 //
 // It does little arithmetic and is bound by bytes: Y read and written once,
 // X read once (the gathers re-read it from the caches), the tables once.
+// What it moves beyond that is re-reading, and what it waits on is each
+// thread's chain of dependent loads, a channel after another: a table
+// entry, then the gather it names.  A design with one thread per output
+// element reads a column's nb (cs, beta) pairs again for every (b, r)
+// pair, 12 bytes a channel: at 28 channels many times the element's own
+// traffic.
 //
-// Design, the simple one.  One thread per (b, r, c), c fastest, 256 to a
-// block along c; blockIdx.y walks the (b, r) pairs.  A thread's a[., r] and
-// rs[., r] are the same across its block (broadcast loads), its cs[., c]
-// and beta[., c] loads are coalesced.  In the up form a warp's gathers fall
-// in one row of X, which the L1 cache holds; in the dn form they are
-// contiguous.  A channel whose row amplitude is 0 is skipped, a test that
-// is uniform over the block.  The thread adds its channels to its element
-// of Y in ascending order, (a x) beta, as the plain version does: one read
-// and one write of Y, no atomics.  Offsets are 64-bit: a batch of 14
-// states of the 20-site sector (35 M each) passes 2^31 elements.
+// Design.  The (b, r) pairs are flattened, p = b * rows + r.  A block of
+// 128 threads covers 128 columns, one thread each, so a warp's loads of
+// cs[n, c] and beta[n, c] are coalesced; blockIdx.y walks the groups of P
+// consecutive pairs (gridDim.y apart, past 65 535).  A thread carries P
+// pairs, their P sums in registers, started from Y, and walks the
+// channels n in ascending order:
+// - with row tables, it loads a[n, r] and rs[n, r] of its P pairs first
+//   (the same across the warp: broadcast loads) and skips the channel,
+//   column tables and all, if it reaches none of them (a test uniform
+//   over the warp: in the FeAs and spin-orbit terms 79-80 % of the row
+//   amplitudes are 0);
+// - then it loads beta[n, c] and cs[n, c] once for its P pairs, and
+//   gathers and adds (a x) beta into each pair's sum where neither
+//   amplitude is 0 (the plain version adds a zero there; in the one-spin
+//   up form 73 % of the column amplitudes are 0): the P gathers of a
+//   channel are independent loads in flight together.
+// Without row tables (the row side the identity, ROWS false) the loop body
+// has no branch, and the compiler issues later channels' loads ahead.
+// Each element adds its channels in ascending order with the plain
+// version's expression, each product and sum rounded on its own, so the
+// result is bit-equal to it: float64 through __dmul_rn and __dadd_rn,
+// which are never fused; a complex128 sum likewise, while its product is
+// written as torch's c10::complex multiply is, and nvcc contracts it into
+// FMAs as it does torch's own, which the card tests hold bit for bit.
+// P is fixed by the type: 16 bytes of sums, float64 P = 2, complex128
+// P = 1, the fastest of P = 1, 2, 4 on chip_smoke.py phase 10's cases:
+// more holds more registers and leaves fewer threads to hide the loads.
+// Offsets are 64-bit: a batch of 14 states of the 20-site sector (35 M
+// each) passes 2^31 elements, and a group may span two batch members; the
+// pair count is within int32 and walked unsigned, so the step past the
+// last group cannot wrap.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int MAX_GRID_Y = 65535;
 
 // Complex scalar: the arithmetic perm_gather needs and no more.
@@ -46,19 +73,28 @@ struct Cplx {
   __device__ __forceinline__ Cplx() {}
   __device__ __forceinline__ explicit Cplx(double r) : re(r), im(0) {}
   __device__ __forceinline__ Cplx(double r, double i) : re(r), im(i) {}
-  __device__ __forceinline__ Cplx& operator+=(const Cplx& o) {
-    re += o.re;
-    im += o.im;
-    return *this;
-  }
 };
 
+// As c10::complex multiplies, left to nvcc to contract into FMAs as it
+// contracts torch's own complex product on the card.
 __device__ __forceinline__ Cplx operator*(const Cplx& a, const Cplx& b) {
   return Cplx(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
 }
 
-__device__ __forceinline__ Cplx operator+(const Cplx& a, const Cplx& b) {
-  return Cplx(a.re + b.re, a.im + b.im);
+// The plain version multiplies and adds in separate tensor operations,
+// each rounded: so do these (the float64 intrinsics are never fused; a
+// complex product is rounded as torch's is, above).
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ Cplx mul(const Cplx& a, const Cplx& b) {
+  return a * b;
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ Cplx add(const Cplx& a, const Cplx& b) {
+  return Cplx(__dadd_rn(a.re, b.re), __dadd_rn(a.im, b.im));
 }
 
 __device__ __forceinline__ double ld(const double* p) { return __ldg(p); }
@@ -72,36 +108,105 @@ __device__ __forceinline__ bool is_zero(const Cplx& v) {
   return v.re == 0.0 && v.im == 0.0;
 }
 
+// P, the (b, r) pairs a thread carries: 16 bytes of sums.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int pairs_of() {
+  return 16 / sizeof(T);
+}
+
+// Blocks an SM the compiler must leave room for: the registers are capped
+// at 65 536 / (THREADS x MIN_BLOCKS) = 51.  The compiler takes what it is
+// allowed, and every register fewer is more threads to hide the loads.
+constexpr int MIN_BLOCKS = 10;
+
+template <typename T, bool ROWS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 perm_gather_kernel(const T* __restrict__ X, long long xsb, long long xs0,
                    long long xs1, T* __restrict__ Y, long long ysb,
                    long long ys0, long long ys1, const int* __restrict__ rs,
                    const T* __restrict__ ra, const int* __restrict__ cs,
                    const T* __restrict__ ca, int nb, int rows, int cols,
-                   int batch) {
+                   unsigned pairs) {
+  constexpr int P = pairs_of<T>();
   const int c = blockIdx.x * THREADS + threadIdx.x;
   if (c >= cols) return;
-  const long long pairs = static_cast<long long>(batch) * rows;
-  for (long long br = blockIdx.y; br < pairs; br += gridDim.y) {
-    const long long b = br / rows;
-    const int r = static_cast<int>(br % rows);
-    const T* xb = X + b * xsb;
-    T* p = Y + b * ysb + static_cast<long long>(r) * ys0 +
-           static_cast<long long>(c) * ys1;
-    T acc = *p;
-    for (int n = 0; n < nb; ++n) {
-      const T a = ra ? ld(ra + static_cast<long long>(n) * rows + r) : T(1);
-      if (is_zero(a)) continue;
-      const long long sr =
-          rs ? __ldg(rs + static_cast<long long>(n) * rows + r) : r;
-      const long long sc =
-          cs ? __ldg(cs + static_cast<long long>(n) * cols + c) : c;
-      const T be = ca ? ld(ca + static_cast<long long>(n) * cols + c) : T(1);
-      acc += (a * ld(xb + sr * xs0 + sc * xs1)) * be;
+  for (unsigned p0 = blockIdx.y * P; p0 < pairs; p0 += gridDim.y * P) {
+    const int live = min(static_cast<int>(pairs - p0), P);
+    int r[P];
+    const T* xb[P];  // the pair's batch member of X
+    T acc[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      r[i] = 0;
+      if (i < live) {
+        const int b = (p0 + i) / rows;
+        r[i] = static_cast<int>(p0 + i) - b * rows;
+        xb[i] = X + b * xsb;
+        acc[i] = Y[b * ysb + r[i] * ys0 + c * ys1];
+      }
     }
-    *p = acc;
+    for (int n = 0; n < nb; ++n) {
+      T a[P];
+      int sr[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        a[i] = T(1);
+        sr[i] = r[i];
+      }
+      if (ROWS) {
+        // the row side first, both tables of all P pairs at once: a
+        // channel that reaches none of the thread's rows is skipped,
+        // column tables and all (a test that is uniform over the warp)
+        bool reached = false;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const long long ar = static_cast<long long>(n) * rows + r[i];
+          if (ra && i < live) a[i] = ld(ra + ar);
+          if (rs && i < live) sr[i] = __ldg(rs + ar);
+          reached |= i < live && !is_zero(a[i]);
+        }
+        if (!reached) continue;
+      }
+      // without row tables the body has no branch, and the compiler
+      // issues the loads of later channels ahead
+      const long long at = static_cast<long long>(n) * cols + c;
+      const T be = ca ? ld(ca + at) : T(1);
+      const int sc = cs ? __ldg(cs + at) : c;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        if (i < live && !is_zero(be) && !is_zero(a[i]))
+          acc[i] = add(acc[i], mul(mul(a[i], ld(xb[i] + sr[i] * xs0 +
+                                                sc * xs1)),
+                                   be));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i < live) {
+        const int b = (p0 + i) / rows;
+        Y[b * ysb + r[i] * ys0 + c * ys1] = acc[i];
+      }
+    }
   }
+}
+
+template <typename T, bool ROWS>
+int launch_rows(const void* x, long long xsb, long long xs0, long long xs1,
+                void* y, long long ysb, long long ys0, long long ys1,
+                const void* rs, const void* ra, const void* cs,
+                const void* ca, int nb, int rows, int cols, unsigned pairs,
+                void* stream) {
+  constexpr unsigned P = pairs_of<T>();
+  const unsigned groups = (pairs + P - 1) / P;
+  const dim3 grid((cols + THREADS - 1) / THREADS,
+                  groups < MAX_GRID_Y ? groups : MAX_GRID_Y);
+  perm_gather_kernel<T, ROWS><<<grid, THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), xsb, xs0, xs1, static_cast<T*>(y), ysb, ys0,
+      ys1, static_cast<const int*>(rs), static_cast<const T*>(ra),
+      static_cast<const int*>(cs), static_cast<const T*>(ca), nb, rows, cols,
+      pairs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -110,23 +215,22 @@ int launch(const void* x, long long xsb, long long xs0, long long xs1,
            const void* rs, const void* ra, const void* cs, const void* ca,
            int nb, int rows, int cols, int batch, void* stream) {
   const long long pairs = static_cast<long long>(batch) * rows;
-  const dim3 grid((cols + THREADS - 1) / THREADS,
-                  static_cast<unsigned>(pairs < MAX_GRID_Y ? pairs
-                                                           : MAX_GRID_Y));
-  perm_gather_kernel<T><<<grid, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), xsb, xs0, xs1, static_cast<T*>(y), ysb, ys0,
-      ys1, static_cast<const int*>(rs), static_cast<const T*>(ra),
-      static_cast<const int*>(cs), static_cast<const T*>(ca), nb, rows, cols,
-      batch);
-  return static_cast<int>(cudaGetLastError());
+  if (pairs > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return rs != nullptr || ra != nullptr
+             ? launch_rows<T, true>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs,
+                                    ra, cs, ca, nb, rows, cols,
+                                    static_cast<unsigned>(pairs), stream)
+             : launch_rows<T, false>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs,
+                                     ra, cs, ca, nb, rows, cols,
+                                     static_cast<unsigned>(pairs), stream);
 }
 
 }  // namespace
 
 // Strides in elements; xsb and ysb step from one batch member to the next.
 // rs, ra, cs, ca: contiguous (nb, rows) / (nb, cols) tables or null (the
-// identity, amplitude 1).  Returns the launch's cudaError (0 on success).
+// identity, amplitude 1).  batch * rows within int32.  Returns the launch's cudaError (0 on success).
 extern "C" int lpp_perm_gather_f64(const void* x, long long xsb,
                                    long long xs0, long long xs1, void* y,
                                    long long ysb, long long ys0,

@@ -462,7 +462,7 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
     if _overlaps(out, x):
         raise ValueError("perm_gather: out overlaps x")
     batch = lead[0] if lead else 1
-    if max(batch, rows, cols, nb) > _INT_MAX or min(x.stride()) < 0 \
+    if max(batch * rows, cols, nb) > _INT_MAX or min(x.stride()) < 0 \
             or min(out.stride()) < 0:
         raise ValueError("perm_gather: a size over int32 range or a "
                          "negative stride")

@@ -39,6 +39,13 @@ and tier products through ``factor_matmul``, the cut-crossing terms one
 halves); their plain turns run the same form through the kernels' plain
 versions, and the launches of one matvec are printed.
 
+With ``--gather`` it times the ``perm_gather`` cases of ``chip_smoke.py``
+phase 10 and nothing else, through ``chip_smoke.perm_gather_case`` (each
+case bit-equal to the plain version, then kernel, cuSPARSE ``csr @ x``,
+plain version and bound): the 14-site one-spin up and dn forms at R = 1
+and R = 14, and the largest PermCrossTerm of the 18-site t-J, 13-site
+Rashba, 8-site FeAs and 7-site FeAs spin-orbit factored forms.  It takes about a minute of command time.
+
 For each turn it prints the host wall time of the traced steps (ending
 in ``torch.cuda.synchronize()``), the device busy time and the device time
 of the top kernels.  Device busy time is the length of the union of the
@@ -71,6 +78,15 @@ FLAT_MODELS = {"heisenberg24": ("heisenberg_ring_text", (24,)),
                "heis24f": ("heisenberg_ring_text", (24,)),
                "rashba13f": ("rashba_ring_text", (13, 13, "0.5", "none")),
                "kitaev24f": ("kitaev_ring_text", (24,))}
+# --gather: the factored forms whose largest PermCrossTerm is timed, as
+# chip_smoke.py phase 10 names them (label, function writing the input,
+# its arguments)
+GATHER_FORMS = (("18-site t-J", "tj_ring_text", (18, 8, 8)),
+                ("13-site Rashba half-cut", "rashba_ring_text",
+                 (13, 13, "0.5", "none")),
+                ("8-site FeAs interaction", "feas_ring_text", (8, 4, 4)),
+                ("7-site FeAs spin-orbit", "feas_spinorbit_chain_text",
+                 (7, 4, 3)))
 STEPS = 40
 WARMUP_STEPS = 5
 SPECTRAL_STEPS = 10
@@ -135,16 +151,88 @@ def profile_turn(run, steps: int, warmup: int, trace_path: str) -> dict:
                 top_device_ms=by_name_ms(events, 8))
 
 
-def main() -> None:
+def gather_cases(dev) -> list:
+    """(case label, x, y0, tables) of every ``perm_gather`` case of
+    ``--gather``, on random blocks from the script's seed."""
+    import chip_smoke
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    inp = parse_input(chip_smoke.hubbard_chain_text(14, 4))
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
+                            dtype=torch.float64, device=dev)
+    cases = list(chip_smoke.one_spin_gather_cases(
+        gen, ham.densify_factors(max_bytes=0), "14-site"))
+    for name, writer, numbers in GATHER_FORMS:
+        t = time.perf_counter()
+        form = factored_form(getattr(chip_smoke, writer)(*numbers), dev)
+        case, src, dst, tables = chip_smoke.largest_cross_term(form, name)
+        print(f"{name}: factored build {time.perf_counter() - t:.3f} s",
+              flush=True)
+        cases.append((case, torch.randn(src, generator=gen, device=dev,
+                                        dtype=form.dtype),
+                      torch.randn(dst, generator=gen, device=dev,
+                                  dtype=form.dtype), tables))
+        del form
+    return cases
+
+
+def gather_main(smi: str) -> None:
+    """--gather: time perm_gather on phase 10's cases; the last line is
+    one JSON object."""
+    import chip_smoke
+
+    dev = torch.device("cuda:0")
+    results = {"perm_gather": []}
+    for case, x, y0, tables in gather_cases(dev):
+        amps = [t for t in (tables.get("a"), tables.get("beta"))
+                if t is not None]
+        live = [float((t != 0).double().mean()) for t in amps]
+        print(f"{case}: share of nonzero amplitudes in the row and column "
+              f"tables {live}", flush=True)
+        chip_smoke.perm_gather_case(results, case, x, y0, tables)
+    print(json.dumps({"card": smi, "gather": results["perm_gather"]}),
+          flush=True)
+
+
+def factored_form(text: str, dev):
+    """The factored form SolverOptions=factored solves for an input, in
+    its inner block order, built on `dev` as the Engine builds it."""
+    from lanczosplusplus_tpu_torch import Config
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.factored import (
+        factored_hamiltonian_or_none)
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    parts = model.default_parts(inp)
+    ham = factored_hamiltonian_or_none(
+        model, model.create_basis(parts), parts,
+        Config.from_input(inp, device=dev).scalar_dtype, device=dev)
+    return getattr(ham, "inner", ham)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     which = parser.add_mutually_exclusive_group()
     which.add_argument("--spectral", action="store_true",
                        help="trace the batched step of the spectral path")
     which.add_argument("--flat", choices=sorted(FLAT_MODELS), default=None,
                        help="trace the ground-state step of this flat model")
+    which.add_argument("--gather", action="store_true",
+                       help="time perm_gather on chip_smoke.py phase 10's "
+                            "cases")
     parser.add_argument("--trace-dir", default=None,
                         help="keep the chrome traces here")
-    args = parser.parse_args()
+    return parser.parse_args(argv)
+
+
+def main() -> None:
+    args = parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
@@ -154,8 +242,6 @@ def main() -> None:
     from lanczosplusplus_tpu_torch.geometry import Geometry
     from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
     from lanczosplusplus_tpu_torch.models import build_model
-    from lanczosplusplus_tpu_torch.models.factored import (
-        factored_hamiltonian_or_none)
     from lanczosplusplus_tpu_torch.ops import kernels
     from lanczosplusplus_tpu_torch.solver import lanczos as lz
 
@@ -165,24 +251,25 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if args.gather:
+        gather_main(smi)
+        return
 
     t = time.perf_counter()
     text = hubbard_chain_text(14, 4)
     if args.flat:
         writer, numbers = FLAT_MODELS[args.flat]
         text = getattr(chip_smoke, writer)(*numbers)
-    inp = parse_input(text)
-    model = build_model(inp, Geometry(inp))
-    parts = (8, 7) if args.spectral else model.default_parts(inp)
-    dtype = Config.from_input(inp, device=dev).scalar_dtype
-    basis = model.create_basis(parts)
     factored = bool(args.flat) and args.flat.endswith("f")
     if factored:
-        ham = factored_hamiltonian_or_none(model, basis, parts, dtype,
-                                           device=dev)
-        ham = getattr(ham, "inner", ham)   # solved in its block order
+        ham = factored_form(text, dev)   # solved in its block order
     else:
-        ham = model.hamiltonian(basis, device=dev, dtype=dtype)
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        parts = (8, 7) if args.spectral else model.default_parts(inp)
+        ham = model.hamiltonian(
+            model.create_basis(parts), device=dev,
+            dtype=Config.from_input(inp, device=dev).scalar_dtype)
         ham = ham.densify_factors()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t

@@ -439,6 +439,67 @@ def test_perm_gather_64bit_offsets(cuda):
     torch.cuda.empty_cache()
 
 
+# (batch, rows, cols, nb), for the pairs a thread carries (float64 2,
+# complex128 1): an odd number of pairs (21, a tail of one in float64),
+# a float64 thread's two pairs across two batch members (rows 5: pairs 4
+# and 5), the FeAs interaction's 32 channels and one more, more groups of
+# pairs than a grid's 65 535 block rows; no column count is a multiple
+# of the 128-column block
+GATHER_GEOMETRY_CASES = {"pair_tail": (3, 7, 203, 5),
+                         "spans_members": (2, 5, 70, 4),
+                         "nb32": (1, 37, 100, 32),
+                         "nb33": (2, 19, 45, 33),
+                         "grid_y_loop": (3, 100_001, 33, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("case", sorted(GATHER_GEOMETRY_CASES))
+@pytest.mark.parametrize("sides", ["both", "rows_identity",
+                                   "cols_identity"])
+def test_perm_gather_geometry_bit_equal(cuda, dtype, case, sides):
+    """perm_gather equals its plain version on the card bit for bit: the
+    tail of pairs, a thread's pairs across two batch members, 32 and 33
+    channels, the grid-y loop, a column block cut short, rows and columns
+    of amplitude 0 in some channels, a strided x; with tables on both
+    sides, and with the rows (the kernel without a row side) or the
+    columns the identity."""
+    batch, rows, cols, nb = GATHER_GEOMETRY_CASES[case]
+    rows_src = rows if sides == "rows_identity" else rows + 3
+    cols_src = cols if sides == "cols_identity" else cols + 11
+    g = torch.Generator(device=cuda).manual_seed(rows * cols + nb)
+
+    def rand(*shape):
+        t = torch.randn(shape, generator=g, device=cuda, dtype=torch.float64)
+        if dtype.is_complex:
+            t = torch.complex(t, torch.randn(shape, generator=g,
+                                             device=cuda,
+                                             dtype=torch.float64))
+        return t
+    x = rand(batch, cols_src, rows_src).transpose(1, 2)
+    y0 = rand(batch, rows, cols)
+    a = rand(nb, rows)
+    a[:, ::3] = 0.0
+    a[nb // 2, :] = 0.0
+    beta = rand(nb, cols)
+    beta[:, 1::4] = 0.0
+    tabs = dict(rs=torch.randint(0, rows_src, (nb, rows), generator=g,
+                                 device=cuda, dtype=torch.int32),
+                a=a,
+                cs=torch.randint(0, cols_src, (nb, cols), generator=g,
+                                 device=cuda, dtype=torch.int32),
+                beta=beta)
+    if sides != "both":
+        side = ("rs", "a") if sides == "rows_identity" else ("cs", "beta")
+        tabs.update(dict.fromkeys(side))
+    want = kernels.perm_gather_ref(x, y0.clone(), **tabs)
+    got = y0.clone()
+    kernels.reset_launches()
+    kernels.perm_gather(x, got, **tabs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["perm_gather"] == 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rows,m,n,k", [(3, 300, 123, 257), (7, 64, 64, 16),
                                         (6, 40, 40, 40)])
 def test_factor_matmul_factor_per_member(cuda, rows, m, n, k):

@@ -48,6 +48,24 @@ def test_cli_input0_energy(tmp_path, capsys):
     assert engine.config.device == torch.device("cpu")
 
 
+def test_cli_accepts_nthreads(tmp_path, capsys):
+    """-S nthreads is accepted and ignored, as the JAX CLI and the
+    reference do: the printed energy is the same with it and without it,
+    and the same as the JAX CLI's on the same input."""
+    from lanczosplusplus_tpu.cli import lanczos_main as jax_main
+    path = _write(tmp_path, hubbard_chain_text(6))
+
+    def energy(run, args):
+        run(["-f", path, *args])
+        return re.search(r"^Energy=(\S+)$", capsys.readouterr().out,
+                         re.M).group(1)
+    plain = energy(lanczos_main.run, ["--device", "cpu", "-p", "17"])
+    assert energy(lanczos_main.run,
+                  ["--device", "cpu", "-p", "17", "-S", "2"]) == plain
+    assert energy(lanczos_main.run, ["--device", "cpu", "-S", "2"]) == \
+        energy(jax_main.run, ["-S", "2"])
+
+
 def test_cli_printmatrix_oracle(tmp_path, capsys):
     text = INPUT0.replace("SolverOptions=none", "SolverOptions=printmatrix")
     lanczos_main.run(["-f", _write(tmp_path, text), "--device", "cpu"])

@@ -386,6 +386,61 @@ def test_cpu_dispatch_launches_nothing():
                                 "perm_gather": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("sides", ["both", "rows_identity", "cols_identity"])
+def test_perm_gather_cpu_matches_direct_sum(dtype, sides):
+    """perm_gather on CPU tensors (its plain version, which the card
+    kernel is held to bit for bit) against the defining sum, a channel
+    at a time in ascending order, on the card tests' geometry: an odd
+    number of (b, r) pairs, so a pair of them spans two batch members,
+    rows and columns of amplitude 0 in some channels, a strided x, and
+    either side the identity.  float64 is bit-equal; complex128 within
+    1e-15 of the largest element (numpy's complex product may round
+    otherwise than torch's)."""
+    batch, rows, cols, nb = 3, 7, 45, 5
+    rows_src = rows if sides == "rows_identity" else rows + 3
+    cols_src = cols if sides == "cols_identity" else cols + 11
+    rng = np.random.default_rng(rows * cols + nb)
+
+    def rand(*shape):
+        t = rng.standard_normal(shape)
+        return t + 1j * rng.standard_normal(shape) if dtype.is_complex \
+            else t
+    x = rand(batch, cols_src, rows_src).transpose(0, 2, 1)
+    y0 = rand(batch, rows, cols)
+    a = rand(nb, rows)
+    a[:, ::3] = 0.0
+    a[nb // 2, :] = 0.0
+    beta = rand(nb, cols)
+    beta[:, 1::4] = 0.0
+    rs = rng.integers(0, rows_src, (nb, rows)).astype(np.int32)
+    cs = rng.integers(0, cols_src, (nb, cols)).astype(np.int32)
+    if sides == "rows_identity":
+        rs, a = np.tile(np.arange(rows, dtype=np.int32), (nb, 1)), None
+    if sides == "cols_identity":
+        cs, beta = np.tile(np.arange(cols, dtype=np.int32), (nb, 1)), None
+    want = y0.copy()
+    for n in range(nb):
+        v = x[:, rs[n], :]
+        v = v if a is None else v * a[n][:, None]
+        v = v[:, :, cs[n]]
+        want += v if beta is None else v * beta[n][None, :]
+
+    def tensor(t):
+        return None if t is None else torch.from_numpy(np.ascontiguousarray(
+            t))
+    tabs = dict(rs=None if sides == "rows_identity" else tensor(rs),
+                a=tensor(a),
+                cs=None if sides == "cols_identity" else tensor(cs),
+                beta=tensor(beta))
+    got = kernels.perm_gather(torch.from_numpy(x), torch.from_numpy(y0),
+                              **tabs).numpy()
+    if dtype.is_complex:
+        assert np.abs(got - want).max() <= 1e-15 * np.abs(want).max()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
 def test_non_cpu_device_without_kernel_raises():
     """No silent fallback: a tensor that is neither on the CPU nor on a
     CUDA card is refused, not computed with the plain version."""

@@ -7,7 +7,12 @@ import ast
 import json
 import os
 
+import pytest
+import torch
+
+import chip_smoke
 import profile_step
+from lanczosplusplus_tpu_torch.ops import kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,6 +37,53 @@ def test_busy_is_the_union_of_device_intervals(tmp_path):
     assert profile_step.busy_us(events) == 35.0
     assert profile_step.by_name_ms(events, 2) == {"a": 0.02, "c": 0.015}
     assert profile_step.busy_us([]) == 0.0
+
+
+def test_gather_arguments():
+    """--gather times perm_gather alone, not with another profile."""
+    args = profile_step.parse_args(["--gather"])
+    assert args.gather and not args.spectral
+    assert args.flat is None
+    assert not profile_step.parse_args([]).gather
+    for bad in (["--sweep"], ["--gather", "--flat", "tj18"],
+                ["--gather", "--spectral"]):
+        with pytest.raises(SystemExit):
+            profile_step.parse_args(bad)
+
+
+def test_gather_cases_on_small_inputs(monkeypatch):
+    """--gather's cases, built on the CPU from small inputs of the same
+    models: the one-spin up and dn forms at R = 1 and 14, then each
+    form's largest PermCrossTerm, with operands whose shapes the tables
+    fit; the plain version runs on each."""
+    chain = chip_smoke.hubbard_chain_text
+    monkeypatch.setattr(chip_smoke, "hubbard_chain_text",
+                        lambda nsite, u, *a: chain(6, u, *a))
+    monkeypatch.setattr(profile_step, "GATHER_FORMS", (
+        ("8-site t-J", "tj_ring_text", (8, 3, 3)),
+        ("7-site Rashba half-cut", "rashba_ring_text",
+         (7, 7, "0.5", "none")),
+        ("4-site FeAs interaction", "feas_ring_text", (4, 2, 2)),
+        ("3-site FeAs spin-orbit", "feas_spinorbit_chain_text",
+         (3, 2, 1))))
+    cases = profile_step.gather_cases(torch.device("cpu"))
+    labels = [c[0] for c in cases]
+    assert [lab.split(" (")[0] for lab in labels[:4]] == [
+        f"f64 14-site one-spin {side} gather form, R={r}"
+        for side in ("up", "dn") for r in (1, 14)]
+    assert [lab.split(" largest")[0] for lab in labels[4:]] == [
+        "f64 8-site t-J", "f64 7-site Rashba half-cut",
+        "f64 4-site FeAs interaction", "c128 3-site FeAs spin-orbit"]
+    for case, x, y0, tables in cases:
+        nb = {t.shape[0] for t in tables.values()}
+        assert len(nb) == 1
+        rows, cols = y0.shape[-2:]
+        for name, length in (("rs", rows), ("a", rows), ("cs", cols),
+                             ("beta", cols)):
+            if name in tables:
+                assert tables[name].shape[1] == length, case
+        got = kernels.perm_gather(x, y0.clone(), **tables)
+        assert got.shape == y0.shape and torch.isfinite(got).all()
 
 
 def test_profile_step_imports_no_jax():
