@@ -100,13 +100,32 @@ Phases, each printing one line with its numbers:
    product), the 8-site FeAs sector's single block, a 7-site FeAs
    spin-orbit chain with 7 electrons (dim 1 184 040) and the 8-site t-J
    ring's G_00(omega) through -g against goldens.json and phase 9's.
+11. the symmetry sectors (``symmetry_phase``), each symmetric run through
+   the CLI on the card with the launch counts set to 0 before and read
+   after, its symmetry set-up, block builds and block solves timed apart
+   from the Engine's log, one line a block (dim, type, ELL K against the
+   mean entries a row, build s, Lanczos steps, solve s), and every block
+   matvec one ell_spmv launch: the 14-site half-filled U=4 chain with
+   UseTranslationSymmetry=1 (14 momentum blocks of about 841 330, 12 of
+   them complex128) against phase 5's E0, its transformed eigenvector's
+   residual on phase 5's Hamiltonian; the 14-site open (4, 4) chain with
+   UseReflectionSymmetry=1 (two float64 parity blocks) and the 12-site
+   (3, 3) 2-leg ladder with UseTranslationSymmetry=2 against their E0s
+   without symmetry; the 22-site Kitaev ring with UseTranslationSymmetry=1,
+   which takes the projected path on the card (12 momentum sectors of the
+   full 2^22 space, factor_matmul on the 2048^2 halves), each k's E0 and
+   bench.py's sym_* fields, against the factored solve's E0 with its
+   purity; then ell_spmv on the largest momentum block and the larger
+   parity block at R = 1 and 14, and factor_matmul on the 22-site Kitaev
+   half, each against its plain version and beside cuSPARSE or cuBLAS.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
 prints no result.  The last lines are a JSON object with the kernels'
 numbers (one entry for each kernel and form of a path, with the launches
 that path counted: ground state, spectral, the flat models' forms of
-phase 9 and the factored forms' and gather apply's of phase 10), the
+phase 9, the factored forms' and gather apply's of phase 10 and the
+symmetry blocks' and projected translation's of phase 11), the
 card's name and power limit, and the result object.
 """
 
@@ -163,26 +182,31 @@ IsPeriodicX=0
 
 
 def hubbard_chain_text(nsite: int, u: float, nup: int | None = None,
-                       ndown: int | None = None) -> str:
-    """Periodic one-band Hubbard chain, t = -1, half filled unless `nup`
-    and `ndown` say otherwise."""
+                       ndown: int | None = None, periodic: int = 1,
+                       ladder: bool = False, extra: str = "") -> str:
+    """One-band Hubbard chain (or 2-leg ladder), t = -1, uniform U, no
+    potential, periodic unless `periodic` is 0, half filled unless `nup`
+    and `ndown` say otherwise; `extra` is appended.  Translation (when
+    periodic) and reflection both commute with it."""
     nup = nsite // 2 if nup is None else nup
     ndown = nsite // 2 if ndown is None else ndown
+    geometry = ("GeometryKind=ladder\nLadderLeg=2\n"
+                "GeometryOptions=ConstantValues\nConnectors 2 -1.0 -1.0"
+                if ladder else "GeometryKind=chain\n"
+                "GeometryOptions=ConstantValues\nConnectors 1 -1.0")
     return f"""
 TotalNumberOfSites={nsite}
 NumberOfTerms=1
 DegreesOfFreedom=1
-GeometryKind=chain
-GeometryOptions=ConstantValues
-Connectors 1 -1.0
+{geometry}
 Model=HubbardOneBand
 hubbardU {nsite} {" ".join([str(u)] * nsite)}
 potentialV {2 * nsite} {" ".join(["0"] * 2 * nsite)}
 SolverOptions=none
 TargetElectronsUp={nup}
 TargetElectronsDown={ndown}
-IsPeriodicX=1
-"""
+IsPeriodicX={periodic}
+{extra}"""
 
 
 def super_hubbard_text(nsite: int) -> str:
@@ -513,12 +537,14 @@ def phase_seconds(stderr_text, label):
         rf"{re.escape(label)}.* done in ([0-9.]+)s", stderr_text)]
 
 
-def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by):
+def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
+           nonzero_bound_ms=None):
     """Hold a kernel's result against its plain version's, time the kernel,
     its plain version and (where there is one) the library call in the
     turns library, kernel, kernel, library, print one line and append the
     case to results[kernel].  `times`: kernel, plain and (or None) library
-    callables."""
+    callables.  `nonzero_bound_ms`, where given, is a padded matrix's
+    bytes bound over its nonzero entries alone, kept beside `bound_ms`."""
     abs_err, rel = rel_err(got, ref)
     check(rel <= tol, f"{kernel} {case}: rel err {rel:.3e} > {tol:g}")
     run, plain, library = times
@@ -544,12 +570,19 @@ def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by):
            f"{library_ms:.4f} ms (turns {turns['library'][0]:.4f}, "
            f"{turns['library'][1]:.4f})")
         + f", plain {plain_ms:.4f} ms, kernel from an idle card "
-          f"{from_idle_ms:.4f} ms")
+          f"{from_idle_ms:.4f} ms"
+        + ("" if nonzero_bound_ms is None else
+           f", bound over the nonzero entries alone {nonzero_bound_ms:.4f}"
+           f" ms (share {nonzero_bound_ms / ms:.3f})"))
     results[kernel].append(dict(
         case=case, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / ms, library_ms=library_ms,
         from_idle_ms=from_idle_ms))
+    if nonzero_bound_ms is not None:
+        results[kernel][-1].update(
+            nonzero_bound_ms=nonzero_bound_ms,
+            share_of_nonzero_bound=nonzero_bound_ms / ms)
 
 
 def form_launches(form) -> dict:
@@ -1169,6 +1202,246 @@ def factored_phase(dev, gen, results, refs):
     return runs, cross_cases
 
 
+@contextlib.contextmanager
+def counted_applies(owner, attr):
+    """Counts, while the block runs, the calls of owner.attr whose first
+    argument lies on the card: yields a dict whose "applies" is that
+    count."""
+    fn = getattr(owner, attr)
+    seen = {"applies": 0}
+
+    def wrapped(self, x, *args, **kwargs):
+        if x.is_cuda:
+            seen["applies"] += 1
+        return fn(self, x, *args, **kwargs)
+    setattr(owner, attr, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(owner, attr, fn)
+
+
+SECTOR_LINE = re.compile(
+    r"symmetry sector (\d+): dim (\d+), torch\.(\w+), ELL K (\d+) against "
+    r"([0-9.]+) entries a row, steps (\d+), E0 (\S+)")
+
+
+def symmetry_phase(dev, gen, results, refs, ell_case):
+    """Phase 11: the symmetry sectors on the card, each run through the
+    port's CLI with the launch counts set to 0 before and read after:
+    the 14-site half-filled U=4 chain's 14 momentum blocks against phase
+    5's E0 and Hamiltonian (`refs`), the 14-site open (4, 4) chain's two
+    parity blocks and the 12-site (3, 3) ladder's momentum blocks of both
+    directions against their flat E0s, the 22-site Kitaev ring by
+    projection against its factored E0; then ell_spmv on the largest
+    momentum and parity blocks (`ell_case`, phase 3's) and factor_matmul
+    on the Kitaev half.  Returns {run label: (kind, launches)}, kind
+    "flat", "translation blocks", "reflection blocks" or "projected"."""
+    from lanczosplusplus_tpu_torch import Config
+    from lanczosplusplus_tpu_torch.cli import lanczos_main
+    from lanczosplusplus_tpu_torch.core import sparse
+    from lanczosplusplus_tpu_torch.engine import Engine
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.symmetry import projected
+    runs = {}
+
+    def flat_e0(label, text):
+        """E0 of the sector without symmetry, through the Engine on the
+        card (its launches kept apart)."""
+        inp = parse_input(text)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng = Engine(build_model(inp, Geometry(inp)), inp,
+                     config=Config.from_input(inp, device=dev))
+        torch.cuda.synchronize()
+        runs[f"{label}, without symmetry"] = ("flat", dict(K.LAUNCHES))
+        say(f"phase 11 {label} without symmetry: dim {eng.basis.size}, E0 "
+            f"{eng.ground_energy!r}, time to E0 "
+            f"{time.perf_counter() - t:.3f} s, launches {dict(K.LAUNCHES)}")
+        check(eng.solve_info.converged, f"{label} flat solve unconverged")
+        return eng
+
+    def blocks_run(label, kind, text, want):
+        """The symmetric input through the CLI on the card: one line a
+        block (dim, type, K against the mean entries a row, build s,
+        steps, solve s, ms a matvec), E0 against `want`, every block
+        matvec one ell_spmv launch.  Returns the engine and its blocks,
+        [(sector, block)]."""
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with counted_applies(sparse.Hamiltonian, "matmat_t") as seen:
+            eng, _, err, _, wall = run_cli(lanczos_main, text)
+        counts = dict(K.LAUNCHES)
+        runs[label] = (kind, counts)
+        setup, = phase_seconds(err, "symmetry setup")
+        builds = dict((int(a), float(b)) for a, b in re.findall(
+            r"symmetry sector (\d+) block build done in ([0-9.]+)s", err))
+        solves = dict((int(a), float(b)) for a, b in re.findall(
+            r"symmetry sector (\d+) solve done in ([0-9.]+)s", err))
+        blocks = [(int(m[0]), int(m[1]), m[2], int(m[3]), float(m[4]),
+                   int(m[5]), float(m[6])) for m in SECTOR_LINE.findall(err)]
+        say(f"phase 11 {label} via CLI on cuda: dim {eng.basis.size}, "
+            f"{len(blocks)} blocks, min sector {eng.solve_sector}, E0 "
+            f"{eng.ground_energy!r}, time to E0 {wall:.3f} s = symmetry "
+            f"setup {setup:.3f} + block builds {sum(builds.values()):.3f} + "
+            f"block solves {sum(solves.values()):.3f} s + the rest, "
+            f"{seen['applies']} block matvecs, launches {counts}, peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+            f" GB")
+        for s, dim, dtype, width, mean, steps, e0 in blocks:
+            say(f"  sector {s}: dim {dim}, {dtype}, ELL K {width} against "
+                f"{mean:.2f} entries a row (padding share "
+                f"{1 - mean / width:.3f}), build {builds[s]:.3f} s, steps "
+                f"{steps}, solve {solves[s]:.3f} s"
+                + (f" ({1e3 * solves[s] / steps:.3f} ms a step)" if steps
+                   else "") + f", E0 {e0!r}")
+        err_e0 = abs(eng.ground_energy - want) / abs(want)
+        say(f"  E0 against {want!r}: rel err {err_e0:.3e}")
+        check(err_e0 <= TOL_E0, f"{label}: E0 off by {err_e0:.3e}")
+        check(counts == {"factor_matmul": 0, "ell_spmv": seen["applies"],
+                         "perm_gather": 0} and seen["applies"] > 0,
+              f"{label}: launches {counts}, block matvecs {seen['applies']}")
+        check(eng.eigenvector(0).device.type == "cuda",
+              f"{label}: eigenvector not on the card")
+        sym = eng.symmetry
+        made = [(s, sym.block_hamiltonian(s)) for s in range(sym.sectors())]
+        return eng, [(s, b) for s, b in made if b is not None]
+
+    # a. the 14-site half-filled U=4 chain: 14 momentum blocks
+    label = "14-site U=4 chain, translation"
+    eng, kept = blocks_run(label, "translation blocks", hubbard_chain_text(
+        14, 4, extra="UseTranslationSymmetry=1\n"), refs["e0_u4"])
+    check(len(kept) == 14, f"{label}: {len(kept)} blocks")
+    v = eng.eigenvector(0)
+    ham = refs["ham_u4"]
+    parts = (v,) if not v.is_complex() else (v.real.contiguous(),
+                                             v.imag.contiguous())
+    hv = [ham.matvec(p) for p in parts]
+    hv = hv[0] if len(hv) == 1 else torch.complex(*hv)
+    resid = torch.linalg.vector_norm(hv - eng.ground_energy * v).item()
+    say(f"  the transformed eigenvector ({v.dtype}, norm "
+        f"{torch.linalg.vector_norm(v).item():.15f}) on phase 5's "
+        f"Hamiltonian: ||Hv - E0 v|| = {resid:.3e}")
+    check(resid <= 1e-8, f"{label}: residual {resid:.3e}")
+    momentum = max(((s, b) for s, b in kept if b.dtype == torch.complex128),
+                   key=lambda sb: sb[1].dim)
+    momentum_entries = eng.symmetry.block_entries[momentum[0]]
+    del eng, v, hv, kept, parts
+    torch.cuda.empty_cache()
+
+    # b. the 14-site open (4, 4) chain: two parity blocks
+    label = "14-site open (4, 4) chain, reflection"
+    text = hubbard_chain_text(14, 4, 4, 4, periodic=0)
+    flat = flat_e0(label, text)
+    check(flat.basis.size == 1_002_001
+          and tuple(flat.hamiltonian.factorized.up_dense.shape)
+          == (1001, 1001), f"{label}: dim {flat.basis.size}")
+    eng, kept = blocks_run(label, "reflection blocks",
+                           text + "UseReflectionSymmetry=1\n",
+                           flat.ground_energy)
+    check(len(kept) == 2 and all(b.dtype == torch.float64 for _, b in kept),
+          f"{label}: blocks {[(b.dim, b.dtype) for _, b in kept]}")
+    parity = max(kept, key=lambda sb: sb[1].dim)
+    parity_entries = eng.symmetry.block_entries[parity[0]]
+    del flat, eng, kept
+
+    # c. the 12-site (3, 3) ladder, both translation directions
+    label = "12-site (3, 3) 2-leg ladder, translation in both directions"
+    text = hubbard_chain_text(12, 4, 3, 3, ladder=True)
+    flat = flat_e0(label, text)
+    check(flat.basis.size == 48_400, f"{label}: dim {flat.basis.size}")
+    eng, kept = blocks_run(label, "translation blocks",
+                           text + "UseTranslationSymmetry=2\n",
+                           flat.ground_energy)
+    check(len(kept) == 12, f"{label}: {len(kept)} blocks")
+    del flat, eng, kept
+    torch.cuda.empty_cache()
+
+    # d. the 22-site Kitaev ring: projected translation on the card
+    label = "22-site Kitaev ring, projected translation"
+    text = kitaev_ring_text(22)
+    ref = flat_e0("22-site Kitaev ring, factored", factored(text))
+    form = ref._cached_hamiltonian(ref.parts)
+    K.reset_launches()
+    with counted_applies(projected.RotationProjectedHamiltonian,
+                         "matvec") as seen:
+        eng, _, err, _, wall = run_cli(lanczos_main,
+                                       text + "UseTranslationSymmetry=1\n")
+    counts = dict(K.LAUNCHES)
+    runs[label] = ("projected", counts)
+    build_s, = phase_seconds(err, "projected translation build")
+    solves = [float(x) for x in re.findall(
+        r"momentum sector k=\d+ solve done in ([0-9.]+)s", err)]
+    per_k = [(int(k), int(steps), float(e0)) for k, steps, e0 in re.findall(
+        r"momentum sector k=(\d+): steps (\d+), E0 (\S+)", err)]
+    err_e0 = abs(eng.ground_energy - ref.ground_energy) / abs(
+        ref.ground_energy)
+    sym = {"sym_model": "kitaev22_translation_projected",
+           "sym_dim": eng.basis.size, "sym_sectors": len(per_k),
+           "sym_build_s": build_s,
+           "sym_k_iters_per_s": seen["applies"] / sum(solves),
+           "sym_min_k": eng.solve_sector,
+           "sym_min_k_e0_rel_err": err_e0,
+           "sym_winner_purity": eng.projected_purity}
+    say(f"phase 11 {label} via CLI on cuda: dim {eng.basis.size}, "
+        f"{len(per_k)} sectors, time to E0 {wall:.3f} s = build "
+        f"{build_s:.3f} + sector solves {sum(solves):.3f} s + the rest, "
+        f"{seen['applies']} projected matvecs "
+        f"({1e3 * sum(solves) / seen['applies']:.3f} ms each, solve "
+        f"included), launches {counts}; {json.dumps(sym)}")
+    for (k, steps, e0), sec in zip(per_k, solves):
+        say(f"  k={k}: steps {steps}, solve {sec:.3f} s, E0 {e0!r}")
+    say(f"  min-k E0 {eng.ground_energy!r} against the factored solve's "
+        f"{ref.ground_energy!r}: rel err {err_e0:.3e}")
+    check(len(per_k) == 12 and eng.basis.size == 1 << 22,
+          f"{label}: {len(per_k)} sectors, dim {eng.basis.size}")
+    check(err_e0 <= TOL_E0, f"{label}: E0 off by {err_e0:.3e}")
+    check(eng.projected_purity >= 1 - 1e-8,
+          f"{label}: purity {eng.projected_purity!r}")
+    check(counts == {"factor_matmul": 4 * seen["applies"], "ell_spmv": 0,
+                     "perm_gather": 0} and seen["applies"] > 0,
+          f"{label}: launches {counts}, projected matvecs "
+          f"{seen['applies']} (4 products each)")
+    half = form.hl.shape[0]
+    x2 = torch.randn(half, half, generator=gen, device=dev,
+                     dtype=torch.float64)
+    y0 = torch.randn(half, half, generator=gen, device=dev,
+                     dtype=torch.float64)
+    got = y0.clone()
+    K.factor_matmul(x2.T, form.hl, out=got.T, accumulate=True)
+    want = y0 + form.hl @ x2
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    hl = form.hl
+    record(results, "factor_matmul",
+           f"f64 22-site Kitaev left half: Y+=H_L.X, {half}^3 (transposed "
+           f"views)", got, want, TOL_F64,
+           (lambda: K.factor_matmul(x2.T, hl, out=y1.T, accumulate=True),
+            lambda: y1.T.add_(K.factor_matmul_ref(x2.T, hl)),
+            lambda: y1.addmm_(hl, x2)),
+           1e3 * 2 * half ** 3 / PEAK_FLOPS, "operations")
+    del eng, ref, form, hl, x2, y0, y1, got, want
+    torch.cuda.empty_cache()
+
+    # e. ell_spmv on the largest momentum block and the larger parity block
+    for tag, name, (_, blk), entries in (
+            ("c128", "14-site momentum block", momentum, momentum_entries),
+            ("f64", "14-site parity block", parity, parity_entries)):
+        width = blk.ell.cols.shape[1]
+        for rows in (1, 14):
+            ell_case(f"{tag} {name} R={rows}, dim {blk.dim}, K {width} "
+                     f"against {entries / blk.dim:.2f} entries a row",
+                     blk.diag, blk.ell.cols, blk.ell.vals,
+                     (blk.dim,) if rows == 1 else (rows, blk.dim),
+                     TOL_ELL_F64, entries=entries)
+    say(f"symmetry paths' kernel launches: {runs}")
+    return runs
+
+
 def main() -> None:
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -1469,9 +1742,11 @@ def main() -> None:
             torch.randn(dim, kk, generator=gen, device=dev, dtype=dt),
             shape, tol))
 
-    def ell_case(case, diag, cols, vals, shape, tol):
+    def ell_case(case, diag, cols, vals, shape, tol, entries=None):
         """ell_spmv against its plain version on one (diag, cols, vals)
-        and a random x of `shape`, timed beside its bytes bound."""
+        and a random x of `shape`, timed beside its bytes bound; where the
+        count of nonzero `entries` is given, also beside the bound of the
+        bytes y = Hx needs, the padding's index and value unread."""
         x = torch.randn(shape, generator=gen, device=dev, dtype=diag.dtype)
 
         def plain():
@@ -1508,12 +1783,15 @@ def main() -> None:
         # per row: K indices and K values and diag read once; per batch
         # member x read and y written
         size = x.element_size()
-        row_bytes = cols.shape[1] * (4 + size) + size \
-            + 2 * size * (shape[0] if len(shape) == 2 else 1)
+        vec_bytes = size + 2 * size * (shape[0] if len(shape) == 2 else 1)
+        row_bytes = cols.shape[1] * (4 + size) + vec_bytes
         record(results, "ell_spmv", case, got, ref, tol,
                (lambda: K.ell_spmv(diag, cols, vals, x), plain,
                 lambda: csr @ xl),
-               1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes")
+               1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes",
+               None if entries is None else 1e3 * (
+                   entries * (4 + size) + vec_bytes * diag.shape[0])
+               / PEAK_BYTES)
         del csr, xl
 
     for case in ell_cases:
@@ -1582,7 +1860,8 @@ def main() -> None:
         f"memory {peak_gb:.2f} GB")
     check(eng_u4.solve_info.converged, "14-site U=4 unconverged")
     # what phase 10 holds the factored forms and the gather apply against
-    refs = {"e0_u4": eng_u4.ground_energy, "v0_u4": v0_u4}
+    refs = {"e0_u4": eng_u4.ground_energy, "v0_u4": v0_u4,
+            "ham_u4": eng_u4.hamiltonian}
     check(K.LAUNCHES["factor_matmul"] > 0, "factor_matmul never launched")
 
     v0_she = lz.random_start_vector(she_basis.size, SEED, torch.float64,
@@ -2079,6 +2358,9 @@ def main() -> None:
     factored_runs, cross_cases = factored_phase(dev, gen, results, refs)
     say(f"factored forms' kernel launches: "
         f"{ {label: run['counts'] for label, run in factored_runs.items()} }")
+
+    # -- 11. the symmetry sectors ----------------------------------------
+    sym_runs = symmetry_phase(dev, gen, results, refs, ell_case)
     del refs
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
@@ -2107,6 +2389,11 @@ def main() -> None:
         of `words`."""
         return sum(counts[kernel] for label, counts in flat_launches.items()
                    if any(w in label for w in words))
+
+    def sym_count(kernel, kind):
+        """Launches of `kernel` over phase 11's runs of one kind."""
+        return sum(counts[kernel] for run_kind, counts in sym_runs.values()
+                   if run_kind == kind)
 
     def form_count(form):
         """Launches of one form over phase 10's runs, as counted at the
@@ -2166,7 +2453,17 @@ def main() -> None:
         ("factor_matmul (factored, tier)", "factored forms",
          "f64 18-site t-J tier", form_count("tier")),
         ("factor_matmul (factored, Kitaev)", "factored forms",
-         "f64 24-site Kitaev left half", form_count("kitaev")))
+         "f64 24-site Kitaev left half", form_count("kitaev")),
+        # the symmetry sectors (phase 11)
+        ("ell_spmv (symmetry, momentum blocks)",
+         "symmetry: translation blocks", "c128 14-site momentum block R=1",
+         sym_count("ell_spmv", "translation blocks")),
+        ("ell_spmv (symmetry, parity blocks)", "symmetry: reflection blocks",
+         "f64 14-site parity block R=1",
+         sym_count("ell_spmv", "reflection blocks")),
+        ("factor_matmul (symmetry, projected Kitaev)",
+         "symmetry: projected translation", "f64 22-site Kitaev left half",
+         sym_count("factor_matmul", "projected")))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -2180,7 +2477,9 @@ def main() -> None:
             path=path_name, launches=count,
             **{key: path_case[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "share_of_bound", "case")}))
+                "library_ms", "share_of_bound", "case",
+                "nonzero_bound_ms", "share_of_nonzero_bound")
+                if key in path_case}))
         if name == kernel:  # every case of the kernel, once
             kernels_line[-1].update(
                 launches_ground_state_path=launches[kernel],
@@ -2188,6 +2487,8 @@ def main() -> None:
                 launches_flat_models=flat_count(kernel, ""),
                 launches_phase_10=sum(
                     run["counts"][kernel] for run in factored_runs.values()),
+                launches_phase_11=sum(counts[kernel]
+                                      for _, counts in sym_runs.values()),
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(

@@ -13,9 +13,12 @@ printmatrix/dumpmatrix oracle, and then the measurements: ``-m`` brakets,
 ``-g`` spectral functions written as ``<input><counter>.comb`` continued
 fractions (site pairs from ComputeDensityOfStates=, TSPSites, TSPCenter=,
 DoAllPairs=), ``-c`` two-point correlators, ``-r`` the reduced density
-matrix and ``-M`` many-point correlators.  ``--kpm`` and ``--ftlm-dos``
-are accepted and raise ``NotImplementedError`` naming the ROADMAP item
-that ports them, before any work is done.
+matrix and ``-M`` many-point correlators.  The symmetry labels of the
+input (UseTranslationSymmetry=1 or 2, UseReflectionSymmetry=1) solve
+sector by sector, and every measurement runs on the eigenvector transformed
+back to the site basis.  ``--kpm`` and ``--ftlm-dos`` are accepted and
+raise ``NotImplementedError`` naming the ROADMAP item that ports them,
+before any work is done.
 """
 
 from __future__ import annotations

@@ -244,6 +244,16 @@ class FeBasedScModel:
         self.jzz_site = geometry.coupling_matrix(self.TERM_J_ZZ) \
             if geometry.terms() > self.TERM_J_ZZ else np.zeros((n, n))
 
+    def symmetry_form(self, basis: FeAsBasis,
+                      dtype: torch.dtype = torch.float64, device="cpu"):
+        """The form symmetry sectors read their rows from: the single-block
+        BlockKron form, or None (the flat form) past the size cap of its
+        dense one-spin factors."""
+        szu, szd = basis.up.size, basis.down.size
+        if szu * szu + szd * szd > (1 << 26):
+            return None
+        return self.block_kron_hamiltonian(basis, dtype=dtype, device=device)
+
     def create_basis(self, parts) -> FeAsBasis:
         return FeAsBasis(self.geometry.number_of_sites(), parts[0],
                          parts[1], self.norb)

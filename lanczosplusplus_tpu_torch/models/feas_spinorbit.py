@@ -100,6 +100,12 @@ class FeAsSpinOrbitModel(FeBasedScModel):
         self.spin_orbit = np.array(vals, dtype=np.complex128).reshape(
             nrow, ncol)
 
+    def symmetry_form(self, basis: FeAsSpinOrbitBasis,
+                      dtype: torch.dtype = torch.complex128, device="cpu"):
+        """None: symmetry sectors read the flat form's rows (the parent's
+        single-block form does not serve the union basis)."""
+        return None
+
     def create_basis(self, parts) -> FeAsSpinOrbitBasis:
         return FeAsSpinOrbitBasis(self.geometry.number_of_sites(),
                                   parts[0], parts[1], self.norb)

@@ -133,6 +133,17 @@ class HeisenbergModel:
         self.anisotropy = np.array(
             inp.vector("AnisotropyD", default=[]), dtype=np.float64)
 
+    def symmetry_form(self, basis: HeisenbergBasis,
+                      dtype: torch.dtype = torch.float64, device="cpu"):
+        """The form symmetry sectors read their rows from: the half-cut
+        Sz blocks' flat form, which keeps its Kronecker factors
+        unexpanded."""
+        from lanczosplusplus_tpu_torch.models.heisenberg_factored import (
+            FactoredHeisenbergChain)
+        return FactoredHeisenbergChain(
+            self, basis.nsite, basis.sz_plus_const, dtype=dtype,
+            device=device).flat_ham(basis)
+
     def create_basis(self, parts) -> HeisenbergBasis:
         twice_s, szpc = parts
         return HeisenbergBasis(self.geometry.number_of_sites(),

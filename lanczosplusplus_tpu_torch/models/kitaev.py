@@ -56,6 +56,9 @@ class KitaevBasis:
 
 class KitaevModel:
     is_fermionic = False
+    # momentum sectors by projection in the full space on the card
+    # (symmetry/projected.py), on `symmetry_form`'s matvec
+    projects_translation = True
 
     def __init__(self, inp, geometry):
         self.geometry = geometry
@@ -68,6 +71,15 @@ class KitaevModel:
         self.jzz = geometry.coupling_matrix(2)
         self.magnetic_field = np.array(
             inp.vector("MagneticField", default=[]), dtype=np.float64)
+
+    def symmetry_form(self, basis: KitaevBasis,
+                      dtype: torch.dtype = torch.float64, device="cpu"):
+        """The form symmetry sectors read their rows from: the factored
+        half-cut form (the flat gather ELL is O(2^n x K) to build), whose
+        matvec serves the commutation probe and the projected solve."""
+        from lanczosplusplus_tpu_torch.models.kitaev_factored import (
+            build_factored_kitaev)
+        return build_factored_kitaev(self, basis, dtype=dtype, device=device)
 
     def create_basis(self, parts=None) -> KitaevBasis:
         return KitaevBasis(self.geometry.number_of_sites())

@@ -86,6 +86,14 @@ class RashbaSOCModel:
         self.hoppings = geometry.coupling_matrix(0)
         self.rashba = geometry.coupling_matrix(1)
 
+    def symmetry_form(self, basis: RashbaBasis,
+                      dtype: torch.dtype = torch.float64, device="cpu"):
+        """The form symmetry sectors read their rows from: the spatial
+        half-cut form, so that no sector materializes the flat ELL."""
+        from lanczosplusplus_tpu_torch.models.rashba_halfcut import (
+            build_halfcut_rashba)
+        return build_halfcut_rashba(self, basis, dtype=dtype, device=device)
+
     def create_basis(self, parts) -> RashbaBasis:
         return RashbaBasis(self.geometry.number_of_sites(), parts[1])
 

@@ -132,6 +132,14 @@ class TjMultiOrbModel:
         pv = np.array(inp.vector("potentialV", default=[]), dtype=np.float64)
         self.potential_v = pv
 
+    def symmetry_form(self, basis: TjBasis,
+                      dtype: torch.dtype = torch.float64, device="cpu"):
+        """The form symmetry sectors read their rows from: the spatial
+        half-cut BlockKron form, or None where this basis has none."""
+        from lanczosplusplus_tpu_torch.models.tj_factored import (
+            build_factored_tj)
+        return build_factored_tj(self, basis, dtype=dtype, device=device)
+
     def create_basis(self, parts) -> TjBasis:
         return TjBasis(self.geometry.number_of_sites(), parts[0], parts[1],
                        self.norb)

@@ -4,7 +4,8 @@ its flat models, spends its time on one GPU.
 
 Run from the repository root, with one CUDA card:
 
-    python3 profile_step.py [--spectral | --flat MODEL] [--trace-dir DIR]
+    python3 profile_step.py [--spectral | --flat MODEL | --gather | --sym]
+                            [--trace-dir DIR]
 
 It builds the half-filled 14-site periodic HubbardOneBand chain at U=4
 (dim 11 778 624, two dense 3432 x 3432 float64 one-spin factors) on the
@@ -45,6 +46,18 @@ case bit-equal to the plain version, then kernel, cuSPARSE ``csr @ x``,
 plain version and bound): the 14-site one-spin up and dn forms at R = 1
 and R = 14, and the largest PermCrossTerm of the 18-site t-J, 13-site
 Rashba, 8-site FeAs and 7-site FeAs spin-orbit factored forms.  It takes about a minute of command time.
+
+With ``--sym`` it runs the momentum-projected Kitaev path of bench.py's
+symmetry section (bench.py:643-697) and nothing else: the 24-site Kitaev
+ring (dim 16 777 216, 13 momentum sectors, two 4096-wide halves) built on
+the card as the Engine builds it, its E0 without symmetry (plain two-pass
+Lanczos, 160 steps), 160 plain steps of P_k H from each sector's projected
+start vector, the winning sector solved again for its vector and purity,
+and the times of one matvec of the factored form and of one projection
+P_k.  It prints bench.py's ``sym_*`` fields.  Then the 22-site ring's
+momentum sectors both ways in the same run, by projection and as orbit
+blocks through ``ell_spmv`` (the CPU's route), each part timed.  It
+takes about five minutes of command time.
 
 For each turn it prints the host wall time of the traced steps (ending
 in ``torch.cuda.synchronize()``), the device busy time and the device time
@@ -198,6 +211,137 @@ def gather_main(smi: str) -> None:
           flush=True)
 
 
+def sym_main(smi: str) -> None:
+    """--sym: bench.py's projected-translation section on the port, at its
+    24-site size; the last line is one JSON object."""
+    import chip_smoke
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    from lanczosplusplus_tpu_torch.symmetry.projected import (
+        ProjectedTranslationSolver)
+
+    dev = torch.device("cuda:0")
+    nsite, steps_k = 24, 160
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ham = factored_form(chip_smoke.kitaev_ring_text(nsite), dev)
+    proj = ProjectedTranslationSolver(ham, nsite)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"factored build: {build_s:.3f} s, dim {ham.dim}", flush=True)
+    t0 = time.perf_counter()
+    e_plain, _ = lz.lowest_states(ham, max_steps=steps_k,
+                                  krylov_budget_bytes=7 << 30)
+    print(f"E0 without symmetry {float(e_plain[0])!r}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    v = lz.random_start_vector(ham.dim, chip_smoke.SEED, ham.dtype, dev)
+    pk = proj.projected(1)
+    matvec_ms = chip_smoke.median_ms(lambda: ham.matvec(v), 5)
+    project_ms = chip_smoke.median_ms(lambda: pk.project(v), 5)
+    print(f"one matvec of the factored form {matvec_ms:.4f} ms, one "
+          f"projection P_k ({nsite} weighted transposes) {project_ms:.4f} "
+          f"ms", flush=True)
+    e_ks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(proj.sectors()):
+        res = lz.tridiagonalize_plain(proj.projected(s),
+                                      proj.start_vector(s), steps_k)
+        ev, _ = lz.tridiag_eigh(res.alphas, res.betas)
+        e_ks.append(float(ev[0]))
+        print(f"k={proj.momentum(s)}: E0 {e_ks[-1]!r}", flush=True)
+    torch.cuda.synchronize()
+    t_ks = time.perf_counter() - t0
+    kwin = min(range(len(e_ks)), key=e_ks.__getitem__)
+    t0 = time.perf_counter()
+    e_win, v_win, info = proj.solve_sector(kwin, max_steps=steps_k)
+    torch.cuda.synchronize()
+    win_s = time.perf_counter() - t0
+    sym = {"sym_model": f"kitaev{nsite}_translation_projected",
+           "sym_dim": ham.dim, "sym_sectors": proj.sectors(),
+           "sym_build_s": build_s,
+           "sym_k_iters_per_s": proj.sectors() * steps_k / t_ks,
+           "sym_min_k": proj.momentum(kwin),
+           "sym_min_k_e0_rel_err": abs(float(e_win[0]) - float(e_plain[0]))
+           / abs(float(e_plain[0])),
+           "sym_winner_purity": proj.purity(kwin, v_win[0])}
+    print(f"winner k={proj.momentum(kwin)} solved in {win_s:.3f} s "
+          f"({info.steps} steps), E0 {float(e_win[0])!r}", flush=True)
+    del ham, proj, pk, v, v_win
+    torch.cuda.empty_cache()
+    both = blocks_against_projection(dev, 22)
+    print(json.dumps({"card": smi, "sym": sym, "e_ks": e_ks,
+                      "sectors_s": t_ks, "matvec_ms": matvec_ms,
+                      "project_ms": project_ms,
+                      "blocks_against_projection": both,
+                      "peak_device_gb":
+                          torch.cuda.max_memory_allocated(dev) / 1e9}),
+          flush=True)
+
+
+def blocks_against_projection(dev, nsite: int) -> dict:
+    """The Kitaev ring's momentum sectors both ways on the card, in one
+    run: by projection in the full space (the Engine's route on the card)
+    and as orbit blocks through ell_spmv (its route on the CPU), each
+    sector solved by ``lowest_states`` from its own start; the seconds of
+    each part and the E0 of each sector."""
+    import chip_smoke
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.kitaev_factored import (
+        build_factored_kitaev)
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    from lanczosplusplus_tpu_torch.symmetry import TranslationSymmetry
+    from lanczosplusplus_tpu_torch.symmetry.projected import (
+        ProjectedTranslationSolver)
+
+    inp = parse_input(chip_smoke.kitaev_ring_text(nsite))
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        made = fn()
+        torch.cuda.synchronize()
+        return made, time.perf_counter() - t
+    out = {"nsite": nsite, "dim": basis.size}
+    proj, out["projection_build_s"] = timed(lambda: ProjectedTranslationSolver(
+        build_factored_kitaev(model, basis, device=dev), nsite))
+    e_proj, solve_s = {}, 0.0
+    for s in range(proj.sectors()):
+        (evals, _, _), sec = timed(lambda: proj.solve_sector(s))
+        e_proj[proj.momentum(s)] = float(evals[0])
+        solve_s += sec
+    out.update(projection_solve_s=solve_s, projection_e0=e_proj)
+    del proj
+    torch.cuda.empty_cache()
+    sym, out["blocks_setup_s"] = timed(lambda: TranslationSymmetry(
+        basis, model.geometry, model, fermionic=False, device=dev))
+    e_blocks, build_s, solve_s, dims = {}, 0.0, 0.0, []
+    for s in range(sym.sectors()):
+        blk, sec = timed(lambda: sym.block_hamiltonian(s))
+        build_s += sec
+        if blk is None:
+            continue
+        dims.append((blk.dim, str(blk.dtype), blk.ell.cols.shape[1]))
+        (evals, _), sec = timed(lambda: lz.lowest_states(blk))
+        solve_s += sec
+        e_blocks[sym._momenta[s][0]] = float(evals[0])
+    out.update(blocks_build_s=build_s, blocks_solve_s=solve_s,
+               blocks_e0=e_blocks, blocks_dim_dtype_k=dims)
+    low_p, low_b = min(e_proj.values()), min(e_blocks.values())
+    out["min_e0_rel_diff"] = abs(low_p - low_b) / abs(low_b)
+    print(f"{nsite}-site Kitaev ring, dim {basis.size}: projection build "
+          f"{out['projection_build_s']:.3f} s + {len(e_proj)} sector solves "
+          f"{out['projection_solve_s']:.3f} s; blocks set-up "
+          f"{out['blocks_setup_s']:.3f} s + {len(e_blocks)} block builds "
+          f"{build_s:.3f} s + solves {solve_s:.3f} s; min E0 {low_p!r} "
+          f"against {low_b!r} (rel diff {out['min_e0_rel_diff']:.3e})",
+          flush=True)
+    return out
+
+
 def factored_form(text: str, dev):
     """The factored form SolverOptions=factored solves for an input, in
     its inner block order, built on `dev` as the Engine builds it."""
@@ -226,6 +370,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     which.add_argument("--gather", action="store_true",
                        help="time perm_gather on chip_smoke.py phase 10's "
                             "cases")
+    which.add_argument("--sym", action="store_true",
+                       help="run bench.py's projected Kitaev translation at "
+                            "24 sites")
     parser.add_argument("--trace-dir", default=None,
                         help="keep the chrome traces here")
     return parser.parse_args(argv)
@@ -253,6 +400,9 @@ def main() -> None:
     print(smi, flush=True)
     if args.gather:
         gather_main(smi)
+        return
+    if args.sym:
+        sym_main(smi)
         return
 
     t = time.perf_counter()

@@ -18,6 +18,7 @@ from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
 from lanczosplusplus_tpu_torch.models import build_model
 from lanczosplusplus_tpu_torch.ops import kernels
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
+from chip_smoke import hubbard_chain_text
 from test_torch_inputs import (INPUT100, feas_so_text, feas_text,
                                 heisenberg_text, immm_text, kitaev_text,
                                 rashba_text, tj_text)
@@ -826,3 +827,141 @@ def test_spin_orbital_chain_on_card(cuda):
     evals, _ = lz.lowest_states(ham, seed=3)
     want = np.linalg.eigvalsh(ref.to_dense())[0]
     assert abs(evals[0] - want) <= 1e-10 * abs(want)
+
+
+def _symmetry_of(text, label, device):
+    """The input's symmetry with its blocks on `device`."""
+    from lanczosplusplus_tpu_torch.symmetry import build_symmetry
+    inp = parse_input(text + label)
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+    return build_symmetry(inp, basis, model.geometry, model, device=device)
+
+
+@pytest.mark.parametrize("label, dtype", [
+    ("UseTranslationSymmetry=1\n", torch.complex128),
+    ("UseReflectionSymmetry=1\n", torch.float64)],
+    ids=["momentum_c128", "parity_f64"])
+def test_ell_spmv_on_symmetry_blocks(cuda, label, dtype):
+    """ell_spmv on the largest block of a type of the 10-site (3, 3)
+    Hubbard chain (momentum blocks PBC, parity blocks open) against its
+    plain version, one vector and a block of 3."""
+    periodic = int(dtype.is_complex)
+    sym = _symmetry_of(hubbard_chain_text(10, 4, 3, 3, periodic=periodic),
+                       label, cuda)
+    blocks = [sym.block_hamiltonian(s) for s in range(sym.sectors())]
+    blk = max((b for b in blocks if b is not None and b.dtype == dtype),
+              key=lambda b: b.dim)
+    assert blk.ell.cols.device.type == "cuda" and blk.diag.dtype == dtype
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for shape in ((blk.dim,), (3, blk.dim)):
+        x = torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
+        kernels.reset_launches()
+        got = kernels.ell_spmv(blk.diag, blk.ell.cols, blk.ell.vals, x)
+        assert kernels.LAUNCHES["ell_spmv"] == 1
+        ref = kernels.ell_spmv_ref(blk.diag, blk.ell.cols, blk.ell.vals, x)
+        assert _rel(got, ref) <= 1e-13
+
+
+def _mirror(sym, s):
+    """The sector of the opposite momentum: its block is the complex
+    conjugate of sector s's, its spectrum the same."""
+    momenta = sym._momenta
+    lx = 1 + max(kx for kx, _ in momenta)
+    ly = 1 + max(ky for _, ky in momenta)
+    kx, ky = momenta[s]
+    return momenta.index(((-kx) % lx, (-ky) % ly))
+
+
+def _assert_same_minimum_sector(gpu, cpu):
+    """The card's minimum sector is the CPU's, or one whose block has the
+    CPU's minimum E0 (1e-10): k and -k, and on the 8-site ladder (0, 0)
+    and (2, 0), are degenerate, so rounding picks among them."""
+    print(f"minimum sector: card {gpu.solve_sector}, CPU {cpu.solve_sector}")
+    if gpu.solve_sector == cpu.solve_sector:
+        return
+    blk = cpu.symmetry.block_hamiltonian(gpu.solve_sector)
+    e0 = float(lz.lowest_states(blk, seed=cpu.config.seed)[0][0])
+    assert abs(e0 - cpu.ground_energy) <= 1e-10 * abs(cpu.ground_energy)
+
+
+@pytest.mark.parametrize("text, label", [
+    (hubbard_chain_text(8, 4, 2, 2, ladder=True),
+     "UseTranslationSymmetry=2\n"),
+    (hubbard_chain_text(10, 4, 3, 3, periodic=0), "UseReflectionSymmetry=1\n"),
+    (hubbard_chain_text(8, 4, 2, 3), "UseTranslationSymmetry=1\n")],
+    ids=["ladder8", "reflection10", "ring8_complex"])
+def test_symmetry_engine_on_card_matches_cpu(cuda, text, label):
+    """A symmetric Engine on the card: every block through ell_spmv, no
+    other kernel, E0 as on the CPU (1e-10), the minimum sector the CPU's
+    or one degenerate with it, the residual on the full H, the
+    eigenvector on the card, complex128 after the 8-site ring's complex
+    momentum sector (blocks of 196)."""
+    inp = parse_input(text + label)
+    model = build_model(inp, Geometry(inp))
+    cpu = Engine(model, inp, config=Config(device="cpu"))
+    kernels.reset_launches()
+    gpu = Engine(model, inp, config=Config(device=cuda))
+    assert kernels.LAUNCHES["ell_spmv"] > 0
+    assert kernels.LAUNCHES["factor_matmul"] == 0
+    assert abs(gpu.ground_energy - cpu.ground_energy) <= \
+        1e-10 * abs(cpu.ground_energy)
+    _assert_same_minimum_sector(gpu, cpu)
+    v = gpu.eigenvector(0)
+    assert v.device.type == "cuda" and v.dtype == cpu.eigenvector(0).dtype
+    full = cpu.hamiltonian.to_dense()
+    vh = v.cpu().numpy()
+    assert np.linalg.norm(full @ vh - gpu.ground_energy * vh) <= 1e-7
+
+
+def test_spectral_after_a_complex_sector_on_card(cuda):
+    """After the 6-site ring's complex momentum sector (1 up, 2 down), -g
+    on the card builds its sector Hamiltonians complex128 and runs the
+    complex kernels: G_01(omega + 0.1i) as on the CPU (1e-8; 300 steps
+    exhaust every Krylov space, so the fractions are comparable).  The
+    card's sector is the CPU's or its mirror -k, whose G_01 is the same
+    there (test_torch_symmetry.py::test_mirror_sector_spectral)."""
+    inp = parse_input(hubbard_chain_text(6, 4, 1, 2,
+                                         extra="SpectralSteps=300\n")
+                      + "UseTranslationSymmetry=1\n")
+    model = build_model(inp, Geometry(inp))
+    cpu = Engine(model, inp, config=Config(device="cpu"))
+    gpu = Engine(model, inp, config=Config(device=cuda))
+    assert gpu.eigenvector(0).dtype == torch.complex128
+    assert gpu.solve_sector in (cpu.solve_sector,
+                                _mirror(cpu.symmetry, cpu.solve_sector))
+    kernels.reset_launches()
+    coll, _ = gpu.spectral_function("c", 0, 1)
+    assert kernels.LAUNCHES["factor_matmul"] > 0
+    assert gpu.hamiltonian.dtype == torch.complex128
+    omegas = np.linspace(-6, 6, 41)
+    ref, _ = cpu.spectral_function("c", 0, 1)
+    np.testing.assert_allclose(coll.evaluate(omegas, 0.1),
+                               ref.evaluate(omegas, 0.1), rtol=0, atol=1e-8)
+
+
+def test_projected_kitaev_on_card(cuda):
+    """UseTranslationSymmetry=1 on the 12-site Kitaev ring takes the
+    projected path on the card (factor_matmul, no ell_spmv): E0 as the CPU's
+    orbit blocks (1e-10), a clean sector vector, and the card's vector an
+    eigenvector of the full H."""
+    text = kitaev_text(12, 1.1, 0.7, 0.9, periodic=1,
+                       extra="UseTranslationSymmetry=1\n")
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    kernels.reset_launches()
+    gpu = Engine(model, inp, config=Config(device=cuda))
+    assert kernels.LAUNCHES["factor_matmul"] > 0
+    assert kernels.LAUNCHES["ell_spmv"] == 0
+    assert gpu.projected_purity >= 1 - 1e-8
+    cpu = Engine(model, inp, config=Config(device="cpu"))
+    assert not hasattr(cpu, "projected_purity")
+    assert abs(gpu.ground_energy - cpu.ground_energy) <= \
+        1e-10 * abs(cpu.ground_energy)
+    v = gpu.eigenvector(0)
+    assert v.device.type == "cuda"
+    from lanczosplusplus_tpu_torch.models.kitaev_factored import (
+        build_factored_kitaev)
+    ham = build_factored_kitaev(model, gpu.basis, device=cuda)
+    assert torch.linalg.vector_norm(
+        ham.matvec(v) - gpu.ground_energy * v).item() <= 1e-7

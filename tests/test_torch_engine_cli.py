@@ -184,13 +184,24 @@ def test_unknown_model_raises():
     pytest.param("SolverOptions=factored,bf16cross",
                  id="SolverOptions=factored")])
 def test_unported_inputs_raise(tmp_path, monkeypatch, edit):
-    """Symmetry sectors and the bf16 cross gathers of the factored forms
-    raise (the factored forms themselves run:
-    tests/test_torch_factored.py)."""
+    """The bf16 cross gathers of the factored forms raise (the factored
+    forms themselves run: tests/test_torch_factored.py).  Symmetry sectors
+    are ported (tests/test_torch_symmetry.py): on input0's open chain,
+    where translation does not commute with H, the port raises the JAX
+    CLI's error."""
     monkeypatch.chdir(tmp_path)
     text = INPUT0.replace("SolverOptions=none", edit)
+    path = _write(tmp_path, text)
+    if edit.startswith("UseTranslationSymmetry"):
+        from lanczosplusplus_tpu.cli import lanczos_main as jax_main
+        for run, args in ((lanczos_main.run, ["--device", "cpu"]),
+                          (jax_main.run, [])):
+            with pytest.raises(ValueError, match="does not commute with "
+                                                 "the symmetry"):
+                run(["-f", path, *args])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        lanczos_main.run(["-f", _write(tmp_path, text), "--device", "cpu"])
+        lanczos_main.run(["-f", path, "--device", "cpu"])
 
 
 def test_density_of_states_input_runs(tmp_path, monkeypatch):

@@ -4,6 +4,8 @@ inputs 10, 100 and 104 and of the 8-site t-J ring behind the ``gf_tj``
 golden.  Imports nothing of jax, so the card tests can
 use it where only torch is installed."""
 
+from chip_smoke import hubbard_chain_text
+
 
 def _term(value, dof=1):
     return (f"DegreesOfFreedom={dof}\nGeometryKind=chain\n"
@@ -192,6 +194,7 @@ def _all_texts():
         "immm_ktwoniffour": immm_text(6, 2, 2, kind="ktwoniffour"),
         "input10": INPUT10, "input100": INPUT100, "input104": INPUT104,
         "tj8": TJ8,
+        "hubbard_ladder": hubbard_chain_text(8, 4, 2, 2, ladder=True),
     }
 
 

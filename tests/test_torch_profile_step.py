@@ -51,6 +51,17 @@ def test_gather_arguments():
             profile_step.parse_args(bad)
 
 
+def test_sym_arguments():
+    """--sym runs bench.py's projected Kitaev section alone."""
+    args = profile_step.parse_args(["--sym"])
+    assert args.sym and not args.gather and not args.spectral
+    assert args.flat is None
+    assert not profile_step.parse_args([]).sym
+    for bad in (["--sym", "--gather"], ["--sym", "--flat", "kitaev24f"]):
+        with pytest.raises(SystemExit):
+            profile_step.parse_args(bad)
+
+
 def test_gather_cases_on_small_inputs(monkeypatch):
     """--gather's cases, built on the CPU from small inputs of the same
     models: the one-spin up and dn forms at R = 1 and 14, then each
