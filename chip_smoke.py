@@ -118,14 +118,34 @@ Phases, each printing one line with its numbers:
    purity; then ell_spmv on the largest momentum block and the larger
    parity block at R = 1 and 14, and factor_matmul on the 22-site Kitaev
    half, each against its plain version and beside cuSPARSE or cuBLAS.
+12. the estimators and their command lines (``estimator_phase``), each
+   case through its CLI's run() on the card with the launch counts set to
+   0 before and read after: ed --ftlm on the 14-site half-filled U=4 chain
+   (R = 16, 80 steps, 8 betas from 0.1 to 20), its e0_estimate against
+   phase 5's E0 and its energies against the same card-drawn block
+   through the plain versions; ed --ltlm on the same sector (R = 4), at
+   beta 500 within its Ritz residual's bound of phase 5's E0; lanczos -g
+   c --kpm on the same sector (512 moments in the two destination sectors
+   of dim 10 306 296), the moments against those of -g's Lanczos
+   tridiagonal of the same start vector and against the plain versions;
+   ed --ftlm under SolverOptions=factored on the 18-site t-J ring (the
+   inner-order branch, perm_gather at R = 16) against the flat form from
+   the same block, with its idle share; lanczos -g c --ftlm-dos 2.0 on the
+   12-site SuperHubbardExtended chain (R = 8, 100 steps) against the plain
+   versions, and at beta 40 against -g's continued fraction (the exact
+   sum rule of its poles); thermal
+   (full spectra and --ftlm), sqomega, dynamics1, qpz and lorentzian at
+   small sizes against the port's own CPU runs; then factor_matmul's
+   batched forms, ell_spmv and perm_gather at the estimators' R = 16.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
 prints no result.  The last lines are a JSON object with the kernels'
 numbers (one entry for each kernel and form of a path, with the launches
 that path counted: ground state, spectral, the flat models' forms of
-phase 9, the factored forms' and gather apply's of phase 10 and the
-symmetry blocks' and projected translation's of phase 11), the
+phase 9, the factored forms' and gather apply's of phase 10, the
+symmetry blocks' and projected translation's of phase 11 and the
+estimators' of phase 12), the
 card's name and power limit, and the result object.
 """
 
@@ -506,6 +526,19 @@ def run_cli(lanczos_main, text, args=()):
     """The port's CLI on an input text, on the card, in a directory of its
     own: (engine, stdout, stderr, the .comb collections it wrote in pair
     order, wall seconds)."""
+    engine, out, err, files, wall = run_tool(lanczos_main, text,
+                                             ["-p", "17", *args], "cuda")
+    combs = []
+    while f"input.inp{len(combs)}.comb" in files:
+        combs.append(files[f"input.inp{len(combs)}.comb"])
+    return engine, out, err, combs, wall
+
+
+def run_tool(module, text, args, dev):
+    """One of the port's command lines (`module`, its ``run``) on an input
+    text, on `dev`, in a directory of its own: (what run() returns,
+    stdout, stderr, {name: text} of the files it wrote (.comb files as
+    read collections), wall seconds)."""
     from lanczosplusplus_tpu_torch.engine.spectral import read_collection
     out, err = io.StringIO(), io.StringIO()
     cwd = os.getcwd()
@@ -519,16 +552,36 @@ def run_cli(lanczos_main, text, args=()):
             t = time.perf_counter()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(err):
-                engine = lanczos_main.run(["-f", path, "-p", "17",
-                                           "--device", "cuda", *args])
+                got = module.run(["-f", path, "--device", str(dev), *args])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            combs = []
-            while os.path.exists(f"input.inp{len(combs)}.comb"):
-                combs.append(read_collection(f"input.inp{len(combs)}.comb"))
+            files = {name: (read_collection(name) if name.endswith(".comb")
+                            else open(name).read())
+                     for name in sorted(os.listdir(tmp))
+                     if name != "input.inp"}
         finally:
             os.chdir(cwd)
-    return engine, out.getvalue(), err.getvalue(), combs, wall
+    return got, out.getvalue(), err.getvalue(), files, wall
+
+
+@contextlib.contextmanager
+def timed_calls(owner, attr, seconds: list):
+    """Appends the seconds of every call of owner.attr made inside the
+    block to `seconds`, the card synchronized at both ends."""
+    fn = getattr(owner, attr)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        made = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return made
+    setattr(owner, attr, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, fn)
 
 
 def phase_seconds(stderr_text, label):
@@ -583,6 +636,67 @@ def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
         results[kernel][-1].update(
             nonzero_bound_ms=nonzero_bound_ms,
             share_of_nonzero_bound=nonzero_bound_ms / ms)
+
+
+def batched_factor_cases(results, gen, dev, sms, rows, szd, szu):
+    """factor_matmul's batched forms on random blocks of `rows` states of
+    a (szd, szu) sector, float64, against the plain version and the
+    library: the up product with the batch folded into its rows and the
+    dn product over the transposed views, one launch each (an odd szu
+    takes the 8-byte copies)."""
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    wide = szu % 2 == 0
+    copies = "16-byte copies" if wide else "8-byte copies: odd pitch"
+    xb = torch.randn(rows, szd, szu, generator=gen, device=dev,
+                     dtype=torch.float64)
+    yb = torch.randn(rows, szd, szu, generator=gen, device=dev,
+                     dtype=torch.float64)
+    a_up = torch.randn(szu, szu, generator=gen, device=dev,
+                       dtype=torch.float64)
+    a_dn = torch.randn(szd, szd, generator=gen, device=dev,
+                       dtype=torch.float64)
+    xf, yf = xb.view(rows * szd, szu), yb.view(rows * szd, szu)
+    plan = K.factor_matmul_plan(
+        xf.data_ptr(), xf.stride(), a_up.data_ptr(), a_up.stride(),
+        yf.data_ptr(), yf.stride(), rows * szd, szu, sms)
+    check(plan.tile == 128 and plan.x_vec16 == plan.a_vec16 == wide,
+          f"up form of the batch: plan {plan}")
+    got = K.factor_matmul(xf, a_up)
+    ref = K.factor_matmul_ref(xf, a_up)
+    torch.cuda.synchronize()
+    out = torch.empty_like(xf)
+    record(results, "factor_matmul",
+           f"f64 batched up form ({rows}*{szd})x{szu}.{szu}x{szu}^T, "
+           f"batch folded into the rows (128-tile, {copies})",
+           got, ref, TOL_F64,
+           (lambda: K.factor_matmul(xf, a_up, out=out),
+            lambda: K.factor_matmul_ref(xf, a_up),
+            lambda: torch.matmul(xf, a_up.T, out=out)),
+           1e3 * 2 * rows * szd * szu * szu / PEAK_FLOPS, "operations")
+    del got, ref, out
+    xt, yt = xb.transpose(1, 2), yb.transpose(1, 2)
+    plan = K.factor_matmul_plan(
+        xt.data_ptr(), xt.stride(), a_dn.data_ptr(), a_dn.stride(),
+        yt.data_ptr(), yt.stride(), szu, szd, sms, rows)
+    check(plan.tile == 128 and not plan.x_kmajor
+          and plan.x_vec16 == wide and plan.a_vec16,
+          f"dn form of the batch: plan {plan}")
+    got = yb.clone()
+    K.factor_matmul(xt, a_dn, out=got.transpose(1, 2), accumulate=True)
+    ref = yb + torch.matmul(a_dn, xb)
+    torch.cuda.synchronize()
+    y1 = yb.clone()
+    record(results, "factor_matmul",
+           f"f64 batched dn form R={rows}: Y[b]+=A.X[b], {szd}^2 factor "
+           f"on ({szu}x{szd})^T views, one launch (128-tile, X {copies})",
+           got, ref, TOL_F64,
+           (lambda: K.factor_matmul(xt, a_dn, out=y1.transpose(1, 2),
+                                    accumulate=True),
+            lambda: y1.transpose(1, 2).add_(
+                K.factor_matmul_ref(xt, a_dn)),
+            lambda: y1.baddbmm_(a_dn.expand(rows, szd, szd), xb)),
+           1e3 * 2 * rows * szd * szd * szu / PEAK_FLOPS, "operations")
+    del got, ref, y1, xb, yb, xf, yf, xt, yt, a_up, a_dn
 
 
 def form_launches(form) -> dict:
@@ -802,26 +916,6 @@ def largest_cross_term(form, name):
                             "cs": term.col_src, "beta": term.col_amp}
 
 
-@contextlib.contextmanager
-def timed_factored_builds(seconds: list):
-    """Appends the seconds of every factored-form build (host numpy, the
-    tables' transfer included) made inside the block to `seconds`."""
-    from lanczosplusplus_tpu_torch.models import factored as fmod
-    build = fmod.factored_hamiltonian_or_none
-
-    def timed(*args, **kwargs):
-        t = time.perf_counter()
-        made = build(*args, **kwargs)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t)
-        return made
-    fmod.factored_hamiltonian_or_none = timed
-    try:
-        yield
-    finally:
-        fmod.factored_hamiltonian_or_none = build
-
-
 def factored_phase(dev, gen, results, refs):
     """Phase 10: the factored forms (SolverOptions=factored) and the
     one-spin gather apply at full width, each run with the launch counts
@@ -838,6 +932,7 @@ def factored_phase(dev, gen, results, refs):
     from lanczosplusplus_tpu_torch.geometry import Geometry
     from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
     from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models import factored as fmod
     from lanczosplusplus_tpu_torch.ops import kernels as K
     from lanczosplusplus_tpu_torch.solver import lanczos as lz
     runs, cross_cases = {}, {}
@@ -981,7 +1076,7 @@ def factored_phase(dev, gen, results, refs):
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with timed_factored_builds(builds), \
+        with timed_calls(fmod, "factored_hamiltonian_or_none", builds), \
                 launches_by_site() as (forms, applies):
             if cli:
                 eng, out, _, _, wall = run_cli(lanczos_main, factored(text))
@@ -1442,6 +1537,433 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     return runs
 
 
+def beta_schedule(betas) -> str:
+    """TemperatureOrBeta labels of a linear beta grid (first, last,
+    count)."""
+    first, last, total = betas
+    return ("TemperatureOrBeta=beta\n"
+            f"TemperatureOrBetaStart={first!r}\n"
+            f"TemperatureOrBetaTotal={total}\n"
+            f"TemperatureOrBetaStep={(last - first) / (total - 1)!r}\n")
+
+
+def tridiagonal_moments(cf, a, b, count):
+    """Chebyshev moments w e1^T T_k((T - b)/a) e1, k < count, of a
+    continued fraction's Lanczos tridiagonal T (weight w = |phi|^2): the
+    moments of its start vector phi for k < 2 m in exact arithmetic."""
+    m = len(cf.alphas)
+    t = (np.diag(cf.alphas) + np.diag(cf.betas[:m - 1], 1)
+         + np.diag(cf.betas[:m - 1], -1) - b * np.eye(m)) / a
+    prev, cur = np.eye(m)[0], t[:, 0].copy()
+    mu = [prev[0], cur[0]]
+    for _ in range(count - 2):
+        prev, cur = cur, 2.0 * t @ cur - prev
+        mu.append(cur[0])
+    return cf.weight * np.asarray(mu[:count])
+
+
+def estimator_phase(dev, gen, results, refs, ell_case):
+    """Phase 12: the estimators (FTLM, LTLM, KPM, FTLM dynamics, the
+    thermal sweeps) and their command lines on the card, each case run
+    through its CLI's run() with the launch counts set to 0 before and
+    read after: 12a ed --ftlm on the 14-site half-filled U=4 chain (R =
+    16, 80 steps, 8 betas from 0.1 to 20) against phase 5's E0 (`refs`)
+    and against the same run through the plain versions from the same
+    card-drawn block; 12b ed --ltlm on the same sector within the Ritz
+    residual's bound of that E0; 12c lanczos -g c --kpm on the same
+    sector, its moments against those of the same start vector's Lanczos
+    tridiagonal from -g and against the plain versions; 12d ed --ftlm
+    under SolverOptions=factored on the 18-site t-J ring (the inner-order
+    branch through perm_gather) against the flat form from the same
+    block, with its idle share; 12e lanczos -g c --ftlm-dos 2.0 on the
+    12-site SuperHubbardExtended chain against the plain versions, and at
+    beta 40 against -g's continued fraction (the exact sum rule of its
+    poles); 12f thermal (full
+    spectra and --ftlm), sqomega, dynamics1, qpz and lorentzian at small
+    sizes against the port's own CPU runs; then the batched kernels at
+    the estimators' R = 16 (factor_matmul on the 14-site sector, ell_spmv
+    on the 18-site t-J ELL, perm_gather on its largest cross term).
+    Returns {case: launches}."""
+    from lanczosplusplus_tpu_torch.cli import (
+        dynamics1_main, ed_main, lanczos_main, lorentzian_main, qpz_main,
+        sqomega_main, thermal_main)
+    from lanczosplusplus_tpu_torch.engine import ftlm as F
+    from lanczosplusplus_tpu_torch.engine import kpm as KPM
+    from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    import profile_step
+
+    f64 = torch.float64
+    e0 = refs["e0_u4"]
+    runs = {}
+    ftlm_seed = 982451653          # ftlm_schedule's and ltlm_schedule's
+
+    def sector_of(text):
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        return inp, model
+
+    def counted(label):
+        runs[label] = dict(K.LAUNCHES)
+        return runs[label]
+
+    # -- 12a: ed --ftlm, 14 sites, R = 16 ------------------------------------
+    rows, steps = 16, 80
+    text_a = (hubbard_chain_text(14, 4) + beta_schedule((0.1, 20.0, 8))
+              + f"FTLMVectors={rows}\nFTLMSteps={steps}\n")
+    build_s, rec_s, ftlm_s = [], [], []
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with timed_calls(F, "_schedule_ham", build_s), \
+            timed_calls(F, "_ftlm_recurrence", rec_s), \
+            timed_calls(F, "ftlm", ftlm_s):
+        res, out, _, _, wall = run_tool(ed_main, text_a, ["--ftlm"], dev)
+    counts = counted("12a ed --ftlm 14-site")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(counts == {"factor_matmul": 2 * steps, "ell_spmv": 0,
+                     "perm_gather": 0},
+          f"12a launches {counts}, predicted factor_matmul {2 * steps}")
+    check(res.num_vectors == rows and res.steps == steps
+          and f"method=FTLM R={rows} M={steps}" in out,
+          f"12a ran R={res.num_vectors}, M={res.steps}")
+    host_share = 1.0 - rec_s[0] / ftlm_s[0]
+    say(f"phase 12a 14-site U=4 ed --ftlm via CLI on {dev}: R {rows}, "
+        f"{steps} steps, {len(res.betas)} betas {float(res.betas[0])!r} .. "
+        f"{float(res.betas[-1])!r}; wall {wall:.3f} s = host build "
+        f"{build_s[0]:.3f} + ftlm {ftlm_s[0]:.3f} s, of which the batched "
+        f"recurrence {rec_s[0]:.3f} s ({1e3 * rec_s[0] / steps:.3f} ms a "
+        f"step at R = {rows}) and the host (block draw, tridiagonal "
+        f"eigensolves, Boltzmann sums) a share {host_share:.4f}; launches "
+        f"{counts}, peak device memory {peak:.2f} GB")
+    say(f"  energies {[float(e) for e in res.energy]}")
+    gap = (res.e0_estimate - e0) / abs(e0)
+    say(f"  e0_estimate {res.e0_estimate!r} against phase 5's E0 {e0!r} "
+        f"(rel {gap:.3e}, must be >= -1e-9)")
+    check(res.e0_estimate >= e0 - 1e-9 * abs(e0),
+          f"12a e0_estimate {res.e0_estimate!r} below E0 {e0!r}")
+    inp_a, model_a = sector_of(text_a)
+    ham_a = F._schedule_ham(model_a, inp_a, dev)
+    block = lz.random_start_block(ham_a.dim, rows, ftlm_seed, f64, dev)
+    before = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    with plain_kernels():
+        res_p = F.ftlm(ham_a, res.betas, steps=steps, start_vectors=block)
+    plain_s = time.perf_counter() - t
+    check(dict(K.LAUNCHES) == before, "12a: the plain run launched a kernel")
+    diff = np.abs(res.energy - res_p.energy).max() / np.abs(
+        res_p.energy).max()
+    say(f"  the same block through the plain versions: energies max rel "
+        f"diff {diff:.3e} (tolerance 1e-8), ftlm {plain_s:.3f} s")
+    check(diff <= 1e-8, f"12a kernel vs plain energies {diff:.3e}")
+    del ham_a, block, res_p
+    torch.cuda.empty_cache()
+
+    # -- 12b: ed --ltlm, the same sector, R = 4 ------------------------------
+    text_b = (hubbard_chain_text(14, 4) + beta_schedule((0.5, 500.0, 4))
+              + "FTLMVectors=4\nFTLMSteps=150\n")
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out_b, _, _, _, wall = run_tool(ed_main, text_b, ["--ltlm"], dev)
+    counts = counted("12b ed --ltlm 14-site")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    e_cold, bound = float(out_b["energy"][-1]), out_b["_ritz_residual"]
+    say(f"phase 12b 14-site U=4 ed --ltlm via CLI on {dev}: R 4, 150 "
+        f"steps, wall {wall:.3f} s, launches {counts}, peak device memory "
+        f"{peak:.2f} GB; energy at beta 500 {e_cold!r}, E0 - energy "
+        f"{e0 - e_cold:.3e}, lowest Ritz value {out_b['_e0']!r}; bound: E0 "
+        f"- 1e-9|E0| <= energy <= E0 + r + 1e-9|E0| with r = {bound:.3e}, "
+        f"the largest residual |beta_m u_m| of a run's lowest Ritz pair "
+        f"(its distance from an eigenvalue; at beta 500 the excited levels "
+        f"weigh nothing)")
+    check(e0 - 1e-9 * abs(e0) <= e_cold <= e0 + bound + 1e-9 * abs(e0),
+          f"12b LTLM energy {e_cold!r} outside [E0, E0 + {bound:.3e}]")
+    check(counts["factor_matmul"] > 0, f"12b launches {counts}")
+
+    # -- 12c: lanczos -g c --kpm, 14 sites, 512 moments ----------------------
+    moments = 512
+    text_c = hubbard_chain_text(14, 4) + ("TSPSites 2 0 0\n"
+                                          f"KPMMoments={moments}\n")
+    K.reset_launches()
+    eng, _, err, files, wall = run_tool(
+        lanczos_main, text_c, ["-g", "c", "--kpm", "-p", "17"], dev)
+    counts = counted("12c lanczos -g c --kpm 14-site")
+    maps_s = phase_seconds(err, "kpm start vector")
+    loop_s = phase_seconds(err, "kpm moments")
+    say(f"phase 12c 14-site U=4 lanczos -g c --kpm via CLI on {dev}: wall "
+        f"{wall:.3f} s, host operator maps and scatters {maps_s} s, moment "
+        f"loops (bounds, {moments // 2} applies, host read) {loop_s} s, "
+        f"launches {counts}")
+    check(len(maps_s) == len(loop_s) == 2 and counts["factor_matmul"] > 0,
+          f"12c: {len(loop_s)} moment loops, launches {counts}")
+    kpmdos = np.loadtxt(files["input.inp0.kpmdos"].splitlines())
+    coll = files["input.inp0.comb"]
+    grid = kpmdos[:, 0]
+    gs = eng.eigenvector(0)
+    dens = np.zeros_like(grid)
+    op_c = LabeledOperator("c")
+    for type_, cf in enumerate(coll.items):
+        op = op_c if type_ else op_c.transpose_conjugate()
+        parts, basis = eng._get_needed_basis(eng.parts, op, 0, 0)
+        phi = torch.zeros(basis.size, dtype=f64, device=dev)
+        eng.acc_modified_state(phi, op, basis, gs, eng.basis, 0, 0, 0, 1.0)
+        ham = eng._cached_hamiltonian(parts)
+        bounds = KPM.spectral_bounds(ham)
+        t = time.perf_counter()
+        got = KPM.chebyshev_moments(ham, phi, moments, bounds)
+        kernel_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with plain_kernels():
+            ref = KPM.chebyshev_moments(ham, phi, moments, bounds)
+        plain_s = time.perf_counter() - t
+        mu0 = got.moments[0]
+        k_plain = np.abs(got.moments - ref.moments).max() / mu0
+        upto = min(2 * len(cf.alphas), moments)
+        lanczos = tridiagonal_moments(cf, got.a, got.b, upto)
+        k_lanczos = np.abs(got.moments[:upto] - lanczos).max() / mu0
+        say(f"  type {type_} sector {parts} (dim {basis.size}): mu_0 "
+            f"{mu0:.15f} (-g weight {cf.weight:.15f}); against the plain "
+            f"versions max |dmu_k| / mu_0 {k_plain:.3e} (tolerance 1e-10); "
+            f"against the moments of -g's {len(cf.alphas)}-step Lanczos "
+            f"tridiagonal, k < {upto}, {k_lanczos:.3e} (tolerance 1e-8); "
+            f"moment loop kernel {kernel_s:.3f} s, plain {plain_s:.3f} s")
+        check(basis.size == 10_306_296, f"12c sector dim {basis.size}")
+        check(k_plain <= 1e-10, f"12c kernel vs plain moments {k_plain:.3e}")
+        check(k_lanczos <= 1e-8, f"12c moments vs Lanczos {k_lanczos:.3e}")
+        dens += got.density((grid if type_ == 0 else -grid)
+                            + eng.ground_energy)
+    dos_err = np.abs(kpmdos[:, 1] - dens).max() / np.abs(dens).max()
+    say(f"  .kpmdos against the density of these moments: max rel diff "
+        f"{dos_err:.3e} (tolerance 1e-8, the file's 10 digits)")
+    check(dos_err <= 1e-8, f"12c .kpmdos differs by {dos_err:.3e}")
+    del eng, gs, phi, ham, coll
+    torch.cuda.empty_cache()
+
+    # -- 12d: ed --ftlm, SolverOptions=factored, 18-site t-J -----------------
+    text_d = (factored(tj_ring_text(18, 8, 8)) + beta_schedule((0.1, 20.0, 8))
+              + f"FTLMVectors={rows}\nFTLMSteps={steps}\n")
+    K.reset_launches()
+    res_d, _, _, _, wall = run_tool(ed_main, text_d, ["--ftlm"], dev)
+    counts = counted("12d ed --ftlm factored 18-site t-J")
+    inp_d, model_d = sector_of(text_d)
+    form = F._schedule_ham(model_d, inp_d, dev)
+    check(type(form).__name__ == "PermutedHamiltonian",
+          f"12d form {type(form).__name__}")
+    block = lz.random_start_block(form.dim, rows, ftlm_seed, f64, dev)
+    empty = block.new_zeros((0, rows, form.dim))
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = profile_step.profile_turn(
+            lambda n: F._ftlm_recurrence(form.inner, block.T.contiguous(),
+                                         empty, n), 5, 2,
+            os.path.join(tmp, "ftlm_tj18.json"))
+    parts_d = model_d.default_parts(inp_d)
+    t = time.perf_counter()
+    flat = model_d.hamiltonian(model_d.create_basis(parts_d), dtype=f64,
+                               device=dev)
+    flat_build_s = time.perf_counter() - t
+    before = dict(K.LAUNCHES)
+    res_f = F.ftlm(flat, res_d.betas, steps=steps,
+                   start_vectors=form.to_flat(block.T).T)
+    flat_counts = {n: K.LAUNCHES[n] - before[n] for n in before}
+    runs["12d the flat form's FTLM"] = flat_counts
+    diff = np.abs(res_d.energy - res_f.energy).max() / np.abs(
+        res_f.energy).max()
+    say(f"phase 12d 18-site t-J ring ed --ftlm, SolverOptions=factored, via "
+        f"CLI on {dev}: dim {form.dim}, {type(form).__name__}, R {rows}, "
+        f"{steps} steps, wall {wall:.3f} s, launches {counts} = "
+        f"{ {n: c / steps for n, c in counts.items()} } a step; "
+        f"{trace['steps']} traced steps {trace['ms_per_step']:.3f} ms a "
+        f"step, idle share {trace['idle_share']:.4f}; energies against the "
+        f"flat form {parts_d} (build {flat_build_s:.3f} s, launches "
+        f"{flat_counts}) from the same block: max rel diff {diff:.3e} "
+        f"(tolerance 1e-8)")
+    check(counts["perm_gather"] > 0 and counts["factor_matmul"] > 0,
+          f"12d launches {counts}")
+    check(flat_counts["ell_spmv"] > 0, f"12d flat launches {flat_counts}")
+    check(diff <= 1e-8, f"12d factored vs flat energies {diff:.3e}")
+    # the batched kernels at R = 16 on this path's own operands
+    ell_case(f"f64 18-site t-J ELL, R={rows}", flat.diag, flat.ell.cols,
+             flat.ell.vals, (rows, flat.dim), TOL_ELL_F64)
+    case, src, dst, tables = largest_cross_term(form.inner, "18-site t-J")
+    perm_gather_case(
+        results, case.replace("PermCrossTerm", f"PermCrossTerm, R={rows},"),
+        torch.randn((rows, *src), generator=gen, device=dev, dtype=f64),
+        torch.randn((rows, *dst), generator=gen, device=dev, dtype=f64),
+        tables)
+    del form, block, empty, flat, res_f, tables
+    torch.cuda.empty_cache()
+
+    # -- 12e: lanczos -g c --ftlm-dos 2.0, 12-site SuperHubbardExtended -------
+    vectors_e, steps_e, beta_e, delta = 8, 100, 2.0, 0.1
+    text_e = super_hubbard_text(12) + (
+        f"TSPSites 2 0 0\nFTLMVectors={vectors_e}\nFTLMSteps={steps_e}\n")
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, _, err, files, wall = run_tool(
+        lanczos_main, text_e, ["-g", "c", "--ftlm-dos", str(beta_e), "-p",
+                               "17"], dev)
+    counts = counted("12e lanczos -g c --ftlm-dos 12-site")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    ftlmdos = np.loadtxt(files["input.inp0.ftlmdos"].splitlines())
+    grid = ftlmdos[:, 0]
+    maps_s = phase_seconds(err, "ftlm operator maps")
+    src_s = phase_seconds(err, "ftlm source runs")
+    dst_s = phase_seconds(err, "ftlm destination runs")
+    say(f"phase 12e 12-site SuperHubbardExtended lanczos -g c --ftlm-dos "
+        f"{beta_e} via CLI on {dev}: dim {eng.basis.size}, R {vectors_e}, "
+        f"{steps_e} steps, wall {wall:.3f} s: host operator maps {maps_s} s, "
+        f"source runs {src_s} s, destination runs and operator rows on the "
+        f"card {dst_s} s; launches {counts}, peak device memory {peak:.2f} "
+        f"GB")
+    check(counts["ell_spmv"] > 0 and counts["factor_matmul"] > 0,
+          f"12e launches {counts}")
+    check(len(maps_s) == len(dst_s) == 2 and len(src_s) == 1,
+          f"12e phases {maps_s}, {src_s}, {dst_s}")
+    block = lz.random_start_block(eng.basis.size, vectors_e, 152917, f64, dev)
+    before = dict(K.LAUNCHES)
+    with plain_kernels():
+        plain = eng.ftlm_local_dos("c", 0, beta_e, grid, delta=delta,
+                                   steps=steps_e, start_vectors=block)
+    check(dict(K.LAUNCHES) == before, "12e: the plain run launched a kernel")
+    diff = np.abs(ftlmdos[:, 1] - plain).max() / np.abs(plain).max()
+    say(f"  .ftlmdos against the plain versions from the same block: max "
+        f"rel diff {diff:.3e} (tolerance 1e-8)")
+    check(diff <= 1e-8, f"12e kernel vs plain {diff:.3e}")
+    # the same estimator rebuilt from its pole data (the pieces
+    # ftlm_local_dos joins): its grid at beta 2 is the file's, and at
+    # beta 40 its poles hold the exact sum rule of the continued fraction
+    from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import (
+        ftlm_dynamic, ftlm_source_runs)
+    shared = ftlm_source_runs(eng.hamiltonian, block, steps_e)
+    warm, cold, total, spread = (np.zeros_like(grid), np.zeros_like(grid),
+                                 0.0, 0.0)
+    for type_, op in enumerate((op_c.transpose_conjugate(), op_c)):
+        parts, basis = eng._get_needed_basis(eng.parts, op, 0, 0)
+        dyn = ftlm_dynamic(eng.hamiltonian, eng._cached_hamiltonian(parts),
+                           eng._operator_rows(op, {0: 1.0}, 0, 0, basis),
+                           steps=steps_e, start_vectors=block,
+                           source_runs=shared)
+        side = grid if type_ == 0 else -grid
+        warm += dyn.evaluate(beta_e, side, delta)
+        cold += dyn.evaluate(40.0, side, delta)
+        weights = dyn.poles(40.0)[1]
+        total += weights.sum()
+        spread += np.abs(weights).sum()
+    del shared
+    diff = np.abs(ftlmdos[:, 1] - warm).max() / np.abs(warm).max()
+    coll = files["input.inp0.comb"]
+    cf_total = sum(cf.weight for cf in coll.items)
+    cf = spectral_density(coll, grid, delta)
+    l1 = np.trapezoid(np.abs(cold - cf), grid) / np.trapezoid(cf, grid)
+    say(f"  rebuilt from its poles: at beta {beta_e} against the .ftlmdos "
+        f"max rel diff {diff:.3e} (tolerance 1e-9, the file's 10 digits); "
+        f"at beta 40 against -g's continued fraction (T = 0): total pole "
+        f"weight {float(total)!r} against the fraction's {cf_total!r} (both "
+        f"<c c^+> + <c^+ c> = 1 exactly; tolerance 1e-10), sum of |weight| "
+        f"{spread:.3f}; the curves at delta {delta} differ by an L1 "
+        f"distance {l1:.3f} of the fraction's weight, not held to a "
+        f"tolerance: the estimator's O(1/sqrt(R)) noise as T -> 0 (0.67-1.24 "
+        f"at R = 8 on the 8-site chain on the CPU)")
+    check(diff <= 1e-9, f"12e rebuilt curve against the file {diff:.3e}")
+    check(abs(total - 1.0) <= 1e-10 and abs(cf_total - 1.0) <= 1e-10,
+          f"12e sum rules {total!r}, {cf_total!r}")
+    del eng, block, plain, warm, cold
+    torch.cuda.empty_cache()
+
+    # -- 12f: the small command lines, card against CPU ----------------------
+    cpu = torch.device("cpu")
+    draw = lz.random_start_block
+
+    def card_draws(dim, num, seed, dtype, device):
+        """The CPU runs take the card's draws (the card's generator is
+        not the CPU's)."""
+        return draw(dim, num, seed, dtype, dev).to(device)
+
+    def both(label, module, text, args, kernels):
+        K.reset_launches()
+        card = run_tool(module, text, args, dev)
+        counts = counted(f"12f {label}")
+        check(all(counts[k] > 0 for k in kernels),
+              f"12f {label}: launches {counts}")
+        lz.random_start_block = card_draws
+        try:
+            host = run_tool(module, text, args, cpu)
+        finally:
+            lz.random_start_block = draw
+        return card, host, counts
+
+    def agree(label, got, want, tol):
+        err = np.abs(np.asarray(got) - np.asarray(want)).max() / max(
+            np.abs(np.asarray(want)).max(), 1e-300)
+        say(f"phase 12f {label}: card against CPU max rel diff {err:.3e} "
+            f"(tolerance {tol:g})")
+        check(err <= tol, f"12f {label}: {err:.3e}")
+
+    hub6 = hubbard_chain_text(6, 4, periodic=0).replace(
+        "potentialV 12 0 0", "potentialV 12 0.1 -0.2")
+    therm = ["-b", "1.3", "-m", "0.4", "-c", "c", "-s", "0,1"]
+    (gc, _, _, _, _), (gc_cpu, _, _, _, _), counts = both(
+        "thermal full spectra 6 sites", thermal_main, hub6, therm, ())
+    poles, total = gc.correlation_poles("c", (0, 1), 0, 1.3, 0.4)
+    poles_cpu, total_cpu = gc_cpu.correlation_poles("c", (0, 1), 0, 1.3, 0.4)
+    agree("thermal full spectra 6 sites (Z, density, energy, pole sum)",
+          [gc.partition(1.3, 0.4), gc.density(1.3, 0.4),
+           gc.energy(1.3, 0.4), total],
+          [gc_cpu.partition(1.3, 0.4), gc_cpu.density(1.3, 0.4),
+           gc_cpu.energy(1.3, 0.4), total_cpu], 1e-10)
+    (gf, _, _, _, _), (gf_cpu, _, _, _, _), counts = both(
+        "thermal --ftlm 6 sites", thermal_main,
+        hub6 + "FTLMVectors=8\nFTLMSteps=30\n", ["-b", "1.3", "--ftlm"],
+        ("factor_matmul",))
+    agree("thermal --ftlm 6 sites (ln Z, density, energy, Cv)",
+          [gf.log_partition(1.3, 0.0), gf.density(1.3, 0.0),
+           gf.energy(1.3, 0.0), gf.specific_heat(1.3, 0.0)],
+          [gf_cpu.log_partition(1.3, 0.0), gf_cpu.density(1.3, 0.0),
+           gf_cpu.energy(1.3, 0.0), gf_cpu.specific_heat(1.3, 0.0)], 1e-8)
+    (sq, _, _, _, _), (sq_cpu, _, _, _, _), counts = both(
+        "sqomega 10-site Heisenberg ring", sqomega_main,
+        heisenberg_ring_text(10), ["-b", "-1", "-e", "5", "-s", "0.05",
+                                   "-d", "0.1"], ("ell_spmv",))
+    agree("sqomega 10-site Heisenberg ring S(q, omega)", sq[1], sq_cpu[1],
+          1e-8)
+    feas = feas_ring_text(4, 2, 2)
+    (cf1, _, _, _, _), (cf1_cpu, _, _, _, _), counts = both(
+        "dynamics1 4-site FeAs", dynamics1_main, feas, ["-r", "1"],
+        ("factor_matmul", "ell_spmv"))
+    omegas = np.linspace(-2.0, 8.0, 201)
+    agree("dynamics1 4-site FeAs G(omega + 0.1i)",
+          cf1.evaluate(omegas, 0.1), cf1_cpu.evaluate(omegas, 0.1), 1e-8)
+    (qz, _, _, _, _), (qz_cpu, _, _, _, _), counts = both(
+        "qpz 6-site chain", qpz_main, hub6, ["--ratio"], ("factor_matmul",))
+    # both ground states are Lanczos vectors converged to a 1e-10 residual
+    agree("qpz 6-site chain Z(k)", [z for _, z in qz],
+          [z for _, z in qz_cpu], 1e-8)
+    # lorentzian is host code: its printed grid against broadening's
+    from lanczosplusplus_tpu_torch.engine.broadening import lorentzian_grid
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "poles.txt")
+        np.savetxt(path, np.asarray(poles))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            lorentzian_main.run(["-f", path, "-t", "200", "-m", "real",
+                                 "-e", "0.1"])
+    printed = np.loadtxt(out.getvalue().splitlines())
+    om, g = lorentzian_grid(*np.asarray(poles).T, 200, eps=0.1)
+    agree("lorentzian of the card's thermal poles (printed against "
+          "broadening.lorentzian_grid)", printed,
+          np.stack([om, g.real, g.imag], axis=1), 1e-10)
+
+    # -- the batched factor_matmul forms at the estimators' R = 16 ------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    batched_factor_cases(results, gen, dev, sms, rows, 3432, 3432)
+    say(f"estimator path kernel launches: "
+        f"{ {label: c for label, c in runs.items()} }")
+    return runs
+
+
 def main() -> None:
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -1585,58 +2107,7 @@ def main() -> None:
     # 14 states of the 14-site N_up = 8 sector (odd pitch: 8-byte copies of
     # X, Y and the up factor) and the 23 of the 12-site N_up = 7 sector
     for rows, szd, szu in ((14, 3432, 3003), (23, 924, 792)):
-        wide = szu % 2 == 0
-        copies = "16-byte copies" if wide else "8-byte copies: odd pitch"
-        xb = torch.randn(rows, szd, szu, generator=gen, device=dev,
-                         dtype=torch.float64)
-        yb = torch.randn(rows, szd, szu, generator=gen, device=dev,
-                         dtype=torch.float64)
-        a_up = torch.randn(szu, szu, generator=gen, device=dev,
-                           dtype=torch.float64)
-        a_dn = torch.randn(szd, szd, generator=gen, device=dev,
-                           dtype=torch.float64)
-        xf, yf = xb.view(rows * szd, szu), yb.view(rows * szd, szu)
-        plan = K.factor_matmul_plan(
-            xf.data_ptr(), xf.stride(), a_up.data_ptr(), a_up.stride(),
-            yf.data_ptr(), yf.stride(), rows * szd, szu, sms)
-        check(plan.tile == 128 and plan.x_vec16 == plan.a_vec16 == wide,
-              f"up form of the batch: plan {plan}")
-        got = K.factor_matmul(xf, a_up)
-        ref = K.factor_matmul_ref(xf, a_up)
-        torch.cuda.synchronize()
-        out = torch.empty_like(xf)
-        record(results, "factor_matmul",
-               f"f64 batched up form ({rows}*{szd})x{szu}.{szu}x{szu}^T, "
-               f"batch folded into the rows (128-tile, {copies})",
-               got, ref, TOL_F64,
-               (lambda: K.factor_matmul(xf, a_up, out=out),
-                lambda: K.factor_matmul_ref(xf, a_up),
-                lambda: torch.matmul(xf, a_up.T, out=out)),
-               1e3 * 2 * rows * szd * szu * szu / PEAK_FLOPS, "operations")
-        del got, ref, out
-        xt, yt = xb.transpose(1, 2), yb.transpose(1, 2)
-        plan = K.factor_matmul_plan(
-            xt.data_ptr(), xt.stride(), a_dn.data_ptr(), a_dn.stride(),
-            yt.data_ptr(), yt.stride(), szu, szd, sms, rows)
-        check(plan.tile == 128 and not plan.x_kmajor
-              and plan.x_vec16 == wide and plan.a_vec16,
-              f"dn form of the batch: plan {plan}")
-        got = yb.clone()
-        K.factor_matmul(xt, a_dn, out=got.transpose(1, 2), accumulate=True)
-        ref = yb + torch.matmul(a_dn, xb)
-        torch.cuda.synchronize()
-        y1 = yb.clone()
-        record(results, "factor_matmul",
-               f"f64 batched dn form R={rows}: Y[b]+=A.X[b], {szd}^2 factor "
-               f"on ({szu}x{szd})^T views, one launch (128-tile, X {copies})",
-               got, ref, TOL_F64,
-               (lambda: K.factor_matmul(xt, a_dn, out=y1.transpose(1, 2),
-                                        accumulate=True),
-                lambda: y1.transpose(1, 2).add_(
-                    K.factor_matmul_ref(xt, a_dn)),
-                lambda: y1.baddbmm_(a_dn.expand(rows, szd, szd), xb)),
-               1e3 * 2 * rows * szd * szd * szu / PEAK_FLOPS, "operations")
-        del got, ref, y1, xb, yb, xf, yf, xt, yt, a_up, a_dn
+        batched_factor_cases(results, gen, dev, sms, rows, szd, szu)
     xr = torch.randn(3, 300, 257, generator=gen, device=dev,
                      dtype=torch.float64)
     ar = torch.randn(123, 257, generator=gen, device=dev, dtype=torch.float64)
@@ -2361,6 +2832,9 @@ def main() -> None:
 
     # -- 11. the symmetry sectors ----------------------------------------
     sym_runs = symmetry_phase(dev, gen, results, refs, ell_case)
+
+    # -- 12. the estimators and their command lines ----------------------
+    est_runs = estimator_phase(dev, gen, results, refs, ell_case)
     del refs
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
@@ -2463,7 +2937,23 @@ def main() -> None:
          sym_count("ell_spmv", "reflection blocks")),
         ("factor_matmul (symmetry, projected Kitaev)",
          "symmetry: projected translation", "f64 22-site Kitaev left half",
-         sym_count("factor_matmul", "projected")))
+         sym_count("factor_matmul", "projected")),
+        # the estimators (phase 12): 12a's batched FTLM recurrence, two
+        # launches a step (the up and the dn form), and 12d's factored and
+        # flat t-J FTLM at R = 16
+        ("factor_matmul (estimators, batched up form R=16)",
+         "estimators: FTLM recurrence", "f64 batched up form (16*3432)",
+         est_runs["12a ed --ftlm 14-site"]["factor_matmul"] // 2),
+        ("factor_matmul (estimators, batched dn form R=16)",
+         "estimators: FTLM recurrence", "f64 batched dn form R=16",
+         est_runs["12a ed --ftlm 14-site"]["factor_matmul"] // 2),
+        ("ell_spmv (estimators, batched R=16)", "estimators: flat t-J FTLM",
+         "f64 18-site t-J ELL, R=16",
+         est_runs["12d the flat form's FTLM"]["ell_spmv"]),
+        ("perm_gather (estimators, cross terms R=16)",
+         "estimators: factored t-J FTLM",
+         "f64 18-site t-J largest PermCrossTerm, R=16",
+         est_runs["12d ed --ftlm factored 18-site t-J"]["perm_gather"]))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -2489,6 +2979,8 @@ def main() -> None:
                     run["counts"][kernel] for run in factored_runs.values()),
                 launches_phase_11=sum(counts[kernel]
                                       for _, counts in sym_runs.values()),
+                launches_phase_12=sum(counts[kernel]
+                                      for counts in est_runs.values()),
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(

@@ -1,9 +1,13 @@
 """lanczosplusplus_tpu_torch: exact diagonalization on PyTorch and CUDA.
 
 The port of ``lanczosplusplus_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
-H100, so far for the Hubbard family: the ground state (``lanczos -f
-input.inp``), continued-fraction spectral functions (``-g``) and the
-static observables (``-c``, ``-m``, ``-M``, ``-r``).
+H100: the ground state of every model (``lanczos -f input.inp``, with
+the factored forms and the symmetry sectors), continued-fraction spectral
+functions (``-g``), the static observables (``-c``, ``-m``, ``-M``,
+``-r``), and the estimators with their command lines: KPM and FTLM
+densities (``--kpm``, ``--ftlm-dos``), ``ed`` (full spectrum, FTLM,
+LTLM), ``thermal``, ``sqomega``, ``dynamics1``, ``qpz`` and
+``lorentzian``.
 Host code (bases, inputs, geometry, model term lists) is numpy; sector
 Hamiltonians and the Lanczos recurrence are tensors on an explicit
 ``torch.device``; the two hot-path kernels, the dense-factor GEMM and the

@@ -16,9 +16,11 @@ DoAllPairs=), ``-c`` two-point correlators, ``-r`` the reduced density
 matrix and ``-M`` many-point correlators.  The symmetry labels of the
 input (UseTranslationSymmetry=1 or 2, UseReflectionSymmetry=1) solve
 sector by sector, and every measurement runs on the eigenvector transformed
-back to the site basis.  ``--kpm`` and ``--ftlm-dos`` are accepted and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them,
-before any work is done.
+back to the site basis.  ``--kpm`` and ``--ftlm-dos BETA`` add, for every
+diagonal pair of ``-g``, the local density of states by the kernel
+polynomial method (``<input><counter>.kpmdos``) and by the FTLM
+double-Krylov estimator at inverse temperature BETA
+(``<input><counter>.ftlmdos``).
 """
 
 from __future__ import annotations
@@ -41,13 +43,6 @@ from lanczosplusplus_tpu_torch.io_.input_check import validate_input
 from lanczosplusplus_tpu_torch.io_.input_parser import read_input
 from lanczosplusplus_tpu_torch.models import build_model
 
-# flag dest -> (flag, ROADMAP Queue 1 item that ports it)
-_NOT_PORTED = {
-    "kpm": ("--kpm", "item 13 (estimators)"),
-    "ftlm_beta": ("--ftlm-dos", "item 13 (estimators)"),
-}
-
-
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lanczos++")
     p.add_argument("-f", dest="input", required=True)
@@ -66,8 +61,19 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-s", dest="spins", default="0,0")
     p.add_argument("-r", dest="split", type=int, default=-1,
                    help="reduced density matrix split site")
-    p.add_argument("--kpm", action="store_true", default=None)
-    p.add_argument("--ftlm-dos", dest="ftlm_beta", type=float)
+    p.add_argument("--ftlm-dos", dest="ftlm_beta", type=float,
+                   default=None, metavar="BETA",
+                   help="finite-temperature N_i(omega) at inverse "
+                        "temperature BETA for diagonal -g spectra via "
+                        "the FTLM double-Krylov estimator (labels "
+                        "FTLMOmegaBegin/Step/Total, FTLMDelta, "
+                        "FTLMVectors, FTLMSteps); writes "
+                        "<input><counter>.ftlmdos")
+    p.add_argument("--kpm", action="store_true",
+                   help="also evaluate diagonal -g spectra by the "
+                        "kernel polynomial method on an omega grid "
+                        "(labels KPMOmegaBegin/Step/Total, KPMMoments); "
+                        "writes <input><counter>.kpmdos")
     p.add_argument("-S", dest="threads", type=int, default=1,
                    help="the reference's thread count: accepted for "
                         "compatibility and ignored (the card sets the "
@@ -103,14 +109,54 @@ def _spectral_pairs(inp, n):
     return pairs, center
 
 
+def _write_local_dos(engine, inp, args, op_name, site, spin, out_base):
+    """For a diagonal pair: the KPM density (``--kpm``) into
+    ``<out_base>.kpmdos`` and the FTLM one (``--ftlm-dos BETA``) into
+    ``<out_base>.ftlmdos``, on the grids of their input labels."""
+    if args.kpm:
+        begin = inp.real("KPMOmegaBegin", default=-12.0)
+        step = inp.real("KPMOmegaStep", default=0.02)
+        total = inp.integer("KPMOmegaTotal", default=1201)
+        moments = inp.integer("KPMMoments", default=512)
+        omegas = begin + step * np.arange(total)
+        dos = engine.kpm_local_dos(op_name, site, omegas, spin=spin,
+                                   num_moments=moments)
+        kout = f"{out_base}.kpmdos"
+        with open(kout, "w") as f:
+            f.write(f"#KPM site={site} op={op_name} "
+                    f"moments={moments}\n#omega N(omega)\n")
+            for w, d in zip(omegas, dos):
+                f.write(f"{w:.10g} {d:.10g}\n")
+        print(f"lanczos_main: Written to {kout}", file=sys.stderr)
+    if args.ftlm_beta is not None:
+        begin = inp.real("FTLMOmegaBegin", default=-12.0)
+        step = inp.real("FTLMOmegaStep", default=0.02)
+        total = inp.integer("FTLMOmegaTotal", default=1201)
+        delta = inp.real("FTLMDelta", default=0.1)
+        omegas = begin + step * np.arange(total)
+        dos = engine.ftlm_local_dos(
+            op_name, site, args.ftlm_beta, omegas, delta=delta, spin=spin,
+            num_vectors=inp.integer("FTLMVectors", default=16),
+            steps=inp.integer("FTLMSteps", default=100))
+        fout = f"{out_base}.ftlmdos"
+        with open(fout, "w") as f:
+            f.write(f"#FTLM site={site} op={op_name} "
+                    f"beta={args.ftlm_beta} delta={delta}\n"
+                    "#omega N(omega)\n")
+            for w, d in zip(omegas, dos):
+                f.write(f"{w:.10g} {d:.10g}\n")
+        print(f"lanczos_main: Written to {fout}", file=sys.stderr)
+
+
 def _write_spectral(engine, gf_ops, pair_of_sites, center, spins, norb,
-                    filename, batch_gf):
+                    filename, batch_gf, local_dos):
     """Run every -g operator over the site pairs and write one
     ``<filename><counter>.comb`` per pair.  With more than one pair all
     (pair, type) Lanczos decompositions of one destination sector run as a
     single batched recurrence (``Engine.spectral_functions_batched``);
     SolverOptions=serialgf restores the reference's one run per pair
-    (mainLoop3's loop over pairs)."""
+    (mainLoop3's loop over pairs).  ``local_dos(op_name, site, spin,
+    out_base)`` runs after each diagonal pair's file."""
     for op_name in gf_ops:
         batched = {}
         if batch_gf and spins[0] == spins[1]:
@@ -144,16 +190,14 @@ def _write_spectral(engine, gf_ops, pair_of_sites, center, spins, norb,
                     f.write(f"TSPCenter={center}\n")
                 all_cf.write(f, index_to_cf=labels)
             print(f"lanczos_main: Written to {out}", file=sys.stderr)
+            if site0 == site1:
+                local_dos(op_name, site0, spins[0], f"{filename}{counter}")
 
 
 def run(argv=None):
     """Parse, validate, diagonalize, measure and print; returns the
     Engine."""
     args = _parser().parse_args(argv)
-    for dest, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1 {item})")
 
     np.set_printoptions(precision=args.precision)
     inp = read_input(args.input)
@@ -211,7 +255,8 @@ def run(argv=None):
     norb = max_orbitals(model, n)
     _write_spectral(engine, gf_ops, pair_of_sites, center, spins, norb,
                     os.path.basename(args.input),
-                    len(pair_of_sites) > 1 and "serialgf" not in solver_opts)
+                    len(pair_of_sites) > 1 and "serialgf" not in solver_opts,
+                    lambda *job: _write_local_dos(engine, inp, args, *job))
 
     for op_name in args.cicj:
         for orb1 in range(norb):

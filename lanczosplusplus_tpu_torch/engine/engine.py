@@ -14,8 +14,10 @@ of every sector a spectral run visits), and the symmetry sectors
 ``_try_projected_translation`` for the Kitaev chain, ``solve_sector``,
 ``projected_purity``); itself a functional re-design of the reference
 Engine (reference: src/Engine/Engine.h:84-98 ctor diagonalizes; 601-657
-computeAllStatesBelow; observable entry points 113-389).  The KPM and
-FTLM estimators are not ported yet.  The solve's scalar type is the
+computeAllStatesBelow; observable entry points 113-389), and the
+estimators' spectral functions (``kpm_local_dos``, ``ftlm_local_dos``,
+``ftlm_sq_omega``, whose operator rows go through device plans made once
+from the cached maps, ``_operator_rows``).  The solve's scalar type is the
 Hamiltonian's: a model may force a complex one whatever the input asks,
 and a complex momentum sector makes the later sector Hamiltonians complex
 (``scalar_dtype``).
@@ -575,6 +577,187 @@ class Engine:
         return ContinuedFraction(
             alphas=res.alphas, betas=res.betas, e0=self.ground_energy,
             weight=weight * s2, sigma=s)
+
+    # -- estimators: KPM and FTLM spectral functions -----------------------
+
+    def kpm_local_dos(self, op_name: str, isite: int, omegas,
+                      spin: int = 0, orb: int = 0,
+                      num_moments: int = 512):
+        """N_i(omega) by the kernel polynomial method: the diagonal
+        spectral function (types 0/1 of Engine.h:133-206) evaluated as a
+        Jackson-broadened Chebyshev density instead of a Lanczos
+        continued fraction.  Addition poles land at omega = E_n - E0 > 0,
+        removal poles are mirrored to omega = E0 - E_n < 0; the removal
+        branch of a non-fermionic operator carries the continued-fraction
+        path's negative sign (commutator form).  Two stored vectors a
+        destination sector, no reorthogonalization.  The start vector
+        (operator maps and scatter) and the moments are timed as phases
+        of their own."""
+        from lanczosplusplus_tpu_torch.engine.kpm import kpm_spectral
+
+        op1 = LabeledOperator(op_name)
+        op2 = op1.transpose_conjugate()
+        gs = self.eigenvector(0)
+        omegas = np.asarray(omegas, dtype=np.float64)
+        total = np.zeros_like(omegas)
+        for type_ in range(2):
+            op = op1 if (type_ & 1) else op2
+            got = self._get_needed_basis(self.parts, op, spin, orb)
+            if got is None:
+                continue
+            new_parts, basis_new = got
+            with self.progress.phase(
+                    f"kpm start vector type {type_} sector {new_parts}"):
+                modif = torch.zeros(basis_new.size, dtype=gs.dtype,
+                                    device=gs.device)
+                self.acc_modified_state(modif, op, basis_new, gs,
+                                        self.basis, isite, spin, orb, 1.0)
+                weight = torch.vdot(modif, modif).real.item()
+            if weight < 1e-24:
+                continue
+            ham_new = self._cached_hamiltonian(new_parts)
+            grid = omegas if type_ == 0 else -omegas
+            sgn = -1.0 if (type_ == 1 and not op1.is_fermionic) else 1.0
+            with self.progress.phase(
+                    f"kpm moments type {type_} sector {new_parts} "
+                    f"moments={num_moments}"):
+                total = total + sgn * kpm_spectral(
+                    ham_new, modif, grid, self.ground_energy,
+                    num_moments=num_moments)
+        return total
+
+    def _operator_rows(self, op, site_weights, spin, orb, dst_basis):
+        """A function applying sum_site w_site op_site, from the target
+        sector to `dst_basis`, to every row of a batch-major block
+        (k, dim) on the device, one ``index_add_`` for the block.  Its
+        plan (targets, sources, weighted amplitudes) is made once from
+        the cached host maps (``_cached_operator_map``) and kept on the
+        device.  `site_weights` maps site -> weight."""
+        tgt_l, src_l, amp_l = [], [], []
+        for site, w in site_weights.items():
+            tgt, amp, _ = self._cached_operator_map(op, site, spin, orb,
+                                                    dst_basis)
+            mask = tgt >= 0
+            tgt_l.append(tgt[mask])
+            src_l.append(np.nonzero(mask)[0])
+            amp_l.append(w * amp[mask])
+        dev = self.config.device
+        tgts = torch.as_tensor(np.concatenate(tgt_l), device=dev)
+        srcs = torch.as_tensor(np.concatenate(src_l), device=dev)
+        amps = torch.as_tensor(np.concatenate(amp_l), device=dev)
+        size = dst_basis.size
+
+        def apply(X):
+            contrib = amps * X[:, srcs]
+            out = torch.zeros((X.shape[0], size), dtype=contrib.dtype,
+                              device=X.device)
+            return out.index_add_(1, tgts, contrib)
+        return apply
+
+    def ftlm_local_dos(self, op_name: str, isite: int, beta: float,
+                       omegas, delta: float = 0.1, spin: int = 0,
+                       orb: int = 0, num_vectors: int = 16,
+                       steps: int = 100, seed: int = 152917,
+                       start_vectors=None):
+        """N_i(omega, T): the finite-temperature local spectral function by
+        the FTLM double-Krylov estimator (engine/ftlm_dynamic.py),
+        addition part plus mirrored removal part, Lorentzian-broadened.
+        The reference reaches finite-T dynamics only through the full
+        spectra of every sector (thermal.cpp + grandCanonical.pl).
+        Normalization: the source sector's canonical ensemble.  The
+        mirrored removal branch carries the continued-fraction path's
+        sign: negative for non-fermionic operators (commutator form),
+        positive for fermionic ones.  One source fleet of R stored runs
+        serves both operator types; the operator maps, the source runs and
+        each type's destination runs are timed as phases of their own."""
+        from lanczosplusplus_tpu_torch.engine.ftlm import start_block
+        from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import (
+            ftlm_dynamic, ftlm_source_runs)
+
+        op1 = LabeledOperator(op_name)
+        op2 = op1.transpose_conjugate()
+        omegas = np.asarray(omegas, dtype=np.float64)
+        total = np.zeros_like(omegas)
+        ham_src = self.hamiltonian
+        V0 = start_block(ham_src, start_vectors, num_vectors, seed).T
+        src_steps = int(min(steps, ham_src.dim))
+        with self.progress.phase(
+                f"ftlm source runs R={V0.shape[1]} steps={src_steps}"):
+            shared_runs = ftlm_source_runs(ham_src, V0, src_steps)
+        for type_ in range(2):
+            op = op1 if (type_ & 1) else op2
+            got = self._get_needed_basis(self.parts, op, spin, orb)
+            if got is None:
+                continue
+            new_parts, basis_new = got
+            ham_new = self._cached_hamiltonian(new_parts)
+            with self.progress.phase(
+                    f"ftlm operator maps type {type_} sector {new_parts}"):
+                apply = self._operator_rows(op, {isite: 1.0}, spin, orb,
+                                            basis_new)
+            with self.progress.phase(
+                    f"ftlm destination runs type {type_} sector "
+                    f"{new_parts}"):
+                dyn = ftlm_dynamic(ham_src, ham_new, apply, steps=steps,
+                                   start_vectors=V0,
+                                   source_runs=shared_runs)
+            grid = omegas if type_ == 0 else -omegas
+            sgn = -1.0 if (type_ == 1 and not op1.is_fermionic) else 1.0
+            total = total + sgn * dyn.evaluate(beta, grid, delta)
+        return total
+
+    def ftlm_sq_omega(self, op_name: str, beta: float, omegas,
+                      delta: float = 0.1, spin: int = 0, orb: int = 0,
+                      num_vectors: int = 16, steps: int = 100,
+                      seed: int = 152917, start_vectors=None):
+        """S(q, omega) at finite temperature for a sector-preserving
+        operator (sz, n): S_q(w) = (1/Z) sum_nm e^{-b E_n}
+        |<m|B_q|n>|^2 delta(w - E_m + E_n) with B_q = sum_j e^{iq r_j}
+        op_j, estimated by the FTLM double-Krylov method.  The complex
+        momentum operator splits into real cos/sin combinations
+        (S_q = S_cos + S_sin), so the Hamiltonian stays real and one
+        source fleet serves every momentum; a complex Hamiltonian raises.
+        The per-site operator maps are built once.  The reference reaches
+        S(q, w) only at T=0 (sqomega.pl) or through full spectra.
+        Returns (qs, S[len(qs), len(omegas)])."""
+        from lanczosplusplus_tpu_torch.engine.ftlm import start_block
+        from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import (
+            ftlm_dynamic, ftlm_source_runs)
+
+        op = LabeledOperator(op_name)
+        if op.needs_new_basis:
+            raise ValueError("ftlm_sq_omega: sector-preserving "
+                             "operators only (sz, n)")
+        ham = self.hamiltonian
+        if ham.dtype.is_complex:
+            # the cos/sin split S_q = S_cos + S_sin needs real matrix
+            # elements; with complex eigenvectors the cross term
+            # -2 Im(<m|C|n>* <m|S|n>) survives and the sum would
+            # silently yield (S_q + S_-q)/2
+            raise ValueError("ftlm_sq_omega: real Hamiltonians only "
+                             "(complex eigenvectors break the cos/sin "
+                             "momentum decomposition)")
+        nsite = self.geometry.number_of_sites()
+        omegas = np.asarray(omegas, dtype=np.float64)
+        V0 = start_block(ham, start_vectors, num_vectors, seed).T
+        src_steps = int(min(steps, ham.dim))
+        with self.progress.phase(
+                f"ftlm source runs R={V0.shape[1]} steps={src_steps}"):
+            shared = ftlm_source_runs(ham, V0, src_steps)
+        qs = 2.0 * np.pi * np.arange(nsite) / nsite
+        out = np.zeros((nsite, omegas.shape[0]))
+        for iq, q in enumerate(qs):
+            for phase in (np.cos, np.sin):
+                wsites = phase(q * np.arange(nsite))
+                if np.abs(wsites).max() < 1e-14:
+                    continue
+                apply = self._operator_rows(
+                    op, {site: w for site, w in enumerate(wsites)
+                         if abs(w) >= 1e-14}, spin, orb, self.basis)
+                dyn = ftlm_dynamic(ham, ham, apply, steps=steps,
+                                   start_vectors=V0, source_runs=shared)
+                out[iq] += dyn.evaluate(beta, omegas, delta)
+        return qs, out
 
     # -- static correlators (reference: Engine.h:266-338) -----------------
 

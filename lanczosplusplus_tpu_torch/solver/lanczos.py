@@ -5,7 +5,9 @@ Counterpart of ``lanczosplusplus_tpu/solver/lanczos.py``: ``lowest_states``
 ``tridiagonalize`` with ``reorth="selective"`` and ``"full"``,
 ``tridiagonalize_plain``, ``tridiagonalize_plain_batched``,
 ``lowest_states_plain``, ``trim_at_breakdown``, ``tridiag_eigh``,
-``finish_lanczos``, ``ritz_vectors``, ``_dense_solve`` and ``SolveInfo``.
+``finish_lanczos``, ``ritz_vectors``, ``_dense_solve``, ``SolveInfo``,
+``random_start_block`` and ``check_fits`` (the estimators' memory
+reckoning against the Krylov budget).
 Every entry point takes any operator with ``dim``, ``dtype``, ``device``
 and ``matvec`` (``matmat_t`` for the batched recurrence): a sector
 ``Hamiltonian`` or a block-Kronecker form.  ``lowest_states`` solves a
@@ -48,6 +50,18 @@ def default_krylov_budget(device: torch.device) -> int:
     return CPU_KRYLOV_BUDGET_BYTES
 
 
+def check_fits(nbytes: int, what: str, device) -> None:
+    """Raise MemoryError when `nbytes` exceed the Krylov budget of
+    `device`: the estimators reckon their blocks and stored bases before
+    they make them, and never move them to the host."""
+    budget = default_krylov_budget(torch.device(device))
+    if nbytes > budget:
+        raise MemoryError(
+            f"{what} need {nbytes / 1e9:.2f} GB on {device}, more than the "
+            f"budget of {budget / 1e9:.2f} GB (half of the free memory); "
+            f"use fewer vectors or steps, or a smaller sector")
+
+
 def random_start_vector(dim: int, seed: int, dtype: torch.dtype,
                         device) -> torch.Tensor:
     """Unit-norm normal start vector from a ``torch.Generator`` on
@@ -62,6 +76,31 @@ def random_start_vector(dim: int, seed: int, dtype: torch.dtype,
         v = torch.complex(v, torch.randn(dim, generator=gen, dtype=rdt,
                                          device=device))
     return v / torch.linalg.vector_norm(v)
+
+
+def random_start_block(dim: int, num: int, seed: int, dtype: torch.dtype,
+                       device) -> torch.Tensor:
+    """Deterministic random (dim, num) block with unit-norm columns, from
+    a ``torch.Generator`` on `device` seeded with `seed`: the start block
+    of the FTLM, LTLM and KPM estimators.  The components are drawn in
+    float32 and cast, so an f32 run and an f64 run get the same sample; a
+    complex block is two real draws, real parts first.  The block is the
+    transpose of a contiguous (num, dim) tensor, the batch-major layout
+    the batched recurrences take, so ``.T`` of it costs no copy.  The
+    sample differs from ``jax.random``'s: parity tests pass the JAX block
+    in."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rdt = real_dtype_of(dtype)
+
+    def draw():
+        return torch.randn(num, dim, generator=gen, dtype=torch.float32,
+                           device=device).to(rdt)
+    v = draw()
+    if dtype.is_complex:
+        v = torch.complex(v, draw())
+    v = v.to(dtype)
+    return (v / torch.linalg.vector_norm(v, dim=1, keepdim=True)).T
 
 
 def _normalized(ham, v0) -> torch.Tensor:

@@ -4,8 +4,8 @@ its flat models, spends its time on one GPU.
 
 Run from the repository root, with one CUDA card:
 
-    python3 profile_step.py [--spectral | --flat MODEL | --gather | --sym]
-                            [--trace-dir DIR]
+    python3 profile_step.py [--spectral | --ftlm | --flat MODEL | --gather |
+                             --sym] [--trace-dir DIR]
 
 It builds the half-filled 14-site periodic HubbardOneBand chain at U=4
 (dim 11 778 624, two dense 3432 x 3432 float64 one-spin factors) on the
@@ -20,6 +20,12 @@ instead: the N_up = 8, N_down = 7 sector of the same chain (dim
 10 306 296, factors 3003 x 3003 and 3432 x 3432), a block of 14 random unit
 rows, 10 steps of ``solver.lanczos.tridiagonalize_plain_batched`` after 2
 warm-up steps, in the same turns.
+
+With ``--ftlm`` it traces the batched recurrence of the FTLM estimator
+instead, as ``chip_smoke.py`` phase 12a runs it (``ed --ftlm``): the same
+14-site sector, a block of 16 random unit rows drawn on the card
+(``random_start_block``, the ed schedule's seed), 10 steps of
+``engine.ftlm._ftlm_recurrence`` after 2 warm-up steps, in the same turns.
 
 With ``--flat MODEL`` it traces the ground-state step of a flat model at
 full width instead, built as ``chip_smoke.py`` phase 9 builds it:
@@ -105,6 +111,8 @@ WARMUP_STEPS = 5
 SPECTRAL_STEPS = 10
 SPECTRAL_WARMUP_STEPS = 2
 SPECTRAL_ROWS = 14
+FTLM_ROWS = 16
+FTLM_SEED = 982451653   # the seed of ftlm_schedule, chip_smoke.py phase 12a
 
 
 def device_events(trace_path: str) -> list[dict]:
@@ -162,6 +170,14 @@ def profile_turn(run, steps: int, warmup: int, trace_path: str) -> dict:
                 device_busy_ms=busy_ms, idle_share=idle,
                 device_events=len(events),
                 top_device_ms=by_name_ms(events, 8))
+
+
+def ftlm_recurrence(op, v0: torch.Tensor, steps: int):
+    """`steps` of the FTLM estimator's batched recurrence from the rows of
+    v0 (R, dim), with no operator dots: (alphas, betas, dots) on the
+    device."""
+    from lanczosplusplus_tpu_torch.engine.ftlm import _ftlm_recurrence
+    return _ftlm_recurrence(op, v0, v0.new_zeros((0, *v0.shape)), steps)
 
 
 def gather_cases(dev) -> list:
@@ -365,6 +381,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     which = parser.add_mutually_exclusive_group()
     which.add_argument("--spectral", action="store_true",
                        help="trace the batched step of the spectral path")
+    which.add_argument("--ftlm", action="store_true",
+                       help="trace the batched FTLM recurrence (R = 16) of "
+                            "chip_smoke.py phase 12a")
     which.add_argument("--flat", choices=sorted(FLAT_MODELS), default=None,
                        help="trace the ground-state step of this flat model")
     which.add_argument("--gather", action="store_true",
@@ -446,6 +465,11 @@ def main() -> None:
             for r in range(SPECTRAL_ROWS)])
         steps, warmup = SPECTRAL_STEPS, SPECTRAL_WARMUP_STEPS
         recurrence = lz.tridiagonalize_plain_batched
+    elif args.ftlm:
+        v0 = lz.random_start_block(ham.dim, FTLM_ROWS, FTLM_SEED, ham.dtype,
+                                   dev).T.contiguous()
+        steps, warmup = SPECTRAL_STEPS, SPECTRAL_WARMUP_STEPS
+        recurrence = ftlm_recurrence
     else:
         v0 = lz.random_start_vector(ham.dim, SEED, ham.dtype, dev)
         steps, warmup = STEPS, WARMUP_STEPS
@@ -468,7 +492,8 @@ def main() -> None:
             for name, ms in r["top_device_ms"].items():
                 print(f"  {ms:10.3f} ms  {name[:100]}", flush=True)
     print(json.dumps({"card": smi, "spectral": args.spectral,
-                      "flat": args.flat, "dim": ham.dim, "build_s": build_s,
+                      "ftlm": args.ftlm, "flat": args.flat, "dim": ham.dim,
+                      "build_s": build_s,
                       "launches_per_matvec": launches,
                       "peak_device_gb":
                           torch.cuda.max_memory_allocated(dev) / 1e9,

@@ -965,3 +965,115 @@ def test_projected_kitaev_on_card(cuda):
     ham = build_factored_kitaev(model, gpu.basis, device=cuda)
     assert torch.linalg.vector_norm(
         ham.matvec(v) - gpu.ground_energy * v).item() <= 1e-7
+
+
+# -- the estimators on the card against the CPU, one start block ------------
+
+def _sector(text, device, dtype=torch.float64):
+    """The default sector's flat Hamiltonian on `device` (one-spin
+    factors densified on the card, as the estimators build it)."""
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
+                            dtype=dtype, device=device)
+    return ham.densify_factors() if device.type == "cuda" else ham
+
+
+def _rel_max(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("text,kernel", [
+    (hubbard_chain_text(10, 4), "factor_matmul"),
+    (tj_text(10, 4, 4, periodic=1), "ell_spmv")], ids=["hubbard10", "tj10"])
+def test_ftlm_on_card_matches_cpu(cuda, text, kernel):
+    """FTLM's batched recurrence (R = 12, 40 steps) through the kernels
+    against the CPU's plain versions from one block: thermal energies and
+    ln Z to 1e-8 (a plain recurrence sits between them)."""
+    from lanczosplusplus_tpu_torch.engine.ftlm import ftlm
+    cpu, gpu = _sector(text, torch.device("cpu")), _sector(text, cuda)
+    block = lz.random_start_block(cpu.dim, 12, 5, torch.float64, cuda)
+    betas = [0.2, 1.0, 5.0]
+    kernels.reset_launches()
+    got = ftlm(gpu, betas, steps=40, start_vectors=block)
+    assert kernels.LAUNCHES[kernel] > 0
+    want = ftlm(cpu, betas, steps=40, start_vectors=block.cpu())
+    assert _rel_max(got.energy, want.energy) <= 1e-8
+    assert _rel_max(got.log_z, want.log_z) <= 1e-8
+
+
+def test_ltlm_on_card_matches_cpu(cuda):
+    """LTLM's stored-V runs and H projection on the 8-site
+    SuperHubbardExtended chain (factor_matmul and ell_spmv)."""
+    from lanczosplusplus_tpu_torch.engine.ftlm import ltlm
+    from chip_smoke import super_hubbard_text
+    text = super_hubbard_text(8)
+    cpu, gpu = _sector(text, torch.device("cpu")), _sector(text, cuda)
+    block = lz.random_start_block(cpu.dim, 3, 9, torch.float64, cuda)
+    kernels.reset_launches()
+    got = ltlm(gpu, [0.5, 4.0], {"energy": gpu}, steps=40,
+               start_vectors=block)
+    assert kernels.LAUNCHES["factor_matmul"] > 0
+    assert kernels.LAUNCHES["ell_spmv"] > 0
+    want = ltlm(cpu, [0.5, 4.0], {"energy": cpu}, steps=40,
+                start_vectors=block.cpu())
+    assert _rel_max(got["energy"], want["energy"]) <= 1e-9
+
+
+def test_kpm_on_card_matches_cpu(cuda):
+    """Chebyshev moments through ell_spmv (the flat t-J ring) and kpm_dos
+    through the factored form's inner order (perm_gather and
+    factor_matmul), both against the CPU from one block, to 1e-10 of
+    mu_0."""
+    from lanczosplusplus_tpu_torch.engine.kpm import (chebyshev_moments,
+                                                      kpm_dos)
+    from lanczosplusplus_tpu_torch.models.factored import (
+        factored_hamiltonian_or_none)
+    text = tj_text(10, 4, 4, periodic=1)
+    cpu, gpu = _sector(text, torch.device("cpu")), _sector(text, cuda)
+    block = lz.random_start_block(cpu.dim, 4, 13, torch.float64, cuda)
+    bounds = (-12.0, 12.0)
+    kernels.reset_launches()
+    got = chebyshev_moments(gpu, block, 200, bounds)
+    assert kernels.LAUNCHES["ell_spmv"] > 0
+    want = chebyshev_moments(cpu, block.cpu(), 200, bounds)
+    assert np.abs(got.moments - want.moments).max() <= 1e-10 * want.moments[0]
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    parts = model.default_parts(inp)
+    basis = model.create_basis(parts)
+    forms = [factored_hamiltonian_or_none(model, basis, parts,
+                                          torch.float64, device=d)
+             for d in (torch.device("cpu"), cuda)]
+    kernels.reset_launches()
+    got = kpm_dos(forms[1], 120, bounds=bounds, start_vectors=block)
+    assert kernels.LAUNCHES["perm_gather"] > 0
+    want = kpm_dos(forms[0], 120, bounds=bounds, start_vectors=block.cpu())
+    assert np.abs(got.moments - want.moments).max() <= 1e-10 * want.moments[0]
+
+
+def test_ftlm_dynamic_on_card_matches_cpu(cuda):
+    """Engine.ftlm_local_dos (stored-V source and destination runs, the
+    operator rows and the cross products on the card) and ftlm_sq_omega,
+    card against CPU from one block, to 1e-9 of their maximum."""
+    from chip_smoke import super_hubbard_text
+    omegas = np.linspace(-8.0, 8.0, 161)
+    for text, call in (
+            (super_hubbard_text(8),
+             lambda e, v: e.ftlm_local_dos("c", 0, 1.5, omegas, delta=0.2,
+                                           steps=30, start_vectors=v)),
+            (heisenberg_text(10, 1, 5),
+             lambda e, v: e.ftlm_sq_omega("sz", 0.8, omegas, delta=0.2,
+                                          steps=20, start_vectors=v)[1])):
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        cpu = Engine(model, inp, config=Config(device="cpu"))
+        gpu = Engine(model, inp, config=Config(device=cuda))
+        block = lz.random_start_block(cpu.basis.size, 4, 152917,
+                                      torch.float64, cuda)
+        kernels.reset_launches()
+        got = call(gpu, block)
+        assert kernels.LAUNCHES["ell_spmv"] > 0
+        want = call(cpu, block.cpu())
+        assert _rel_max(got, want) <= 1e-9

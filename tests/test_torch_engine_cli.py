@@ -1,8 +1,15 @@
-"""The port's Engine and CLI: input0's energy, Engine energies held
+"""The port's Engine and CLIs: input0's energy, Engine energies held
 against the JAX Engine on the CPU in float64, every model of the registry
-built and solved, and the loud refusal of everything the port does not
-hold yet (the measurement flags and the models that earlier slices
-refused now run)."""
+built and solved, the loud refusal of everything the port does not hold
+yet, and the estimator CLIs against the JAX package's: ``lanczos --kpm``
+and ``--ftlm-dos`` (their .kpmdos and .ftlmdos files), ``ed`` (full
+spectrum, ``--ftlm``, ``--ltlm``), ``thermal`` (full spectra with ``-c``,
+and ``--ftlm``), ``sqomega``, ``dynamics1``, ``qpz`` and ``lorentzian``.
+Where an estimator draws random vectors, the port is handed the JAX
+package's draw through its start-vector hook, so the two agree to
+rounding: 1e-8 relative for outputs printed or written with 10 digits
+after plain recurrences, 1e-10 otherwise (5e-8 where a value is printed
+with 8 significant digits)."""
 
 import re
 
@@ -107,19 +114,6 @@ def test_engine_excited_states():
     dense = np.linalg.eigvalsh(engine.hamiltonian.to_dense())
     got = [engine.energies(i) for i in range(3)]
     np.testing.assert_allclose(got, dense[:3], atol=1e-9)
-
-
-@pytest.mark.parametrize("flag", [["--kpm"], ["--ftlm-dos", "1.0"]],
-                         ids=["kpm", "ftlm-dos"])
-def test_unported_flags_raise(tmp_path, monkeypatch, capsys, flag):
-    """--kpm and --ftlm-dos raise before any work."""
-    monkeypatch.chdir(tmp_path)
-    argv = ["-f", _write(tmp_path, INPUT0 + "TSPSites 2 0 1\n"), "--device",
-            "cpu", *flag]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        lanczos_main.run(argv)
-    assert capsys.readouterr().out == ""
-    assert not list(tmp_path.glob("*.comb"))
 
 
 @pytest.mark.parametrize("flag,expect", [
@@ -237,3 +231,222 @@ def test_cli_measurements_without_card_raise(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         lanczos_main.run(["-f", path, "-g", "c", "-c", "n"])
     assert not list(tmp_path.glob("*.comb"))
+
+
+# -- the estimator CLIs against the JAX package's ---------------------------
+
+def _jax_draw(dim, num, seed, dtype):
+    """The JAX package's random_start_block for the port's arguments."""
+    from lanczosplusplus_tpu.solver.lanczos import random_start_block
+    npdt = np.complex128 if dtype.is_complex else np.float64
+    return torch.as_tensor(np.array(random_start_block(dim, num, seed,
+                                                       npdt)))
+
+
+def _use_jax_draws(monkeypatch):
+    """Every random block of the port's estimators becomes the JAX
+    package's draw for the same dim, R and seed."""
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    monkeypatch.setattr(lz, "random_start_block",
+                        lambda dim, num, seed, dtype, device: _jax_draw(
+                            dim, num, seed, dtype).to(device))
+
+
+def _numbers(text):
+    """Every number of the lines of `text` that start with one."""
+    out = []
+    for line in text.splitlines():
+        fields = line.replace("=", " ").split()
+        try:
+            out.append([float(x) for x in fields])
+        except ValueError:
+            continue
+    return out
+
+
+def _labelled(text):
+    """{label: value} of every ``label=number`` in `text`."""
+    return {k: float(v) for k, v in
+            re.findall(r"(\w+)=([-+0-9.eE]+[0-9])", text)}
+
+
+def _assert_numbers_close(got, want, rtol):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= rtol * max(np.abs(b).max(), 1.0)
+
+
+def _run_both(tmp_path, monkeypatch, capsys, port_run, jax_run, text, args,
+              port_args=("--device", "cpu")):
+    """Run a port CLI and the JAX CLI on the same input, each in a
+    directory of its own; returns ((stdout, stderr, dir) of the port,
+    the same of JAX)."""
+    outs = []
+    for name, run, extra in (("port", port_run, list(port_args)),
+                             ("jax", jax_run, [])):
+        where = tmp_path / name
+        where.mkdir()
+        monkeypatch.chdir(where)
+        run(["-f", _write(where, text), *args, *extra])
+        got = capsys.readouterr()
+        outs.append((got.out, got.err, where))
+    return outs
+
+
+@pytest.mark.parametrize("flag,suffix", [(["--kpm"], "kpmdos"),
+                                         (["--ftlm-dos", "1.5"], "ftlmdos")],
+                         ids=["kpm", "ftlm-dos"])
+def test_estimator_flags_match_jax(tmp_path, monkeypatch, capsys, flag,
+                                   suffix):
+    """lanczos -g c --kpm and --ftlm-dos write the JAX CLI's .kpmdos and
+    .ftlmdos files: the same header, the same grid, the densities to 1e-8
+    of their maximum (KPM: every destination sector of input0 has dim 24,
+    so both packages' spectral bounds are its extreme eigenvalues; FTLM:
+    the port's Engine takes the JAX block through its start_vectors
+    hook)."""
+    from lanczosplusplus_tpu.cli import lanczos_main as jax_main
+    if suffix == "ftlmdos":
+        original = Engine.ftlm_local_dos
+
+        def hooked(self, *args, num_vectors=16, seed=152917, **kwargs):
+            ham = self.hamiltonian
+            return original(self, *args, num_vectors=num_vectors, seed=seed,
+                            start_vectors=_jax_draw(ham.dim, num_vectors,
+                                                    seed, ham.dtype),
+                            **kwargs)
+        monkeypatch.setattr(Engine, "ftlm_local_dos", hooked)
+    text = INPUT0 + ("TSPSites 2 1 1\nKPMOmegaBegin=-8\nKPMOmegaStep=0.05\n"
+                     "KPMOmegaTotal=321\nKPMMoments=128\n"
+                     "FTLMOmegaBegin=-8\nFTLMOmegaStep=0.05\n"
+                     "FTLMOmegaTotal=321\nFTLMDelta=0.2\nFTLMVectors=4\n"
+                     "FTLMSteps=20\n")
+    (_, _, pdir), (_, _, jdir) = _run_both(
+        tmp_path, monkeypatch, capsys, lanczos_main.run, jax_main.run, text,
+        ["-g", "c", *flag])
+    got = (pdir / f"input.inp0.{suffix}").read_text()
+    want = (jdir / f"input.inp0.{suffix}").read_text()
+    assert got.splitlines()[:2] == want.splitlines()[:2]
+    got, want = np.loadtxt(got.splitlines()), np.loadtxt(want.splitlines())
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    assert np.abs(want[:, 1]).max() > 0.05
+    assert np.abs(got[:, 1] - want[:, 1]).max() <= \
+        1e-8 * np.abs(want[:, 1]).max()
+    assert (pdir / "input.inp0.comb").exists()
+
+
+_SCHEDULE = ("TemperatureOrBeta=beta\nTemperatureOrBetaStart=0.2\n"
+             "TemperatureOrBetaTotal=4\nTemperatureOrBetaStep=0.9\n"
+             "FTLMVectors=3\nFTLMSteps=20\n")
+
+
+@pytest.mark.parametrize("flag", [[], ["--ftlm"], ["--ltlm"]],
+                         ids=["full", "ftlm", "ltlm"])
+def test_ed_cli_matches_jax(tmp_path, monkeypatch, capsys, flag):
+    from lanczosplusplus_tpu.cli import ed_main as jax_ed
+    from lanczosplusplus_tpu_torch.cli import ed_main
+    _use_jax_draws(monkeypatch)
+    (out, _, _), (jout, _, _) = _run_both(
+        tmp_path, monkeypatch, capsys, ed_main.run, jax_ed.run,
+        hubbard_chain_text(6) + _SCHEDULE, flag)
+    assert out.splitlines()[:2] == jout.splitlines()[:2]
+    _assert_numbers_close(_numbers(out), _numbers(jout), 1e-10)
+
+
+@pytest.mark.parametrize("flag", [["-c", "c", "-s", "0,1"], ["--ftlm"]],
+                         ids=["full", "ftlm"])
+def test_thermal_cli_matches_jax(tmp_path, monkeypatch, capsys, flag):
+    """Full spectra with the correlator's poles (held through their sum
+    and moments: single poles of a degenerate level differ between two
+    eigensolvers), and the FTLM sweep from the JAX draws."""
+    from lanczosplusplus_tpu.cli import thermal_main as jax_thermal
+    from lanczosplusplus_tpu_torch.cli import thermal_main
+    _use_jax_draws(monkeypatch)
+    (out, err, _), (jout, jerr, _) = _run_both(
+        tmp_path, monkeypatch, capsys, thermal_main.run, jax_thermal.run,
+        hubbard_chain_text(4, periodic=False) + _SCHEDULE,
+        ["-b", "1.3", "-m", "0.4", *flag])
+    got, want = _labelled(err), _labelled(jerr)
+    assert got.keys() == want.keys() and len(want) >= 4
+    for key, value in want.items():
+        assert abs(got[key] - value) <= 1e-10 * max(abs(value), 1.0), key
+    if flag[0] == "-c":
+        poles, jpoles = np.asarray(_numbers(out)), np.asarray(_numbers(jout))
+        for k in range(3):
+            a = (poles[:, 1] * poles[:, 0] ** k).sum()
+            b = (jpoles[:, 1] * jpoles[:, 0] ** k).sum()
+            assert abs(a - b) <= 1e-10 * max(abs(b), 1.0)
+
+
+@pytest.mark.parametrize("flag", [[], ["--dos"], ["--beta", "0.8"]],
+                         ids=["sq", "dos", "ftlm"])
+def test_sqomega_cli_matches_jax(tmp_path, monkeypatch, capsys, flag):
+    """S(q, omega) of the 6-site Heisenberg ring at T = 0 and by FTLM (from
+    the JAX draws), N(i, omega) of input0's chain."""
+    from lanczosplusplus_tpu.cli import sqomega_main as jax_sq
+    from lanczosplusplus_tpu_torch.cli import sqomega_main
+    _use_jax_draws(monkeypatch)
+    text = INPUT0 if flag == ["--dos"] else heisenberg_text(6, 1, 3)
+    (out, _, _), (jout, _, _) = _run_both(
+        tmp_path, monkeypatch, capsys, sqomega_main.run, jax_sq.run,
+        text + "FTLMVectors=3\nFTLMSteps=12\n",
+        ["-b", "-1", "-e", "4", "-s", "0.25", "-d", "0.1", *flag])
+    _assert_numbers_close(_numbers(out), _numbers(jout), 5e-8)
+
+
+def test_dynamics1_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    from lanczosplusplus_tpu.cli import dynamics1_main as jax_d1
+    from lanczosplusplus_tpu_torch.cli import dynamics1_main
+    from lanczosplusplus_tpu_torch.engine.spectral import read_collection
+    (out, _, pdir), (jout, _, jdir) = _run_both(
+        tmp_path, monkeypatch, capsys, dynamics1_main.run, jax_d1.run,
+        feas_text(2, 2, "INT_PAPER33", [1.0, 0.5, -0.2, -0.1], 2, 2),
+        ["-r", "1"])
+    assert out.splitlines()[0] == jout.splitlines()[0]
+    omegas = np.linspace(-2, 8, 101)
+    vals = []
+    for text, where in ((out, pdir), (jout, jdir)):
+        (where / "out.comb").write_text(text)
+        vals.append(read_collection(str(where / "out.comb"))
+                    .evaluate(omegas, 0.1))
+    assert np.abs(vals[0] - vals[1]).max() <= 1e-8 * np.abs(vals[1]).max()
+
+
+def test_qpz_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    from lanczosplusplus_tpu.cli import qpz_main as jax_qpz
+    from lanczosplusplus_tpu_torch.cli import qpz_main
+    text = INPUT0.replace("potentialV 8 0 0 0 0 0 0 0 0",
+                          "potentialV 8 0.1 -0.2 0 0.3 0 0 0 0")
+    (out, _, _), (jout, _, _) = _run_both(
+        tmp_path, monkeypatch, capsys, qpz_main.run, jax_qpz.run, text,
+        ["--ratio"])
+    _assert_numbers_close(_numbers(out), _numbers(jout), 1e-10)
+
+
+def test_lorentzian_cli_matches_jax(tmp_path, monkeypatch, capsys):
+    from lanczosplusplus_tpu.cli import lorentzian_main as jax_lor
+    from lanczosplusplus_tpu_torch.cli import lorentzian_main
+    poles = tmp_path / "poles.txt"
+    poles.write_text("-1.0 0.5\n0.5 1.0\n2.0 0.25\n")
+    outs = []
+    for run in (lorentzian_main.run, jax_lor.run):
+        run(["-f", str(poles), "-t", "30", "-m", "real", "-e", "0.05"])
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 30
+
+
+@pytest.mark.parametrize("cli", ["ed_main", "thermal_main", "sqomega_main",
+                                 "dynamics1_main", "qpz_main"])
+def test_estimator_clis_without_card_raise(tmp_path, monkeypatch, cli):
+    """Each estimator CLI runs on the card by default: without one it
+    raises, and never runs on the CPU instead."""
+    import importlib
+    run = importlib.import_module(f"lanczosplusplus_tpu_torch.cli.{cli}").run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = _write(tmp_path, hubbard_chain_text(4) + _SCHEDULE)
+    extra = {"thermal_main": ["-b", "1.0"],
+             "sqomega_main": ["-b", "0", "-e", "1", "-s", "0.5", "-d",
+                              "0.1"]}.get(cli, [])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(["-f", path, *extra])

@@ -1,5 +1,6 @@
 """The PyTorch port stands without JAX: in a fresh interpreter, importing
 every module of the port and running its CLI with every measurement flag
+(the estimators' --kpm and --ftlm-dos too), ed --ftlm and thermal --ftlm
 loads no jax module, and
 chip_smoke.py imports none either and refuses to run without a card."""
 
@@ -21,8 +22,12 @@ import lanczosplusplus_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 from lanczosplusplus_tpu_torch.cli import lanczos_main
+from lanczosplusplus_tpu_torch.cli import ed_main, thermal_main
 lanczos_main.run(["-f", sys.argv[1], "--device", "cpu", "-g", "c", "-c", "n",
-                  "-m", "gs|n[0]|gs", "-M", "n?0?0", "-r", "2"])
+                  "-m", "gs|n[0]|gs", "-M", "n?0?0", "-r", "2", "--kpm",
+                  "--ftlm-dos", "1.0"])
+ed_main.run(["-f", sys.argv[1], "--device", "cpu", "--ftlm"])
+thermal_main.run(["-f", sys.argv[1], "--device", "cpu", "--ftlm", "-b", "1"])
 jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")
@@ -37,7 +42,10 @@ def _env():
 
 def test_port_runs_without_importing_jax(tmp_path):
     path = tmp_path / "input0.inp"
-    path.write_text(INPUT0 + "TSPCenter=1\n")
+    path.write_text(INPUT0 + "TSPCenter=1\nTemperatureOrBeta=beta\n"
+                    "TemperatureOrBetaStart=0.5\nTemperatureOrBetaTotal=2\n"
+                    "TemperatureOrBetaStep=1\nFTLMVectors=4\n"
+                    "FTLMSteps=20\nKPMMoments=128\n")
     proc = subprocess.run([sys.executable, "-c", _PROGRAM, str(path)],
                           capture_output=True, text=True, env=_env(),
                           cwd=tmp_path, timeout=300)
@@ -47,6 +55,12 @@ def test_port_runs_without_importing_jax(tmp_path):
     # the spectral slice ran: a batched fleet and every static observable
     assert len(list(tmp_path.glob("input0.inp*.comb"))) == 4
     assert "EntanglementEntropy=" in proc.stdout
+    # the estimators ran: one diagonal pair, its KPM and FTLM densities,
+    # the FTLM schedule and the grand-canonical FTLM sweep
+    assert sorted(p.name for p in tmp_path.glob("input0.inp*dos")) == \
+        ["input0.inp1.ftlmdos", "input0.inp1.kpmdos"]
+    assert "method=FTLM R=4 M=20" in proc.stdout
+    assert "lnZPartition=" in proc.stderr
 
 
 def test_chip_smoke_imports_no_jax():

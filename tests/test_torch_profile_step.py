@@ -108,3 +108,37 @@ def test_profile_step_imports_no_jax():
     assert "torch" in names
     assert not [n for n in names if n.split(".")[0] in
                 ("jax", "lanczosplusplus_tpu")]
+
+
+def test_ftlm_arguments():
+    """--ftlm traces the FTLM recurrence alone, not with another
+    profile."""
+    args = profile_step.parse_args(["--ftlm"])
+    assert args.ftlm and not args.spectral and not args.gather
+    assert args.flat is None
+    assert not profile_step.parse_args([]).ftlm
+    for bad in (["--ftlm", "--spectral"], ["--ftlm", "--flat", "tj18"]):
+        with pytest.raises(SystemExit):
+            profile_step.parse_args(bad)
+
+
+def test_ftlm_recurrence_on_a_small_sector():
+    """--ftlm's traced step on the CPU at 6 sites, through the kernels'
+    plain versions as its plain turns run it: the recurrence's (steps, R)
+    coefficients, equal both ways, and no operator dots."""
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    inp = parse_input(chip_smoke.hubbard_chain_text(6, 4))
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)))
+    v0 = lz.random_start_block(ham.dim, profile_step.FTLM_ROWS,
+                               profile_step.FTLM_SEED, ham.dtype,
+                               "cpu").T.contiguous()
+    got = profile_step.ftlm_recurrence(ham, v0, 4)
+    plain = profile_step.ftlm_recurrence(chip_smoke.PlainForm(ham), v0, 4)
+    assert got[0].shape == got[1].shape == (4, profile_step.FTLM_ROWS)
+    assert got[2].shape == (4, 0, profile_step.FTLM_ROWS)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)

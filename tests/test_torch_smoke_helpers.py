@@ -1,8 +1,9 @@
 """chip_smoke.py's helpers that need no card, on the CPU: the CSR forms its
 library times run compute the kernels' functions, the plain-kernel swap
 restores the wrappers, the launch count it predicts for a factored
-form's matvec is the count of wrapper calls one matvec makes, and the
-launches it counts at each form's call sites split as predicted."""
+form's matvec is the count of wrapper calls one matvec makes, the
+launches it counts at each form's call sites split as predicted, and
+phase 12's CLI runner, beta schedule and Lanczos-tridiagonal moments."""
 
 import numpy as np
 import pytest
@@ -191,3 +192,45 @@ def test_launches_by_site_one_spin_forms(max_bytes):
         key = "one-spin dense" if dense is not None else f"one-spin {side}"
         want[key] = want.get(key, 0) + 1
     assert {k: n for k, n in forms.items() if n} == want
+
+
+def test_run_tool_and_beta_schedule(tmp_path, monkeypatch):
+    """chip_smoke.run_tool runs a CLI on an input text in a directory of
+    its own and hands back what it wrote (.comb files read); the schedule
+    text gives the ed schedule's beta grid."""
+    from lanczosplusplus_tpu_torch.cli import ed_main, lanczos_main
+    from test_torch_host import INPUT0
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.chdir(tmp_path)
+    engine, out, _, files, wall = chip_smoke.run_tool(
+        lanczos_main, INPUT0 + "TSPSites 2 1 1\nKPMMoments=64\n",
+        ["-g", "c", "--kpm"], "cpu")
+    assert sorted(files) == ["input.inp0.comb", "input.inp0.kpmdos"]
+    assert len(files["input.inp0.comb"].items) == 2
+    assert "Energy=" in out and wall > 0 and engine.basis.size == 36
+    assert not list(tmp_path.iterdir())
+    res, out, _, _, _ = chip_smoke.run_tool(
+        ed_main, INPUT0 + chip_smoke.beta_schedule((0.5, 20.0, 4)), [],
+        "cpu")
+    betas = [float(line.split()[0]) for line in out.splitlines()[2:]]
+    np.testing.assert_allclose(betas, [0.5, 7.0, 13.5, 20.0])
+
+
+def test_tridiagonal_moments_are_the_chebyshev_moments():
+    """chip_smoke.tridiagonal_moments: the moments of a continued
+    fraction's tridiagonal are those of its start vector for k < 2m
+    (here to 1e-12 of mu_0: the recurrences are exact in that range)."""
+    from lanczosplusplus_tpu_torch.engine.kpm import (chebyshev_moments,
+                                                      spectral_bounds)
+    from lanczosplusplus_tpu_torch.engine.spectral import ContinuedFraction
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    inp = parse_input(chip_smoke.hubbard_chain_text(6, 4))
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis((3, 3)))
+    phi = lz.random_start_vector(ham.dim, 3, torch.float64, "cpu") * 0.7
+    res = lz.tridiagonalize(ham, phi, 30)
+    cf = ContinuedFraction(alphas=res.alphas, betas=res.betas, e0=0.0,
+                           weight=0.49, sigma=1)
+    got = chebyshev_moments(ham, phi, 60, bounds=spectral_bounds(ham))
+    want = chip_smoke.tridiagonal_moments(cf, got.a, got.b, 60)
+    assert np.abs(got.moments - want).max() <= 1e-12 * got.moments[0]
