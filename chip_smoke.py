@@ -137,16 +137,31 @@ Phases, each printing one line with its numbers:
    (full spectra and --ftlm), sqomega, dynamics1, qpz and lorentzian at
    small sizes against the port's own CPU runs; then factor_matmul's
    batched forms, ell_spmv and perm_gather at the estimators' R = 16.
+13. the last command lines and input forms and the native host runtime
+   (``cli_phase``), each run with the launch counts set to 0 before and
+   read after: consistency --tinf on phase 5's 14-site chain and phase
+   9's 24-site Heisenberg ring (E0 against those phases', the T=inf
+   energy against its closed form) and on the 16-site ring in the dense
+   branch on the card; spin_orbital_main 7 1 and 4 against their CPU
+   runs; the Ainur form of phase 5's input through lanczos -f; the
+   6-site Hubbard chain's sector files written on the card and on the
+   CPU; the native host runtime (native/lanczos_native.cpp, built with
+   g++ at first use; the script fails without it) against the numpy
+   paths on phase 10's 20-site sector and C(24, 12), bit for bit and
+   timed; and phase 12b's LTLM with its peak device memory beside its
+   reckoning, against the plain versions.  ell_spmv is held against its
+   plain version on the 16-site ring's and the 7-site spin-orbital
+   chain's ELLs.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
-prints no result.  The last lines are a JSON object with the kernels'
-numbers (one entry for each kernel and form of a path, with the launches
-that path counted: ground state, spectral, the flat models' forms of
-phase 9, the factored forms' and gather apply's of phase 10, the
-symmetry blocks' and projected translation's of phase 11 and the
-estimators' of phase 12), the
-card's name and power limit, and the result object.
+prints no result.  The last lines are a JSON object with the native host
+runtime's numbers, a JSON object with the kernels' numbers (one entry for
+each kernel and form of a path, with the launches that path counted:
+ground state, spectral, the flat models' forms of phase 9, the factored
+forms' and gather apply's of phase 10, the symmetry blocks' and projected
+translation's of phase 11, the estimators' of phase 12 and phase 13's),
+the card's name and power limit, and the result object.
 """
 
 from __future__ import annotations
@@ -1964,6 +1979,396 @@ def estimator_phase(dev, gen, results, refs, ell_case):
     return runs
 
 
+def ainur_text(nsite: int, u: float) -> str:
+    """``hubbard_chain_text(nsite, u)`` (half filled, periodic) in the
+    Ainur form: the same labels, with geometry labels per term."""
+    return (f'##Ainur1.0\nTotalNumberOfSites={nsite};\nNumberOfTerms=1;\n'
+            'gt0:DegreesOfFreedom=1;\ngt0:GeometryKind="chain";\n'
+            'gt0:GeometryOptions="ConstantValues";\n'
+            'gt0:dir0:Connectors=[-1.0];\nModel="HubbardOneBand";\n'
+            f'vector hubbardU=[{", ".join([str(u)] * nsite)}];\n'
+            f'vector potentialV=[{", ".join(["0"] * 2 * nsite)}];\n'
+            'SolverOptions="none";\n'
+            f'TargetElectronsUp={nsite // 2};\n'
+            f'TargetElectronsDown={nsite // 2};\nIsPeriodicX=1;\n')
+
+
+@contextlib.contextmanager
+def numpy_host_paths():
+    """Within this block the native host runtime is absent: enumeration,
+    ranking and the one-spin hop maps take their numpy paths."""
+    from lanczosplusplus_tpu_torch import native
+    load = native.load
+    native.load = lambda: None
+    try:
+        yield
+    finally:
+        native.load = load
+
+
+def host_paths(calls) -> str:
+    """Which path built a run's bases and hop maps, from native_calls'
+    counts."""
+    return f"the native runtime {calls}" if calls else "numpy"
+
+
+@contextlib.contextmanager
+def native_calls():
+    """Counts the calls into the native host runtime made inside the
+    block, by entry point: which path built each basis and hop map."""
+    from lanczosplusplus_tpu_torch import native
+    counts = {}
+    saved = {}
+    for name in ("enumerate_combinations", "one_spin_hop_ell",
+                 "rank_combinations"):
+        fn = saved[name] = getattr(native, name)
+
+        def counted(*args, _fn=fn, _name=name):
+            made = _fn(*args)
+            if made is not None:
+                counts[_name] = counts.get(_name, 0) + 1
+            return made
+        setattr(native, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def cli_phase(dev, refs, ell_case):
+    """Phase 13: the last command lines and input forms and the native
+    host runtime on the card, each run with the launch counts set to 0
+    before and read after: 13a consistency --tinf on phase 5's 14-site U=4
+    chain (E0 against phase 5's, the T=inf energy against U N_up N_dn / L)
+    and 13b on phase 9's 24-site Heisenberg ring (E0 against phase 9's,
+    T=inf against L (M^2 - L) / (4 L (L - 1)) with M = N_up - N_dn), both
+    past the dense branch; 13c the 16-site ring in the dense branch on the
+    card (Lanczos against the dense eigenvalue, the dense mean against its
+    closed form) and ell_spmv on its ELL; 13d spin_orbital_main 7 1 and 4
+    on the card against their --device cpu runs, and ell_spmv on the
+    7-site chain's ELL; 13e the Ainur form of phase 5's input through
+    lanczos -f (its parsed labels against the legacy form's, E0 against
+    phase 5's); 13f the sector files of the 6-site Hubbard chain written
+    on the card and on the CPU and read back (eigenvalues, operator
+    matrices, Z against GrandCanonical.partition); 13g phase 10's 20-site
+    sector's basis and up-form hop map built through the native host
+    runtime and through the numpy paths (bit-equal words, ranks and ELL
+    arrays, both times, the binding's share of the sector's set-up) and
+    the C(24, 12) enumeration both ways; 13h phase 12b's LTLM (14 sites, R
+    = 4, 150 steps) on the card with its peak device memory beside its
+    reckoning, against the same block through the plain versions.
+    Returns ({case: launches}, the native runtime's numbers)."""
+    from lanczosplusplus_tpu_torch import native
+    from lanczosplusplus_tpu_torch.cli import (
+        consistency_main, lanczos_main, spin_orbital_main)
+    from lanczosplusplus_tpu_torch.core import combinatorics as C
+    from lanczosplusplus_tpu_torch.core.basis import OneSpinBasis
+    from lanczosplusplus_tpu_torch.core.sparse import one_spin_ell
+    from lanczosplusplus_tpu_torch.engine import ftlm as F
+    from lanczosplusplus_tpu_torch.engine.thermal import GrandCanonical
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_ import sector_files
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.hubbard import directed_bonds
+    from lanczosplusplus_tpu_torch.models.spin_orbital import (
+        build_spin_orbital)
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+
+    runs = {}
+    cpu = torch.device("cpu")
+    check(native.available(), "the native host runtime did not build")
+    say(f"phase 13 native host runtime: {native.build().name}, built from "
+        f"{os.path.relpath(native.SOURCE)} with g++ {' '.join(native.CXX_FLAGS)}")
+
+    def sector_of(text):
+        inp = parse_input(text)
+        return inp, build_model(inp, Geometry(inp))
+
+    def consistency(label, text, kernel):
+        """consistency --tinf through its run() on the card: the printed
+        values by label, the wall seconds and the native calls."""
+        K.reset_launches()
+        with native_calls() as calls:
+            e0, out, _, _, wall = run_tool(consistency_main, text,
+                                           ["--tinf"], dev)
+        runs[label] = dict(K.LAUNCHES)
+        got = {key: float(value) for key, value in
+               re.findall(r"^(.+?)= (\S+)$", out, re.M)}
+        check(got["Lanczos: lowest eigenvalue"] == float(e0),
+              f"{label}: printed {got}, returned {e0!r}")
+        check(runs[label][kernel] > 0, f"{label}: launches {runs[label]}")
+        return got, wall, calls
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+
+    # -- 13a, 13b: consistency --tinf past the dense branch ----------------
+    for label, text, e0, tinf, kernel in (
+            ("13a consistency --tinf 14-site U=4", hubbard_chain_text(14, 4),
+             refs["e0_u4"], 4.0 * 7 * 7 / 14, "factor_matmul"),
+            ("13b consistency --tinf 24-site Heisenberg",
+             heisenberg_ring_text(24), refs["24-site Heisenberg ring"],
+             24 * (0 - 24) / (4.0 * 24 * 23), "ell_spmv")):
+        got, wall, calls = consistency(label, text, kernel)
+        e_err = rel(got["Lanczos: lowest eigenvalue"], e0)
+        t_err = rel(got["T=infinity energy"], tinf)
+        say(f"phase {label} via CLI on {dev}: Lanczos E0 "
+            f"{got['Lanczos: lowest eigenvalue']!r} against the earlier "
+            f"phase's {e0!r} (rel {e_err:.3e}, tolerance 1e-10); T=inf "
+            f"energy (the diagonal's mean) {got['T=infinity energy']!r} "
+            f"against the closed form {tinf!r} (rel {t_err:.3e}, tolerance "
+            f"1e-12); wall {wall:.3f} s, launches {runs[label]}, basis and "
+            f"maps built by {host_paths(calls)}")
+        check("Lapack: lowest eigenvalue" not in got,
+              f"{label}: took the dense branch")
+        check(e_err <= 1e-10, f"{label}: E0 rel err {e_err:.3e}")
+        check(t_err <= 1e-12, f"{label}: T=inf rel err {t_err:.3e}")
+
+    # -- 13c: the dense branch on the card -----------------------------------
+    label = "13c consistency --tinf 16-site Heisenberg"
+    text16 = heisenberg_ring_text(16)
+    got, wall, _ = consistency(label, text16, "ell_spmv")
+    tinf = 16 * (0 - 16) / (4.0 * 16 * 15)
+    t_err = rel(got["T=infinity energy"], tinf)
+    say(f"phase {label} via CLI on {dev} (dim 12870, the dense branch): "
+        f"Lanczos {got['Lanczos: lowest eigenvalue']!r}, dense "
+        f"{got['Lapack: lowest eigenvalue']!r}, |difference| "
+        f"{got['|difference|']:.3e} (tolerance 1e-10); T=inf energy (the "
+        f"dense mean) {got['T=infinity energy']!r} against {tinf!r} (rel "
+        f"{t_err:.3e}, tolerance 1e-10); wall {wall:.3f} s, launches "
+        f"{runs[label]}")
+    check(got["|difference|"] <= 1e-10, f"13c |difference| {got}")
+    check(t_err <= 1e-10, f"13c T=inf rel err {t_err:.3e}")
+    inp16, model16 = sector_of(text16)
+    ham = model16.hamiltonian(model16.create_basis(
+        model16.default_parts(inp16)), device=dev)
+    ell_case("f64 16-site Heisenberg ELL (consistency), R=1", ham.diag,
+             ham.ell.cols, ham.ell.vals, (ham.dim,), TOL_ELL_F64)
+    del ham
+
+    # -- 13d: spin_orbital_main, card against CPU ----------------------------
+    def spin_orbital(args, device):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            energies = spin_orbital_main.run([*args, "--device", str(device)])
+        torch.cuda.synchronize()
+        check(re.fullmatch(r"Lanczos energy=\S+\nLAPACK energy=\S+\n",
+                           out.getvalue()) is not None,
+              f"spin_orbital {args}: printed {out.getvalue()!r}")
+        return energies, time.perf_counter() - t
+
+    for args, dim in ((["7", "1"], 16384), (["4"], 6561)):
+        label = f"13d spin_orbital {' '.join(args)}"
+        K.reset_launches()
+        card, wall = spin_orbital(args, dev)
+        runs[label] = dict(K.LAUNCHES)
+        host, host_wall = spin_orbital(args, cpu)
+        lz_err = rel(card[0], card[1])
+        cpu_err = max(rel(c, h) for c, h in zip(card, host))
+        say(f"phase {label} on {dev} (dim {dim}): Lanczos {card[0]!r}, "
+            f"dense {card[1]!r} (rel {lz_err:.3e}, tolerance 1e-9); against "
+            f"the --device cpu run {host} max rel {cpu_err:.3e} (tolerance "
+            f"1e-10); wall {wall:.3f} s on the card, {host_wall:.3f} s on "
+            f"the CPU; launches {runs[label]}")
+        check(lz_err <= 1e-9, f"{label}: Lanczos against dense {lz_err:.3e}")
+        check(cpu_err <= 1e-10, f"{label}: card against CPU {cpu_err:.3e}")
+        check(runs[label]["ell_spmv"] > 0, f"{label}: launches {runs[label]}")
+    ham = build_spin_orbital(7, 1, device=dev)
+    ell_case("f64 7-site spin-orbital ELL, R=1", ham.diag, ham.ell.cols,
+             ham.ell.vals, (ham.dim,), TOL_ELL_F64)
+    del ham
+
+    # -- 13e: Ainur input through lanczos -f ---------------------------------
+    label = "13e lanczos -f Ainur 14-site U=4"
+    ainur = ainur_text(14, 4)
+    same = parse_input(ainur).entries == parse_input(
+        hubbard_chain_text(14, 4)).entries
+    K.reset_launches()
+    eng, out, _, _, wall = run_cli(lanczos_main, ainur)
+    runs[label] = dict(K.LAUNCHES)
+    e_err = rel(eng.ground_energy, refs["e0_u4"])
+    say(f"phase {label} via CLI on {dev}: parsed labels equal the legacy "
+        f"form's {same}; E0 {eng.ground_energy!r} against phase 5's "
+        f"{refs['e0_u4']!r} (rel {e_err:.3e}, tolerance 1e-12); wall "
+        f"{wall:.3f} s, launches {runs[label]}")
+    check(same, "13e: the Ainur form parses to other labels")
+    check(e_err <= 1e-12, f"13e E0 rel err {e_err:.3e}")
+    check(runs[label]["factor_matmul"] > 0, f"13e launches {runs[label]}")
+    del eng
+
+    # -- 13f: sector files, card against CPU ---------------------------------
+    label = "13f sector files 6-site Hubbard"
+    _, model6 = sector_of(hubbard_chain_text(6, 4))
+    read, walls = {}, {}
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, device in (("card", dev), ("cpu", cpu)):
+            path = os.path.join(tmp, f"sectors_{where}.dat")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            count = sector_files.write_all_sectors(path, model6, 6,
+                                                   device=device)
+            torch.cuda.synchronize()
+            walls[where] = time.perf_counter() - t
+            read[where] = sector_files.read_sectors(path)
+            check(len(read[where]) == count == 49,
+                  f"13f: {count} sectors on {device}")
+    runs[label] = dict(K.LAUNCHES)
+    card, host = read["card"], read["cpu"]
+    ev_err = max(np.abs(s["evals"] - h["evals"]).max()
+                 for s, h in zip(card, host))
+    ops_equal = all(
+        s["parts"] == h["parts"] and s["operators"].keys() ==
+        h["operators"].keys() and all(
+            s["operators"][k][0] == h["operators"][k][0]
+            and np.array_equal(s["operators"][k][1], h["operators"][k][1])
+            for k in s["operators"]) for s, h in zip(card, host))
+    beta, mu = 1.1, 0.3
+    z_file = sum(np.exp(beta * (mu * sum(s["parts"]) - s["evals"])).sum()
+                 for s in card)
+    z_gc = GrandCanonical(model6, nsite=6, device=dev).partition(beta, mu)
+    z_err = rel(z_file, z_gc)
+    say(f"phase {label}: 49 sectors written on {dev} in "
+        f"{walls['card']:.3f} s and on the CPU in {walls['cpu']:.3f} s; "
+        f"eigenvalues max abs diff {ev_err:.3e} (tolerance 1e-10), "
+        f"operator matrices equal {ops_equal}; Z(beta {beta}, mu {mu}) "
+        f"from the card's file {float(z_file)!r} against GrandCanonical.partition "
+        f"{z_gc!r} (rel {z_err:.3e}, tolerance 1e-9); launches {runs[label]} "
+        f"(eigh is the library's)")
+    check(ev_err <= 1e-10, f"13f eigenvalues {ev_err:.3e}")
+    check(ops_equal, "13f operator matrices differ")
+    check(z_err <= 1e-9, f"13f Z rel err {z_err:.3e}")
+
+    # -- 13g: the native host runtime against the numpy paths ----------------
+    nsite, nup, ndn = 20, 10, 2
+    inp20, model20 = sector_of(hubbard_chain_text(nsite, 4, nup, ndn))
+    bonds = directed_bonds(model20.hoppings)
+    table = C.binomial_table(64 + 1)
+    timings = {}
+
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        made = fn(*args)
+        timings[key] = time.perf_counter() - t
+        return made
+
+    def setup(key):
+        """The 20-site sector's set-up as the Engine does it: basis, then
+        the Hamiltonian on the card (diagonal, hop maps, transfer)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        basis = model20.create_basis(model20.default_parts(inp20))
+        ham = model20.hamiltonian(basis, device=dev)
+        torch.cuda.synchronize()
+        timings[key] = time.perf_counter() - t
+        return basis, ham
+
+    with native_calls() as calls:
+        basis = timed("basis native", OneSpinBasis, nsite, nup)
+        ranks = timed("rank native", native.rank_combinations, basis.words,
+                      table)
+        ell = timed("hop map native", one_spin_ell, basis.words, basis.rank,
+                    bonds, np.float64)
+        words24 = timed("C(24,12) native", C.enumerate_combinations, 24, 12)
+    check(calls == {"enumerate_combinations": 2, "one_spin_hop_ell": 1,
+                    "rank_combinations": 1},
+          f"13g native calls {calls}")
+    with numpy_host_paths():
+        basis_np = timed("basis numpy", OneSpinBasis, nsite, nup)
+        ranks_np = timed("rank numpy", C.rank_combinations, basis_np.words,
+                         nsite)
+        ell_np = timed("hop map numpy", one_spin_ell, basis_np.words,
+                       basis_np.rank, bonds, np.float64)
+        words24_np = timed("C(24,12) numpy", C.enumerate_combinations, 24, 12)
+        setup("sector set-up numpy")
+    native_s = {"enumerate": [], "hop": []}
+    with native_calls() as calls, \
+            timed_calls(native, "enumerate_combinations",
+                        native_s["enumerate"]), \
+            timed_calls(native, "one_spin_hop_ell", native_s["hop"]):
+        _, ham20 = setup("sector set-up native")
+    share = sum(map(sum, native_s.values())) / timings["sector set-up native"]
+    equal = (np.array_equal(basis.words, basis_np.words)
+             and np.array_equal(ranks, ranks_np)
+             and np.array_equal(ranks, np.arange(basis.size))
+             and np.array_equal(ell[0], ell_np[0])
+             and np.array_equal(ell[1], ell_np[1])
+             and np.array_equal(words24, words24_np))
+    say(f"phase 13g 20-site sector, N_up {nup} ({basis.size} up words, "
+        f"{len(bonds)} directed bonds), N_dn {ndn}: words, ranks and the up "
+        f"hop map's ELL columns and values equal bit for bit {equal}; "
+        f"native against numpy: basis {timings['basis native']:.4f} / "
+        f"{timings['basis numpy']:.4f} s, ranks {timings['rank native']:.4f} "
+        f"/ {timings['rank numpy']:.4f} s, hop map "
+        f"{timings['hop map native']:.4f} / {timings['hop map numpy']:.4f} "
+        f"s; the sector's set-up (basis, Hamiltonian on the card, dim "
+        f"{ham20.dim}) {timings['sector set-up native']:.3f} s with the "
+        f"binding ({host_paths(calls)}), "
+        f"{timings['sector set-up numpy']:.3f} s without; "
+        f"the binding's share of it {share:.4f}; C(24, 12) enumeration "
+        f"({words24.shape[0]} words) {timings['C(24,12) native']:.4f} / "
+        f"{timings['C(24,12) numpy']:.4f} s")
+    check(equal, "13g: the native and numpy builds differ")
+    check(ham20.dim == 35_103_640, f"13g dim {ham20.dim}")
+    del ham20, basis, basis_np, ell, ell_np
+    torch.cuda.empty_cache()
+    native_line = dict(
+        library=native.build().name, available=native.available(),
+        sector="20-site Hubbard chain, N_up 10, N_dn 2",
+        seconds={key: value for key, value in timings.items()},
+        binding_share_of_setup=share, bit_equal=equal)
+
+    # -- 13h: LTLM's memory after the repair -----------------------------------
+    label = "13h ltlm 14-site U=4"
+    rows, steps = 4, 150
+    inp_h, model_h = sector_of(hubbard_chain_text(14, 4))
+    ham_h = F._schedule_ham(model_h, inp_h, dev)
+    betas = np.asarray([0.5, 500.0])
+    block = lz.random_start_block(ham_h.dim, rows, 982451653, torch.float64,
+                                  dev)
+    reckoned = F.ltlm_bytes(ham_h.dim, steps, rows, ham_h.dtype)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    t = time.perf_counter()
+    out = F.ltlm(ham_h, betas, {"energy": ham_h}, steps=steps,
+                 start_vectors=block)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    runs[label] = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    before = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    with plain_kernels():
+        out_p = F.ltlm(ham_h, betas, {"energy": ham_h}, steps=steps,
+                       start_vectors=block)
+    plain_s = time.perf_counter() - t
+    check(dict(K.LAUNCHES) == before, "13h: the plain run launched a kernel")
+    diff = np.abs(out["energy"] - out_p["energy"]).max() / np.abs(
+        out_p["energy"]).max()
+    say(f"phase {label} on {dev}: R {rows}, {steps} steps, wall {wall:.3f} "
+        f"s, launches {runs[label]}; peak device memory above what was held "
+        f"before {peak / 1e9:.2f} GB against the reckoning "
+        f"{reckoned / 1e9:.2f} GB (basis, start block, a 16-row image chunk, "
+        f"four work vectors) and 44.25 GB before the repair (the whole image "
+        f"of a run, kept into the next run); "
+        f"energies {[float(e) for e in out['energy']]} against the same "
+        f"block through the plain versions max rel diff {diff:.3e} "
+        f"(tolerance 1e-8, plain {plain_s:.3f} s)")
+    check(peak <= reckoned, f"13h peak {peak} above the reckoning {reckoned}")
+    check(diff <= 1e-8, f"13h kernel vs plain energies {diff:.3e}")
+    check(runs[label]["factor_matmul"] > 0, f"13h launches {runs[label]}")
+    del ham_h, block
+    torch.cuda.empty_cache()
+    return runs, native_line
+
+
 def main() -> None:
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -2835,6 +3240,9 @@ def main() -> None:
 
     # -- 12. the estimators and their command lines ----------------------
     est_runs = estimator_phase(dev, gen, results, refs, ell_case)
+
+    # -- 13. the last command lines and input forms, the native runtime --
+    cli_runs, native_line = cli_phase(dev, refs, ell_case)
     del refs
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
@@ -2981,6 +3389,8 @@ def main() -> None:
                                       for _, counts in sym_runs.values()),
                 launches_phase_12=sum(counts[kernel]
                                       for counts in est_runs.values()),
+                launches_phase_13=sum(counts[kernel]
+                                      for counts in cli_runs.values()),
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(
@@ -2988,6 +3398,7 @@ def main() -> None:
                        "column's tables read once for them")
         if name == "perm_gather":
             kernels_line[-1].update(cross_term_cases=cross)
+    print(json.dumps({"native": native_line}))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

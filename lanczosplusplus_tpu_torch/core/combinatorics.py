@@ -1,9 +1,11 @@
 """Binomial tables and vectorized combinadic (un)ranking on the host.
 
-Counterpart of ``lanczosplusplus_tpu/core/combinatorics.py``, numpy path
-only (binding the native enumerator waits; C(14, 7) = 3432 words need no
-native code).  The reference enumerates each one-spin basis by a
-next-bit-permutation loop and ranks states with a combinadic perfect hash
+Counterpart of ``lanczosplusplus_tpu/core/combinatorics.py``: bases of
+at least ``NATIVE_MIN_DIM`` words enumerate through the native host
+runtime (``native.py``) where it builds, as in the JAX package, the rest
+and a host without a compiler through the numpy path.  The reference
+enumerates each one-spin basis by a next-bit-permutation loop and ranks
+states with a combinadic perfect hash
 rank(w) = sum over set bits b (1-indexed count c) of C(b, c)
 (reference: src/Models/HubbardOneOrbital/BasisOneSpin.h:52-81, 178-191).
 Whole index ranges are unranked at once with one searchsorted per
@@ -14,7 +16,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from lanczosplusplus_tpu_torch import native
 from lanczosplusplus_tpu_torch.core.bits import WORD
+
+# bases at least this large enumerate natively (the JAX package's
+# threshold)
+NATIVE_MIN_DIM = 1 << 16
 
 
 def binomial_table(nmax: int) -> np.ndarray:
@@ -67,9 +74,14 @@ def unrank_combinations(ranks: np.ndarray, nsite: int, npart: int,
 
 def enumerate_combinations(nsite: int, npart: int) -> np.ndarray:
     """All C(nsite, npart) words in colex order (matches the reference's
-    next-permutation enumeration order, BasisOneSpin.h:52-62)."""
+    next-permutation enumeration order, BasisOneSpin.h:52-62).  Large
+    bases route through the native C++ enumerator when it builds."""
     table = binomial_table(nsite + 1)
     dim = int(table[nsite, npart])
     if npart == 0:
         return np.zeros(1, dtype=WORD)
+    if dim >= NATIVE_MIN_DIM:
+        out = native.enumerate_combinations(nsite, npart)
+        if out is not None:
+            return out
     return unrank_combinations(np.arange(dim), nsite, npart, table)

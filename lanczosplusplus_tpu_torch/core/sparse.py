@@ -33,10 +33,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from lanczosplusplus_tpu_torch import native
 from lanczosplusplus_tpu_torch.config import numpy_dtype
+from lanczosplusplus_tpu_torch.core.basis import OneSpinBasis
+from lanczosplusplus_tpu_torch.core.combinatorics import binomial_table
 from lanczosplusplus_tpu_torch.ops import kernels
 
 DEFAULT_DENSE_FACTOR_BYTES = 2 << 30
+# one-spin hop maps at least this long build natively (the JAX package's
+# threshold)
+NATIVE_MIN_WORDS = 1 << 16
 
 
 def coo_to_ell(dim: int, rows: np.ndarray, cols: np.ndarray,
@@ -86,12 +92,23 @@ def one_spin_ell(words: np.ndarray, rank_fn, bonds, dtype) -> tuple:
     (reference: HubbardHelper.h:191-243 setHoppingTerm).
 
     Returns numpy (cols, vals) of shape (len(words), nbonds), padded with
-    the row's own column and value 0.  `dtype` is a numpy dtype.
+    the row's own column and value 0.  `dtype` is a numpy dtype.  At
+    ``NATIVE_MIN_WORDS`` words or more, real bonds over a ``OneSpinBasis``
+    go through the native host runtime where it builds, as in the JAX
+    package.
     """
     from lanczosplusplus_tpu_torch.core import bits
 
     sz = words.shape[0]
     nb = max(len(bonds), 1)
+    # the native path ranks by the colex combinadic itself, so it applies
+    # only when rank_fn is a plain combination basis's rank
+    if (sz >= NATIVE_MIN_WORDS and bonds
+            and isinstance(getattr(rank_fn, "__self__", None), OneSpinBasis)
+            and not np.iscomplexobj(np.zeros(0, dtype))):
+        out = native.one_spin_hop_ell(words, bonds, binomial_table(64 + 1))
+        if out is not None:
+            return out[0], out[1].astype(dtype)
     cols = np.tile(np.arange(sz, dtype=np.int64)[:, None], (1, nb))
     vals = np.zeros((sz, nb), dtype=dtype)
     for k, (i, j, t) in enumerate(bonds):

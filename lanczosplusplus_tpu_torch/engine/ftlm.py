@@ -24,8 +24,8 @@ as a ``lax.scan``; here it is a Python loop whose alphas, betas and dots
 stay on the device until the loop ends, then come to the host in one
 read.  The tridiagonal eigensolves and the Boltzmann sums run on the host
 in float64, as in JAX.  The blocks are reckoned against the Krylov budget
-(half of the card's free memory) before they are made: R vectors that do
-not fit raise ``MemoryError``.
+(half of the card's free memory) before they are made: R vectors, or an
+LTLM run's stored basis, that do not fit raise ``MemoryError``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ import torch
 from lanczosplusplus_tpu_torch.config import real_dtype_of
 from lanczosplusplus_tpu_torch.core.sparse import apply_block_t
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
+
+# rows of an operator's image LTLM makes at a time
+LTLM_CHUNK_ROWS = 16
 
 
 def _ftlm_recurrence(ham, V0: torch.Tensor, Yops: torch.Tensor,
@@ -110,6 +113,20 @@ def _apply_operator(op, X: torch.Tensor, name: str) -> torch.Tensor:
         raise ValueError(f"operator {name!r}: expected (dim,) diagonal or "
                          ".matmat object")
     return diag * X
+
+
+def _projected(op, Vm: torch.Tensor, chunk: int, name: str) -> np.ndarray:
+    """G[i, j] = <v_i|A|v_j> over the rows of Vm (m, dim), on the host.
+    The image of A is made `chunk` rows at a time, so it never holds more
+    than `chunk` rows; each chunk's columns of G are (Y_c . Vm^H)^T, which
+    reads the basis as its adjoint without a conjugated copy."""
+    m = Vm.shape[0]
+    G = torch.empty((m, m), dtype=Vm.dtype, device=Vm.device)
+    for i in range(0, m, chunk):
+        Y = _apply_operator(op, Vm[i:i + chunk], name)
+        G[:, i:i + chunk] = (Y @ Vm.mH).T
+        del Y    # gone before the next chunk's image is made
+    return G.cpu().numpy()
 
 
 def start_block(ham, start_vectors, num_vectors: int,
@@ -225,6 +242,14 @@ def ftlm(ham, beta_grid, num_vectors: int = 32, steps: int = 80,
                       steps=steps)
 
 
+def ltlm_bytes(dim: int, steps: int, rows: int, dtype: torch.dtype) -> int:
+    """Device bytes ``ltlm`` reckons for `rows` start vectors and `steps`
+    steps: a run's stored basis, the start block, one chunk of an
+    operator's image and the run's four work vectors."""
+    chunk = min(LTLM_CHUNK_ROWS, steps)
+    return (steps + rows + chunk + 4) * dim * dtype.itemsize
+
+
 def ltlm(ham, beta_grid, operators: Dict[str, object],
          num_vectors: int = 16, steps: int = 80,
          seed: int = 982451653, start_vectors=None,
@@ -238,7 +263,10 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
     which converges to <gs|A|gs> as beta -> inf for every start vector,
     where the FTLM observable estimator leaves O(1/sqrt(R)) noise.  One
     stored-V selective Lanczos run a vector on the Hamiltonian's device,
-    plus one (m, dim) x (dim, m) product an operator.  Operators: (dim,)
+    plus one (m, dim) x (dim, m) product an operator, its image made
+    ``LTLM_CHUNK_ROWS`` rows at a time.  A run's basis and blocks are
+    reckoned against the Krylov budget first: a run that does not fit
+    raises ``MemoryError`` before anything is made.  Operators: (dim,)
     diagonals or objects with ``matmat_t`` / ``matmat``, sector-preserving.
     Returns {name: (T,) array}, plus '_log_z' for the partition estimate
     and, beyond the JAX package's keys, '_e0' (the lowest Ritz value) and
@@ -248,9 +276,15 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
     dim = ham.dim
     steps = int(min(steps, dim))
     beta_grid = np.asarray(beta_grid, dtype=np.float64)
+    names = list(operators.keys())
+    rows = num_vectors if start_vectors is None else \
+        int(np.shape(start_vectors)[1])
+    chunk = min(LTLM_CHUNK_ROWS, steps)
+    lz.check_fits(ltlm_bytes(dim, steps, rows, ham.dtype),
+                  f"ltlm: the basis of {steps} steps and the blocks of "
+                  f"{rows} vectors at dim {dim}", ham.device)
     V0 = start_block(ham, start_vectors, num_vectors, seed)
     num_vectors = int(V0.shape[0])
-    names = list(operators.keys())
 
     per_run = []
     e0 = np.inf
@@ -261,11 +295,8 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
         e0 = min(e0, float(evals[0]))
         residual = max(residual, abs(res.betas[res.m - 1] * evecs[-1, 0]))
         Vm = res.V[:res.m]                      # (m, dim)
-        ritz = {}
-        for name in names:
-            Y = _apply_operator(operators[name], Vm, name)
-            G = (Vm.conj() @ Y.T).cpu().numpy()         # (m, m)
-            ritz[name] = evecs.T @ G @ evecs
+        ritz = {name: evecs.T @ _projected(operators[name], Vm, chunk, name)
+                @ evecs for name in names}
         per_run.append((evals, evecs[0].copy(), ritz))
         del res, Vm
     T = beta_grid.shape[0]

@@ -1,8 +1,8 @@
 """Parser for the reference's DMRG++-style input files.
 
-Counterpart of ``lanczosplusplus_tpu/io_/input_parser.py``, legacy label
-format only: an Ainur-format input raises ``NotImplementedError`` until
-``io_/ainur.py`` is ported (ROADMAP Queue 1 item 14).
+Counterpart of ``lanczosplusplus_tpu/io_/input_parser.py``: the legacy
+label format here, an Ainur-format input (``##Ainur`` header) through
+``io_/ainur.py``.
 
 Grammar (reference: PsimagLite InputNg legacy format as used by
 TestSuite/inputs/*.inp and read at src/lanczos.cpp:191-192):
@@ -136,10 +136,11 @@ class InputData:
 
 
 def parse_input(text: str) -> InputData:
+    # Ainur-format inputs (##Ainur header) route to the Ainur subset
+    # parser; everything else is the legacy label format
     if text.lstrip()[:7] == "##Ainur":
-        raise NotImplementedError(
-            "Ainur-format inputs are not ported yet (ROADMAP Queue 1 "
-            "item 14: io_/ainur.py)")
+        from lanczosplusplus_tpu_torch.io_.ainur import parse_ainur
+        return parse_ainur(text)
     # strip comments
     lines = []
     for ln in text.splitlines():

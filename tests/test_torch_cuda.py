@@ -7,6 +7,8 @@ This file imports no jax, so it runs where only torch is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1077,3 +1079,77 @@ def test_ftlm_dynamic_on_card_matches_cpu(cuda):
         assert kernels.LAUNCHES["ell_spmv"] > 0
         want = call(cpu, block.cpu())
         assert _rel_max(got, want) <= 1e-9
+
+
+@pytest.mark.parametrize("text", [hubbard_chain_text(8, 4),
+                                  heisenberg_text(12, 1, 6)])
+def test_consistency_on_card_matches_cpu(cuda, tmp_path, capsys, text):
+    """consistency --tinf on the card against the CPU: the Lanczos and
+    dense energies and the T=inf energy to 1e-10."""
+    from lanczosplusplus_tpu_torch.cli import consistency_main
+    path = tmp_path / "input.inp"
+    path.write_text(text)
+    printed = []
+    for device in ("cuda", "cpu"):
+        consistency_main.run(["-f", str(path), "--tinf", "--device", device])
+        printed.append([float(v) for v in re.findall(
+            r"= (\S+)$", capsys.readouterr().out, re.M)])
+    assert len(printed[0]) == 4
+    for got, want in zip(*printed):
+        assert abs(got - want) <= 1e-10 * max(abs(want), 1.0)
+
+
+def test_spin_orbital_cli_on_card_matches_cpu(cuda, capsys):
+    from lanczosplusplus_tpu_torch.cli import spin_orbital_main
+    card = spin_orbital_main.run(["4", "1", "--device", "cuda"])
+    host = spin_orbital_main.run(["4", "1", "--device", "cpu"])
+    capsys.readouterr()
+    for got, want in zip(card, host):
+        assert abs(got - want) <= 1e-10 * abs(want)
+    with pytest.raises(SystemExit, match="not Hermitian"):
+        spin_orbital_main.run(["2", "3", "--device", "cuda"])
+
+
+def test_sector_files_on_card_match_cpu(cuda, tmp_path):
+    from lanczosplusplus_tpu_torch.io_ import sector_files
+    inp = parse_input(hubbard_chain_text(4, 3))
+    model = build_model(inp, Geometry(inp))
+    read = []
+    for device in ("cuda", "cpu"):
+        path = str(tmp_path / f"{device}.dat")
+        assert sector_files.write_all_sectors(path, model, 4,
+                                              device=device) == 25
+        read.append(sector_files.read_sectors(path))
+    for s, h in zip(*read):
+        assert s["parts"] == h["parts"]
+        np.testing.assert_allclose(s["evals"], h["evals"], rtol=0,
+                                   atol=1e-12)
+        for key, (dest, m) in s["operators"].items():
+            assert dest == h["operators"][key][0]
+            np.testing.assert_array_equal(m, h["operators"][key][1])
+
+
+def test_ltlm_on_card_reckons_and_chunks(cuda, monkeypatch):
+    """LTLM on the card: an over-budget run raises MemoryError before it
+    allocates; a run with one-row image chunks equals one with whole
+    images to 1e-12."""
+    from lanczosplusplus_tpu_torch.engine import ftlm
+    inp = parse_input(hubbard_chain_text(8, 4))
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
+                            device=cuda).densify_factors()
+    need = ftlm.ltlm_bytes(ham.dim, 40, 3, ham.dtype)
+    with monkeypatch.context() as m:
+        m.setattr(lz, "default_krylov_budget", lambda device: need - 1)
+        before = torch.cuda.memory_allocated(cuda)
+        with pytest.raises(MemoryError, match="ltlm"):
+            ftlm.ltlm(ham, [0.5, 5.0], {"energy": ham}, num_vectors=3,
+                      steps=40)
+        assert torch.cuda.memory_allocated(cuda) == before
+    outs = []
+    for chunk in (1000, 1):
+        monkeypatch.setattr(ftlm, "LTLM_CHUNK_ROWS", chunk)
+        outs.append(ftlm.ltlm(ham, [0.5, 5.0], {"energy": ham},
+                              num_vectors=3, steps=40))
+    np.testing.assert_allclose(outs[1]["energy"], outs[0]["energy"],
+                               rtol=1e-12)

@@ -208,8 +208,14 @@ def test_density_of_states_input_runs(tmp_path, monkeypatch):
 
 
 def test_ainur_input_raises():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        parse_input("##Ainur1.0\nTotalNumberOfSites=4;\n")
+    """An Ainur input parses as the JAX package parses it, and its forms
+    outside the documented subset raise ValueError in both."""
+    text = "##Ainur1.0\nTotalNumberOfSites=4;\nvector hubbardU=[1, 2];\n"
+    assert parse_input(text).entries == jax_parse(text).entries
+    bad = "##Ainur1.0\nFiniteLoops=![7, [100, 0.5, 0]];\n"
+    for parse in (parse_input, jax_parse):
+        with pytest.raises(ValueError, match="subset"):
+            parse(bad)
 
 
 def test_cuda_without_card_raises(monkeypatch):

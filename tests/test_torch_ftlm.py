@@ -290,3 +290,54 @@ def test_ftlm_blocks_that_do_not_fit_raise(monkeypatch):
     res = tftlm.ftlm(ham, BETAS, num_vectors=4, steps=5,
                      operators={"d": np.ones(basis.size)})
     np.testing.assert_allclose(res.observables["d"], 1.0, rtol=1e-12)
+
+
+def test_ltlm_basis_that_does_not_fit_raises(monkeypatch):
+    """An LTLM run whose stored basis, start block, image chunk and four
+    work vectors pass the Krylov budget raises MemoryError before the
+    start block or a basis is made; at the budget it runs."""
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    ham, _, _, basis = sector(hubbard_chain_text(6))
+    steps, rows = 20, 3
+    need = (steps + rows + min(tftlm.LTLM_CHUNK_ROWS, steps) + 4) \
+        * basis.size * 8
+    assert tftlm.ltlm_bytes(basis.size, steps, rows, torch.float64) == need
+    monkeypatch.setattr(lz, "default_krylov_budget", lambda device: need - 1)
+
+    def no_block(*args, **kwargs):
+        raise AssertionError("a block was made before the reckoning")
+    with monkeypatch.context() as m:
+        m.setattr(tftlm, "start_block", no_block)
+        with pytest.raises(MemoryError, match="ltlm: the basis of 20 steps"):
+            tftlm.ltlm(ham, BETAS, {"energy": ham}, num_vectors=rows,
+                       steps=steps)
+    monkeypatch.setattr(lz, "default_krylov_budget", lambda device: need)
+    out = tftlm.ltlm(ham, BETAS, {"energy": ham}, num_vectors=rows,
+                     steps=steps)
+    assert np.isfinite(out["energy"]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_ltlm_chunked_apply_matches_unchunked_and_jax(monkeypatch, dtype):
+    """The operator image made a few rows at a time (chunks of 1 and 7
+    rows, the last one ragged) gives the values of the image made whole
+    to 1e-12, and the JAX package's to 1e-10."""
+    text = hubbard_chain_text(6, periodic=False)
+    if dtype.is_complex:
+        text = rashba_text(5, 4, periodic=1)
+    ham, jham, _, basis = sector(text, dtype=dtype)
+    V = jax_block(basis.size, 3, 11, dtype)
+    ops = {"energy": ham, "d": np.linspace(0.0, 1.0, basis.size)}
+    jops = {"energy": jham, "d": ops["d"]}
+    outs = []
+    for chunk in (1000, 1, 7):
+        monkeypatch.setattr(tftlm, "LTLM_CHUNK_ROWS", chunk)
+        outs.append(tftlm.ltlm(ham, BETAS, ops, steps=30, start_vectors=V))
+    jout = jftlm.ltlm(jham, BETAS, jops, steps=30, start_vectors=V)
+    for key in ("energy", "d", "_log_z"):
+        scale = max(np.abs(outs[0][key]).max(), 1.0)
+        for out in outs[1:]:
+            assert np.abs(out[key] - outs[0][key]).max() <= 1e-12 * scale
+        assert np.abs(outs[0][key] - np.asarray(jout[key])).max() <= \
+            1e-10 * scale, key
+    assert outs[1]["_e0"] == outs[0]["_e0"]

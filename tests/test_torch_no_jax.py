@@ -1,7 +1,8 @@
 """The PyTorch port stands without JAX: in a fresh interpreter, importing
 every module of the port and running its CLI with every measurement flag
-(the estimators' --kpm and --ftlm-dos too), ed --ftlm and thermal --ftlm
-loads no jax module, and
+(the estimators' --kpm and --ftlm-dos too), ed --ftlm, thermal --ftlm,
+consistency --tinf, spin_orbital, the sector-file writer and the native
+host runtime loads no jax module, and
 chip_smoke.py imports none either and refuses to run without a card."""
 
 import ast
@@ -28,6 +29,15 @@ lanczos_main.run(["-f", sys.argv[1], "--device", "cpu", "-g", "c", "-c", "n",
                   "--ftlm-dos", "1.0"])
 ed_main.run(["-f", sys.argv[1], "--device", "cpu", "--ftlm"])
 thermal_main.run(["-f", sys.argv[1], "--device", "cpu", "--ftlm", "-b", "1"])
+from lanczosplusplus_tpu_torch.cli import consistency_main, spin_orbital_main
+consistency_main.run(["-f", sys.argv[1], "--device", "cpu", "--tinf"])
+spin_orbital_main.run(["2", "1", "--device", "cpu"])
+from lanczosplusplus_tpu_torch import Config, load, native
+from lanczosplusplus_tpu_torch.io_ import sector_files
+model = load(sys.argv[1], Config(device="cpu")).model
+sector_files.write_all_sectors("sectors.dat", model, 4, device="cpu")
+assert native.available()
+assert native.enumerate_combinations(17, 8).shape == (24310,)
 jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")
@@ -61,6 +71,11 @@ def test_port_runs_without_importing_jax(tmp_path):
         ["input0.inp1.ftlmdos", "input0.inp1.kpmdos"]
     assert "method=FTLM R=4 M=20" in proc.stdout
     assert "lnZPartition=" in proc.stderr
+    # the consistency and spin-orbital checks and the sector sweep ran
+    assert "T=infinity energy=" in proc.stdout
+    assert "LAPACK energy=" in proc.stdout
+    assert open(tmp_path / "sectors.dat").read().startswith(
+        "#TotalSectors=25\n")
 
 
 def test_chip_smoke_imports_no_jax():

@@ -2,8 +2,10 @@
 library times run compute the kernels' functions, the plain-kernel swap
 restores the wrappers, the launch count it predicts for a factored
 form's matvec is the count of wrapper calls one matvec makes, the
-launches it counts at each form's call sites split as predicted, and
-phase 12's CLI runner, beta schedule and Lanczos-tridiagonal moments."""
+launches it counts at each form's call sites split as predicted,
+phase 12's CLI runner, beta schedule and Lanczos-tridiagonal moments, and
+phase 13's Ainur text (the legacy input's labels), native call counter and
+switch to the numpy paths."""
 
 import numpy as np
 import pytest
@@ -119,7 +121,9 @@ def test_form_launches_counts_one_matvec(text):
 
 def _card_like_launches():
     """Wrappers that add to ``LAUNCHES`` as the card's do (a complex
-    state's factor_matmul as its planes), around the plain versions."""
+    state's factor_matmul as its planes), around the plain versions.  A
+    test that installs them puts the counts back when it ends, since
+    other tests read them."""
     real = (kernels.factor_matmul, kernels.perm_gather)
 
     def gemm(x, a, **kw):
@@ -153,6 +157,7 @@ def test_launches_by_site_measures_each_form(text):
                                        parts, dtype)
     form = getattr(ham, "inner", ham)
     real, fakes = _card_like_launches()
+    counts = dict(kernels.LAUNCHES)
     kernels.factor_matmul, kernels.perm_gather = fakes
     try:
         with chip_smoke.launches_by_site() as (forms, applies):
@@ -161,6 +166,7 @@ def test_launches_by_site_measures_each_form(text):
         assert (kernels.factor_matmul, kernels.perm_gather) == fakes
     finally:
         kernels.factor_matmul, kernels.perm_gather = real
+        kernels.LAUNCHES.update(counts)
     site = "blockkron" if hasattr(form, "shapes") else "kitaev"
     assert applies[site] == 2
     want = {k: 2 * n for k, n in chip_smoke.form_launches(form).items() if n}
@@ -178,12 +184,14 @@ def test_launches_by_site_one_spin_forms(max_bytes):
                             device="cpu").densify_factors(max_bytes)
     f = ham.factorized
     real, fakes = _card_like_launches()
+    counts = dict(kernels.LAUNCHES)
     kernels.factor_matmul, kernels.perm_gather = fakes
     try:
         with chip_smoke.launches_by_site() as (forms, applies):
             ham.matvec(torch.ones(ham.dim, dtype=torch.float64))
     finally:
         kernels.factor_matmul, kernels.perm_gather = real
+        kernels.LAUNCHES.update(counts)
     assert applies == {"one-spin": 1}
     assert (f.up_dense is None, f.dn_dense is None) == (
         (True, True) if max_bytes == 0 else (True, False))
@@ -234,3 +242,27 @@ def test_tridiagonal_moments_are_the_chebyshev_moments():
     got = chebyshev_moments(ham, phi, 60, bounds=spectral_bounds(ham))
     want = chip_smoke.tridiagonal_moments(cf, got.a, got.b, 60)
     assert np.abs(got.moments - want).max() <= 1e-12 * got.moments[0]
+
+
+@pytest.mark.parametrize("nsite,u", [(6, 4), (14, 4)])
+def test_ainur_text_is_the_legacy_input(nsite, u):
+    ainur = chip_smoke.ainur_text(nsite, u)
+    assert ainur.startswith("##Ainur")
+    assert parse_input(ainur).entries == parse_input(
+        chip_smoke.hubbard_chain_text(nsite, u)).entries
+
+
+def test_native_calls_and_numpy_host_paths():
+    """The counter sees the native entry points a basis build calls, and
+    inside numpy_host_paths none is taken (and the words are the same);
+    both restore the module."""
+    from lanczosplusplus_tpu_torch import native
+    from lanczosplusplus_tpu_torch.core.basis import OneSpinBasis
+    saved = (native.load, native.enumerate_combinations)
+    with chip_smoke.native_calls() as calls:
+        words = OneSpinBasis(19, 9).words
+        with chip_smoke.numpy_host_paths():
+            words_np = OneSpinBasis(19, 9).words
+    assert calls == {"enumerate_combinations": 1}
+    np.testing.assert_array_equal(words, words_np)
+    assert (native.load, native.enumerate_combinations) == saved
