@@ -10,8 +10,9 @@ Phases, each printing one line with its numbers:
 1. environment: the card, its power limit, torch and CUDA versions;
 2. build: the three hand-written CUDA kernels compiled from csrc/, with
    each kernel's registers, shared memory and spills (which must be 0, for
-   the complex instantiations of ell_spmv and perm_gather too) and the
-   count of FP64 tensor-core instructions (DMMA) in the machine code;
+   the complex, float32 and bf16-source instantiations of ell_spmv and
+   perm_gather and the bf16 factor_matmul too) and the counts of FP64 and
+   bf16 tensor-core instructions (DMMA, HMMA) in the machine code;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (TF32 off): factor_matmul at 3432^3 (14 sites) and
    924^3 (12 sites) in float64, each also in its transposed accumulate
@@ -152,6 +153,30 @@ Phases, each printing one line with its numbers:
    reckoning, against the plain versions.  ell_spmv is held against its
    plain version on the 16-site ring's and the 7-site spin-orbital
    chain's ELLs.
+14. float32 and complex64 solves with their float64 refinement, the bf16
+   forms and the low-precision, resumable Krylov basis
+   (``lowprec_phase``), each solve with the launch counts, by kernel and
+   by form, set to 0 before and read after: lanczos -f --dtype float32
+   on phase 5's chain and phase 6's SuperHubbardExtended chain in float32
+   (refined E0 against theirs, 1e-10); SolverOptions=factored,bf16cross
+   on bench.py's 13-site Rashba ring at float64 and float32 (bf16-source
+   perm_gather, full reorthogonalization, 1e-8 absolute against phase
+   10); phase 10's 18-site t-J form in float32 and 12-site complex Rashba
+   form in complex64 (1e-10); phase 11's 22-site Kitaev ring with bf16
+   factors from build_factored_kitaev(factor_dtype=torch.bfloat16) (the
+   matvec within 2e-2 of the float32 form's, its refined E0 beside the
+   float64 one); a bf16 Krylov basis (Ritz value within 2e-3) and a
+   checkpointed run stopped after two chunks and resumed (bit-equal);
+   phase 5's chain with bf16 dense factors from
+   densify_factors(factor_dtype=torch.bfloat16) under a float32 and a
+   float64 state (the matvec within 1e-2 of the unquantized form's, the
+   refined E0 against phase 5's, 1e-10); then each new kernel form alone
+   against its plain version and one library call: the bf16
+   factor_matmul at 3432^3 into float32 and float64, 4096^3 and the
+   Kitaev half (bound at 989 TFLOP/s dense bf16), the float32 J-ELL,
+   perm_gather in float32 and complex64 (the 14-site one-spin up form,
+   the 8-site FeAs term, the path's cross terms) and from a bf16 source
+   into float32 and float64 sums.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
@@ -160,7 +185,8 @@ runtime's numbers, a JSON object with the kernels' numbers (one entry for
 each kernel and form of a path, with the launches that path counted:
 ground state, spectral, the flat models' forms of phase 9, the factored
 forms' and gather apply's of phase 10, the symmetry blocks' and projected
-translation's of phase 11, the estimators' of phase 12 and phase 13's),
+translation's of phase 11, the estimators' of phase 12, phase 13's and,
+by form, phase 14's),
 the card's name and power limit, and the result object.
 """
 
@@ -186,6 +212,10 @@ TOL_F32 = 1e-5        # float32 kernels, relative to max|y|
 TOL_ELL_F64 = 1e-13   # ell_spmv float64, relative to max|y|
 TOL_E0 = 1e-10        # relative energy agreement
 PEAK_FLOPS = 67e12    # H100 SXM data sheet: FP64 tensor cores, and float32
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet: dense bf16 tensor cores
+# bf16 factor_matmul: exact products, float32 sums in another order than
+# the plain version's, relative to max|y| at k up to 4096
+TOL_BF16 = 1e-4
 PEAK_BYTES = 3.35e12  # H100 SXM data sheet: device memory bytes per second
 SPIN_CYCLES = 2_000_000  # about 1.1 ms at the H100's 1.75 GHz
 E0_INPUT0 = -4.472135954999581  # benchmarks/goldens.json e0_input0
@@ -605,6 +635,15 @@ def phase_seconds(stderr_text, label):
         rf"{re.escape(label)}.* done in ([0-9.]+)s", stderr_text)]
 
 
+# perm_gather's instantiations by the template arguments in their mangled
+# names: the sums' type and the source block's
+DTYPE_TAGS = {torch.float64: "f64", torch.float32: "f32",
+              torch.complex128: "c128", torch.complex64: "c64"}
+GATHER_TAGS = {"dd": "f64", "ff": "f32", "NS_4CplxIdEES2_": "c128",
+               "NS_4CplxIfEES2_": "c64", "dNS_4Bf16E": "bf16->f64",
+               "fNS_4Bf16E": "bf16->f32"}
+
+
 def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
            nonzero_bound_ms=None):
     """Hold a kernel's result against its plain version's, time the kernel,
@@ -866,7 +905,8 @@ def perm_gather_case(results, case, x, y0, tables):
     plain version's order and rounding), timed beside its bytes bound (Y
     read and written, X and the tables read once) and beside ``csr @ x``
     on the same operator as a CSR matrix, built outside the timed region
-    (the library writes a fresh output where the kernel adds into Y)."""
+    (the library writes a fresh output where the kernel adds into Y; a
+    bf16 source block meets it widened to Y's type, also outside)."""
     from lanczosplusplus_tpu_torch.ops import kernels as K
     got = y0.clone()
     K.perm_gather(x, got, **tables)
@@ -874,17 +914,20 @@ def perm_gather_case(results, case, x, y0, tables):
     torch.cuda.synchronize()
     check(torch.equal(got, ref), f"perm_gather {case}: not bit-equal to "
                                  f"its plain version")
-    csr = perm_csr(tables, x.shape[-2:], y0.shape[-2:], x.dtype, x.device)
-    xl = x.reshape(-1) if x.dim() == 2 else \
-        x.reshape(x.shape[0], -1).T.contiguous()
+    csr = perm_csr(tables, x.shape[-2:], y0.shape[-2:], y0.dtype, x.device)
+    xw = x.to(y0.dtype)
+    xl = xw.reshape(-1) if x.dim() == 2 else \
+        xw.reshape(x.shape[0], -1).T.contiguous()
     lib = csr @ xl
     lib = lib.view(y0.shape) if x.dim() == 2 else lib.T.reshape(y0.shape)
     lib_err = rel_err(lib, ref - y0)[1]
-    check(lib_err <= 1e-12, f"perm_gather {case}: the CSR form differs by "
-                            f"{lib_err:.3e}")
+    wide = y0.dtype in (torch.float64, torch.complex128)
+    check(lib_err <= (1e-12 if wide else TOL_F32),
+          f"perm_gather {case}: the CSR form differs by {lib_err:.3e}")
     y1 = y0.clone()
-    nbytes = (2 * y0.numel() + x.numel()) * x.element_size() + sum(
-        t.numel() * t.element_size() for t in tables.values())
+    nbytes = 2 * y0.numel() * y0.element_size() + \
+        x.numel() * x.element_size() + sum(
+            t.numel() * t.element_size() for t in tables.values())
     record(results, "perm_gather", case, got, ref, 0.0,
            (lambda: K.perm_gather(x, y1, **tables),
             lambda: K.perm_gather_ref(x, y1, **tables),
@@ -924,7 +967,7 @@ def largest_cross_term(form, name):
     term = max(form.perm_cross, key=lambda t: t.row_src.numel()
                * t.col_src.shape[1])
     src, dst = form.shapes[term.src], form.shapes[term.dst]
-    case = (f"{'c128' if form.dtype.is_complex else 'f64'} {name} "
+    case = (f"{DTYPE_TAGS[form.dtype]} {name} "
             f"largest PermCrossTerm ({term.row_src.shape[0]} channels, "
             f"block {term.src} {src} -> {term.dst} {dst})")
     return case, src, dst, {"rs": term.row_src, "a": term.row_amp,
@@ -1138,6 +1181,7 @@ def factored_phase(dev, gen, results, refs):
         vec = eng.eigenvector(0)
         check(vec.device.type == "cuda" and vec.shape == (ham.dim,),
               f"{label}: eigenvector {tuple(vec.shape)}")
+        refs[f"factored {label}"] = eng.ground_energy
         if want is not None:
             agree(f"{label} against the flat form", eng.ground_energy, want)
         if plain:
@@ -1266,6 +1310,7 @@ def factored_phase(dev, gen, results, refs):
     eng, form = solve_factored(label, feas_ring_text(8, 4, 4),
                                want=refs[label])
     cross_case("8-site FeAs interaction", label, form)
+    refs["feas cross term"] = largest_cross_term(form, "8-site FeAs")
     del eng, form
     torch.cuda.empty_cache()
     so_text = feas_spinorbit_chain_text(*FEAS_SO_SECTOR)
@@ -1476,6 +1521,9 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     text = kitaev_ring_text(22)
     ref = flat_e0("22-site Kitaev ring, factored", factored(text))
     form = ref._cached_hamiltonian(ref.parts)
+    # phase 14 builds it again with bf16 factors
+    refs["22-site Kitaev ring"] = (ref.ground_energy, form, ref.model,
+                                   ref.basis)
     K.reset_launches()
     with counted_applies(projected.RotationProjectedHamiltonian,
                          "matvec") as seen:
@@ -2369,6 +2417,462 @@ def cli_phase(dev, refs, ell_case):
     return runs, native_line
 
 
+class ChunkInterrupt(Exception):
+    """Raised by ``interrupted_after`` in place of a Lanczos chunk."""
+
+
+@contextlib.contextmanager
+def interrupted_after(lz, chunks: int):
+    """Within the block, the solver's chunk runner raises ChunkInterrupt
+    once `chunks` chunks have run: a run stopped between two checkpoint
+    writes."""
+    fn = lz._lanczos_chunk
+    calls = [0]
+
+    def limited(*args, **kwargs):
+        if calls[0] >= chunks:
+            raise ChunkInterrupt
+        calls[0] += 1
+        return fn(*args, **kwargs)
+    lz._lanczos_chunk = limited
+    try:
+        yield
+    finally:
+        lz._lanczos_chunk = fn
+
+
+@contextlib.contextmanager
+def solve_record(lz, refinements: list, chunks: list):
+    """Records, within the block, every energy refinement of the solver
+    (the energies it was given, those it returned, seconds, the card
+    synchronized at both ends) and every chunk of Lanczos steps (steps,
+    whether selective)."""
+    refine, chunk = lz._maybe_refine, lz._lanczos_chunk
+
+    def timed(ham, evals, vecs, twin=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = refine(ham, evals, vecs, twin)
+        torch.cuda.synchronize()
+        refinements.append((np.array(evals, dtype=np.float64),
+                            np.array(out, dtype=np.float64),
+                            time.perf_counter() - t))
+        return out
+
+    def counted(ham, V, carry, js, selective):
+        chunks.append((len(js), selective))
+        return chunk(ham, V, carry, js, selective)
+    lz._maybe_refine, lz._lanczos_chunk = timed, counted
+    try:
+        yield
+    finally:
+        lz._maybe_refine, lz._lanczos_chunk = refine, chunk
+
+
+def lowprec_phase(dev, gen, results, refs, ell_case):
+    """Phase 14: the float32 (complex64) solves with their float64
+    refinement, the bf16 forms and the low-precision, resumable Krylov
+    basis on the card, each solve with the launch counts set to 0 before
+    and read after, by kernel and form: 14a lanczos -f --dtype float32 on
+    phase 5's 14-site U=4 chain (the unrefined and refined E0 against phase
+    5's, 1e-10); 14b phase 6's 12-site SuperHubbardExtended chain in
+    float32 (the J-ELL through the float32 ell_spmv) against phase 6's;
+    14c bench.py's 13-site real Rashba ring through lanczos -f with
+    SolverOptions=factored,bf16cross at float64 and float32 (the
+    bf16-source perm_gather, full reorthogonalization) against phase 10's
+    factored E0 to 1e-8 absolute; 14d phase 10's 18-site t-J factored form
+    in float32 and its 12-site complex Rashba form in complex64 against
+    phase 10's E0s; 14e phase 11's 22-site Kitaev ring with bf16 factors
+    from build_factored_kitaev(factor_dtype=torch.bfloat16) (its matvec
+    against the float32 form's, 2e-2 of max |y|; its refined E0 beside the
+    float64 one); 14f 80 float32 steps on 14a's sector with a float32 and
+    a bf16 basis (lowest Ritz values within 2e-3, peak memory), and 100
+    steps on 14b's sector checkpointed every 25, stopped after two chunks
+    and resumed, bit-equal to an uninterrupted run; 14g each new kernel
+    form alone against its plain version and one library call; 14h 14a's
+    chain with bf16 dense factors from
+    densify_factors(factor_dtype=torch.bfloat16) under a float32 and a
+    float64 state (the matvec against the unquantized form's, 1e-2 of max
+    |y|; the refined E0 against phase 5's, 1e-10).
+    Returns {run label: launches by kernel and form}."""
+    from lanczosplusplus_tpu_torch import Config
+    from lanczosplusplus_tpu_torch.cli import lanczos_main
+    from lanczosplusplus_tpu_torch.engine import Engine
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.kitaev_factored import (
+        build_factored_kitaev)
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.ops.refine import narrowed
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    runs, above = {}, {}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def solved(label, run):
+        """Runs run() with the launch counts set to 0 before and read
+        after; returns (what it returns, its refinements, its chunks of
+        steps, wall seconds).  The device memory the run took above what
+        was held before it goes to ``above[label]`` (GB)."""
+        refinements, chunks = [], []
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        with solve_record(lz, refinements, chunks):
+            got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[label] = dict(K.FORM_LAUNCHES)
+        above[label] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        return got, refinements, chunks, wall
+
+    def engine(text, real_dtype):
+        inp = parse_input(text)
+        return Engine(build_model(inp, Geometry(inp)), inp,
+                      config=Config.from_input(inp, device=dev,
+                                               real_dtype=real_dtype))
+
+    def report(key, label, eng, refinements, chunks, wall, want, tol):
+        """One line for the solve of run `key`: steps, unrefined and
+        refined E0 against `want`, the solve's and the refinement's
+        seconds, launches by form; held to `tol` (relative)."""
+        (unrefined, refined, refine_s), = refinements
+        e0 = eng.ground_energy
+        err = rel(e0, want)
+        reorth = ("full on every step" if not any(s for _, s in chunks)
+                  else "selective")
+        say(f"phase 14{key} {label}: dim {eng.basis.size}, "
+            f"{eng.eigenvector(0).dtype}, steps {eng.solve_info.steps}, "
+            f"reorthogonalization {reorth}, unrefined E0 {float(unrefined[0])!r}, "
+            f"refined E0 {e0!r} against {want!r}: rel err {err:.3e} "
+            f"(unrefined {rel(unrefined[0], want):.3e}); wall {wall:.3f} s, of "
+            f"which the refinement {refine_s:.3f} s; launches by form "
+            f"{runs[key]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+            f"{above[key]:.2f} GB above what was held before the run")
+        check(refined[0] == e0, f"14{key}: the engine's energy is not the "
+                                f"refined one")
+        check(err <= tol, f"14{key}: E0 off by {err:.3e} > {tol:g}")
+
+    # -- 14a: lanczos -f --dtype float32, the 14-site U=4 chain ----------
+    (eng, out, _, _, _), refinements, chunks, wall = solved(
+        "a", lambda: run_cli(lanczos_main, hubbard_chain_text(14, 4),
+                             ["--dtype", "float32"]))
+    printed = float(re.search(r"^Energy=(\S+)$", out, re.M).group(1))
+    check(printed == eng.ground_energy, f"14a: printed {printed!r}")
+    report("a", "14-site U=4 chain via lanczos -f --dtype float32", eng,
+           refinements, chunks, wall, refs["e0_u4"], TOL_E0)
+    forms = runs["a"]
+    check(forms.get("factor_matmul f32", 0) > 0
+          and forms.get("factor_matmul f64", 0) > 0,
+          f"14a: the float32 solve and its float64 refinement launched "
+          f"{forms}")
+    ham14 = eng.hamiltonian
+    dense = getattr(ham14.factorized.up_dense, "dtype", None)
+    check(ham14.dtype == f32 and dense == f32,
+          f"14a: the solved form is {ham14.dtype}, its dense factors {dense}")
+    check(eng._ham64 is None, "14a: the float64 form outlived the solve")
+    model14, basis14 = eng.model, eng.basis
+    del eng
+
+    # -- 14h: the chain with bf16 dense factors, float32 and float64 ----
+    x = torch.randn(ham14.dim, generator=gen, device=dev, dtype=f64)
+    for dtype, plain in ((f32, ham14), (f64, refs["ham_u4"])):
+        tag = DTYPE_TAGS[dtype]
+        key = f"h {tag}"
+        t = time.perf_counter()
+        hb = model14.hamiltonian(basis14, dtype=dtype,
+                                 device=dev).densify_factors(
+            factor_dtype=bf16)
+        build_s = time.perf_counter() - t
+        f = hb.factorized
+        check(hb.quantized and hb.dtype == dtype
+              and f.up_dense.dtype == f.dn_dense.dtype == bf16,
+              f"14h {tag}: quantized {hb.quantized}, {hb.dtype}, factors "
+              f"{f.up_dense.dtype} and {f.dn_dense.dtype}")
+        mv_err = rel_err(hb.matvec(x.to(dtype)), plain.matvec(x.to(dtype)))[1]
+        (evals, _, info), refinements, chunks, wall = solved(
+            key, lambda: lz.lowest_states(hb, seed=SEED, return_info=True))
+        (unrefined, refined, refine_s), = refinements
+        full = not any(s for _, s in chunks)
+        err = rel(float(evals[0]), refs["e0_u4"])
+        say(f"phase 14h 14-site U=4 chain, bf16 dense one-spin factors "
+            f"(densify_factors(factor_dtype=torch.bfloat16)), {dtype} state:"
+            f" dim {hb.dim}, factors {tuple(f.up_dense.shape)} and "
+            f"{tuple(f.dn_dense.shape)}, host build {build_s:.3f} s; matvec "
+            f"against the unquantized form's {mv_err:.3e} of max |y| "
+            f"(tolerance 1e-2); steps {info.steps} (reorthogonalization "
+            f"{'full on every step' if full else 'selective'}), unrefined "
+            f"E0 {float(unrefined[0])!r}, refined {float(evals[0])!r} "
+            f"against phase 5's {refs['e0_u4']!r}: rel err {err:.3e} "
+            f"(unrefined {rel(float(unrefined[0]), refs['e0_u4']):.3e}); "
+            f"wall {wall:.3f} s, of which the refinement {refine_s:.3f} s; "
+            f"launches by form {runs[key]}; {above[key]:.2f} GB of device "
+            f"memory above what was held before the run")
+        check(mv_err <= 1e-2, f"14h {tag}: bf16 matvec off by {mv_err:.3e}")
+        check(float(refined[0]) == float(evals[0]) and err <= TOL_E0,
+              f"14h {tag}: E0 off by {err:.3e}")
+        check(full and runs[key].get(f"factor_matmul bf16_{tag}", 0) > 0,
+              f"14h {tag}: full reorthogonalization {full}, {runs[key]}")
+        del hb, f
+    del model14, basis14, x, plain
+    torch.cuda.empty_cache()
+
+    # -- 14b: the 12-site SuperHubbardExtended chain in float32 ---------
+    eng, refinements, chunks, wall = solved(
+        "b", lambda: engine(super_hubbard_text(12), f32))
+    report("b", "12-site SuperHubbardExtended chain in float32", eng,
+           refinements, chunks, wall, refs["e0_she"], TOL_E0)
+    check(runs["b"].get("ell_spmv f32", 0) > 0,
+          f"14b: no float32 ell_spmv: {runs['b']}")
+    she32 = eng.hamiltonian
+    del eng
+
+    # -- 14c: bf16cross, 13-site Rashba half-cut, float64 and float32 ----
+    text = rashba_ring_text(13, 13, amplitude="0.5",
+                            options="factored,bf16cross")
+    want = refs["factored 13-site Rashba ring, 13 electrons"]
+    rashba_cross = {}
+    for dtype in ("float64", "float32"):
+        label = f"c {dtype}"
+        (eng, out, _, _, _), refinements, chunks, wall = solved(
+            label, lambda: run_cli(lanczos_main, text, ["--dtype", dtype]))
+        printed = float(re.search(r"^Energy=(\S+)$", out, re.M).group(1))
+        form = eng._cached_hamiltonian(eng.parts).inner
+        (unrefined, refined, refine_s), = refinements
+        err = abs(printed - want)
+        full = not any(s for _, s in chunks)
+        bf16_launches = runs[label].get(
+            f"perm_gather bf16_{'f64' if dtype == 'float64' else 'f32'}", 0)
+        say(f"phase 14c 13-site Rashba ring, SolverOptions=factored,bf16cross"
+            f" via lanczos -f --dtype {dtype}: dim {form.dim}, {form.dtype}, "
+            f"quantized {form.quantized}, steps {eng.solve_info.steps} "
+            f"(reorthogonalization {'full on every step' if full else 'selective'}"
+            f", {sum(n for n, _ in chunks)} steps in {len(chunks)} chunks), "
+            f"Energy={printed!r} (unrefined {float(unrefined[0])!r}) against phase "
+            f"10's {want!r}: abs err {err:.3e}; wall {wall:.3f} s, of which "
+            f"the refinement {refine_s:.3f} s; bf16-source perm_gather "
+            f"launches {bf16_launches}, launches by form {runs[label]}")
+        check(printed == eng.ground_energy == refined[0],
+              f"14c {dtype}: printed {printed!r}")
+        check(err <= 1e-8, f"14c {dtype}: E0 off by {err:.3e}")
+        check(form.quantized and full and bf16_launches > 0,
+              f"14c {dtype}: quantized {form.quantized}, full "
+              f"reorthogonalization {full}, launches {runs[label]}")
+        rashba_cross[form.dtype] = largest_cross_term(
+            form, "13-site Rashba half-cut")
+        del eng, form
+    torch.cuda.empty_cache()
+
+    # -- 14d: factored t-J in float32, complex Rashba in complex64 ------
+    cross_terms = {}
+    for key, label, text, form_key in (
+            ("d f32", "18-site t-J ring, 8 up 8 down", tj_ring_text(18, 8, 8),
+             "perm_gather f32"),
+            ("d c64", "12-site Rashba ring, 12 electrons",
+             rashba_ring_text(12, 12), "perm_gather c64")):
+        eng, refinements, chunks, wall = solved(
+            key, lambda: engine(factored(text), f32))
+        form = eng._cached_hamiltonian(eng.parts)
+        form = getattr(form, "inner", form)
+        (unrefined, refined, refine_s), = refinements
+        want = refs[f"factored {label}"]
+        err = rel(eng.ground_energy, want)
+        say(f"phase 14d {label}, factored, {form.dtype}: dim {form.dim}, "
+            f"steps {eng.solve_info.steps}, unrefined E0 {float(unrefined[0])!r}, "
+            f"refined {eng.ground_energy!r} against phase 10's {want!r}: rel "
+            f"err {err:.3e} (unrefined {rel(unrefined[0], want):.3e}); wall "
+            f"{wall:.3f} s, of which the refinement {refine_s:.3f} s; "
+            f"launches by form {runs[key]}")
+        check(err <= TOL_E0, f"14d {label}: E0 off by {err:.3e}")
+        check(runs[key].get(form_key, 0) > 0,
+              f"14d {label}: no {form_key}: {runs[key]}")
+        name = ("18-site t-J" if "t-J" in label
+                else "12-site Rashba half-cut")
+        cross_terms[form.dtype] = largest_cross_term(form, name)
+        del eng, form
+    torch.cuda.empty_cache()
+
+    # -- 14e: the 22-site Kitaev ring with bf16 factors -----------------
+    e64, form64, kmodel, kbasis = refs.pop("22-site Kitaev ring")
+    form32 = narrowed(form64)
+    t = time.perf_counter()
+    b16 = build_factored_kitaev(kmodel, kbasis, dtype=f32, device=dev,
+                                factor_dtype=bf16)
+    build_s = time.perf_counter() - t
+    rounded = all(torch.equal(getattr(b16, name), getattr(form64, name).to(
+        bf16)) for name in ("hl", "hr_t", "p", "q"))
+    check(rounded and torch.equal(b16.diag2d, form32.diag2d),
+          "14e: build_factored_kitaev's bf16 factors are not the float64 "
+          "ones rounded, or its diagonal not the float32 one")
+    del kmodel, kbasis
+    x = torch.randn(b16.dim, generator=gen, device=dev, dtype=f32)
+    y32, y16 = form32.matvec(x), b16.matvec(x)
+    mv_err = rel_err(y16, y32)[1]
+    del form64, y32, y16
+    (evals, _, info), refinements, chunks, wall = solved(
+        "e", lambda: lz.lowest_states(b16, seed=SEED, return_info=True))
+    (unrefined, refined, refine_s), = refinements
+    full = not any(s for _, s in chunks)
+    say(f"phase 14e 22-site Kitaev ring, factored, float32 state, bf16 "
+        f"factors (build_factored_kitaev(factor_dtype=torch.bfloat16), host "
+        f"build {build_s:.3f} s, the float64 factors rounded bit for bit): "
+        f"dim {b16.dim}, halves {tuple(b16.diag2d.shape)}, "
+        f"{b16.p.shape[0]} cut terms, quantized {b16.quantized}; matvec "
+        f"against the float32 form's {mv_err:.3e} of max |y| (tolerance "
+        f"2e-2); steps {info.steps} (reorthogonalization "
+        f"{'full on every step' if full else 'selective'}), unrefined E0 "
+        f"{float(unrefined[0])!r}, refined (the bf16 factors as rounded, the JAX "
+        f"package's operator) {float(evals[0])!r}, float64 E0 with float64 "
+        f"factors {e64!r} (rel {rel(float(evals[0]), e64):.3e}: the factors' "
+        f"rounding, no bar); wall {wall:.3f} s, of which the refinement "
+        f"{refine_s:.3f} s; launches by form {runs['e']}")
+    check(mv_err <= 2e-2, f"14e: bf16 matvec off by {mv_err:.3e}")
+    check(b16.quantized and full
+          and runs["e"].get("factor_matmul bf16_f32", 0) > 0,
+          f"14e: quantized {b16.quantized}, full {full}, {runs['e']}")
+    kitaev_half = (b16.hl, form32.hl.shape[0])
+    del form32, x
+    torch.cuda.empty_cache()
+
+    # -- 14f: a bf16 basis on 14a's sector; a checkpointed, resumed run --
+    v0 = lz.random_start_vector(ham14.dim, SEED, f32, dev)
+    ritz, peaks = {}, {}
+    for basis in (f32, bf16):
+        key = f"f {'f32' if basis == f32 else 'bf16'} basis"
+        res, _, _, wall = solved(key, lambda: lz.tridiagonalize(
+            ham14, v0, 80, reorth_dtype=basis))
+        ritz[basis] = lz.tridiag_eigh(res.alphas, res.betas)[0][0]
+        peaks[basis] = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(res.V.dtype == basis, f"14f: basis {res.V.dtype}")
+        del res
+    gap = rel(ritz[bf16], ritz[f32])
+    say(f"phase 14f 14-site sector, 80 float32 steps: lowest Ritz value "
+        f"{float(ritz[f32])!r} with a float32 basis, {float(ritz[bf16])!r} "
+        f"with a bf16 "
+        f"basis (rel {gap:.3e}, tolerance 2e-3); peak device memory "
+        f"{peaks[f32]:.2f} GB and {peaks[bf16]:.2f} GB")
+    check(gap <= 2e-3, f"14f: bf16 basis Ritz value off by {gap:.3e}")
+    del ham14, v0
+    v0 = lz.random_start_vector(she32.dim, SEED, f32, dev)
+    ref, _, _, ref_wall = solved("f checkpoint", lambda: lz.tridiagonalize(
+        she32, v0, 100))
+    writes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lanczos.npz")
+        with timed_calls(lz, "_save", writes):
+            try:
+                with interrupted_after(lz, 2):
+                    lz.tridiagonalize(she32, v0, 100, checkpoint=path,
+                                      chunk=25)
+                raise RuntimeError("14f: the run was not interrupted")
+            except ChunkInterrupt:
+                stopped = int(np.load(path)["next_step"])
+            res, _, _, wall = solved("f resumed", lambda: lz.tridiagonalize(
+                she32, v0, 100, checkpoint=path, chunk=25))
+        size = os.path.getsize(path) / 1e6
+    same = (np.array_equal(res.alphas, ref.alphas)
+            and np.array_equal(res.betas, ref.betas))
+    say(f"phase 14f 12-site SuperHubbardExtended sector in float32, 100 "
+        f"steps checkpointed every 25: stopped after step {stopped}, "
+        f"resumed to {len(res.alphas)} coefficients in {wall:.3f} s "
+        f"(uninterrupted {ref_wall:.3f} s), bit-equal to the uninterrupted "
+        f"run: {same}; writes {[round(w, 3) for w in writes]} s of a "
+        f"{size:.1f} MB file")
+    check(stopped == 50 and same, f"14f: stopped at {stopped}, bit-equal "
+                                  f"{same}")
+    del res, ref, v0
+
+    # -- 14g: each new kernel form alone --------------------------------
+    for size in (3432, 4096):
+        xb = torch.randn(size, size, generator=gen, device=dev).to(bf16)
+        ab = torch.randn(size, size, generator=gen, device=dev).to(bf16)
+        out = torch.empty(size, size, device=dev)
+        got = K.factor_matmul(xb, ab)
+        ref = K.factor_matmul_ref(xb, ab)
+        torch.cuda.synchronize()
+        record(results, "factor_matmul",
+               f"bf16 {size}^3 (m16n8k16 tensor cores, float32 sums; library "
+               f"torch.matmul, bf16 out)", got, ref, TOL_BF16,
+               (lambda: K.factor_matmul(xb, ab, out=out),
+                lambda: K.factor_matmul_ref(xb, ab),
+                lambda: torch.matmul(xb, ab.T)),
+               1e3 * 2 * size ** 3 / PEAK_BF16_FLOPS, "operations")
+        if size == 3432:  # the 14-site chain's factors under a float64 state
+            out = torch.empty(size, size, device=dev, dtype=f64)
+            got = K.factor_matmul(xb, ab, out=out.clone())
+            ref = K.factor_matmul_ref(xb, ab).to(f64)
+            torch.cuda.synchronize()
+            record(results, "factor_matmul",
+                   f"bf16->f64 {size}^3 (m16n8k16 tensor cores, float32 "
+                   f"sums stored into float64; library torch.matmul, bf16 "
+                   f"out)", got, ref, TOL_BF16,
+                   (lambda: K.factor_matmul(xb, ab, out=out),
+                    lambda: K.factor_matmul_ref(xb, ab).to(f64),
+                    lambda: torch.matmul(xb, ab.T)),
+                   1e3 * 2 * size ** 3 / PEAK_BF16_FLOPS, "operations")
+        del xb, ab, out, got, ref
+    hl, half = kitaev_half
+    xk = torch.randn(half, half, generator=gen, device=dev).to(bf16)
+    y0 = torch.randn(half, half, generator=gen, device=dev)
+    got = y0.clone()
+    K.factor_matmul(xk.T, hl, out=got.T, accumulate=True)
+    ref = y0 + K.factor_matmul_ref(xk.T, hl).T
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    record(results, "factor_matmul",
+           f"bf16 22-site Kitaev left half: Y+=H_L.X, {half}^3 into float32 "
+           f"(transposed views)", got, ref, TOL_BF16,
+           (lambda: K.factor_matmul(xk.T, hl, out=y1.T, accumulate=True),
+            lambda: y1.T.add_(K.factor_matmul_ref(xk.T, hl)),
+            lambda: torch.matmul(hl, xk)),
+           1e3 * 2 * half ** 3 / PEAK_BF16_FLOPS, "operations")
+    del hl, xk, y0, y1, got, ref
+    ell_case("f32 12-site SuperHubbardExtended J-ELL, R=1", she32.diag,
+             she32.ell.cols, she32.ell.vals, (she32.dim,), TOL_F32)
+    # the one-spin up form of the 14-site sector and the 8-site FeAs
+    # term in float32 and complex64; the path's cross terms
+    one_spin = refs["ham_u4"].factorized
+    fcase, fsrc, fdst, ftables = refs["feas cross term"]
+    for dtype, tag in ((f32, "f32"), (torch.complex64, "c64")):
+        tables = {"cs": one_spin.up_cols.T.contiguous(),
+                  "beta": one_spin.up_vals.T.contiguous().to(dtype)}
+        szd, szu = one_spin.dn_cols.shape[0], one_spin.up_cols.shape[0]
+        perm_gather_case(
+            results, f"{tag} 14-site one-spin up gather form, R=1 "
+                     f"({tables['cs'].shape[0]} channels)",
+            torch.randn(szd, szu, generator=gen, device=dev, dtype=dtype),
+            torch.randn(szd, szu, generator=gen, device=dev, dtype=dtype),
+            tables)
+        tables = {k: (v.to(dtype) if v.is_floating_point() else v)
+                  for k, v in ftables.items()}
+        perm_gather_case(
+            results, fcase.replace("f64", tag),
+            torch.randn(fsrc, generator=gen, device=dev, dtype=dtype),
+            torch.randn(fdst, generator=gen, device=dev, dtype=dtype),
+            tables)
+    del one_spin, tables
+    for dtype, (case, src, dst, tables) in cross_terms.items():
+        perm_gather_case(
+            results, case,
+            torch.randn(src, generator=gen, device=dev, dtype=dtype),
+            torch.randn(dst, generator=gen, device=dev, dtype=dtype), tables)
+    for dtype, (case, src, dst, tables) in rashba_cross.items():
+        tag = DTYPE_TAGS[dtype]
+        perm_gather_case(
+            results, case.replace(tag, f"bf16->{tag}", 1),
+            torch.randn(src, generator=gen, device=dev).to(bf16),
+            torch.randn(dst, generator=gen, device=dev, dtype=dtype), tables)
+    del she32, cross_terms, rashba_cross
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> None:
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -2407,16 +2911,21 @@ def main() -> None:
         # BM, BN, X k-major, A k-major
         found = re.search(r"dmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)",
                           r["name"])
-        # value type, row tables
-        gather = re.search(r"perm_gather_kernelI(NS_4CplxE|d)Lb(\d)E",
-                           r["name"])
+        # the sums' and the source's types, row tables
+        gather = re.search(r"perm_gather_kernelI(.*?)Lb(\d)E", r["name"])
+        bf16 = re.search(r"factor_matmul_bf16_kernelI(\w)E", r["name"])
         if gather:
-            tag = "c128" if "Cplx" in gather.group(1) else "f64"
+            tag = GATHER_TAGS[gather.group(1)]
             side = ("row tables" if gather.group(2) == "1"
                     else "rows the identity")
             label = (f"perm_gather {tag}, {side}, static smem "
                      f"{r['static_smem_bytes']} B")
             built.add(f"perm_gather {tag} {side}")
+        elif bf16:
+            tag = {"d": "f64", "f": "f32"}[bf16.group(1)]
+            label = (f"factor_matmul bf16 operands into {tag}, static smem "
+                     f"{r['static_smem_bytes']} B")
+            built.add(f"factor_matmul bf16 {tag}")
         elif found:
             bm, bn, xk, ak = map(int, found.groups())
             bits = K.MatmulPlan(bool(xk), False, bool(ak), False, False,
@@ -2442,16 +2951,19 @@ def main() -> None:
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
               f"{r['name']} spills registers")
     check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
-           "ell_spmv c64"} | {f"perm_gather {t} {side}"
-                              for t in ("f64", "c128")
-                              for side in ("row tables",
-                                           "rows the identity")} <= built,
-          f"ell_spmv and perm_gather instantiations: {built}")
-    dmma = build.sass_opcode_counts(lib, "DMMA")
-    say(f"  DMMA instructions in the library's machine code: {dmma} "
-        f"(None: no cuobjdump)")
-    check(dmma is None or sum(dmma.values()) > 0,
-          "the float64 factor_matmul holds no DMMA instruction")
+           "ell_spmv c64", "factor_matmul bf16 f32",
+           "factor_matmul bf16 f64"} | {
+               f"perm_gather {t} {side}" for t in GATHER_TAGS.values()
+               for side in ("row tables", "rows the identity")} <= built,
+          f"ell_spmv, perm_gather and bf16 factor_matmul instantiations: "
+          f"{built}")
+    for opcode, what in (("DMMA", "the float64 factor_matmul"),
+                         ("HMMA", "the bf16 factor_matmul")):
+        found = build.sass_opcode_counts(lib, opcode)
+        say(f"  {opcode} instructions in the library's machine code: "
+            f"{found} (None: no cuobjdump)")
+        check(found is None or sum(found.values()) > 0,
+              f"{what} holds no {opcode} instruction")
 
     # -- 3. kernels against their plain versions ---------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2748,6 +3260,7 @@ def main() -> None:
         f"{eng_she.solve_info.steps}, matvecs {mv_she}, E0 "
         f"{eng_she.ground_energy!r}, wall {wall_she:.3f} s")
     check(eng_she.solve_info.converged, "SuperHubbardExtended unconverged")
+    refs["e0_she"] = eng_she.ground_energy
 
     launches = dict(K.LAUNCHES)
     say(f"main path kernel launches: {launches}")
@@ -3243,7 +3756,15 @@ def main() -> None:
 
     # -- 13. the last command lines and input forms, the native runtime --
     cli_runs, native_line = cli_phase(dev, refs, ell_case)
+
+    # -- 14. float32 solves, their refinement, the bf16 forms ------------
+    low_runs = lowprec_phase(dev, gen, results, refs, ell_case)
     del refs
+    low_forms = {}
+    for counts in low_runs.values():
+        for form, n in counts.items():
+            low_forms[form] = low_forms.get(form, 0) + n
+    say(f"phase 14 kernel launches by form: {low_forms}")
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
@@ -3361,7 +3882,33 @@ def main() -> None:
         ("perm_gather (estimators, cross terms R=16)",
          "estimators: factored t-J FTLM",
          "f64 18-site t-J largest PermCrossTerm, R=16",
-         est_runs["12d ed --ftlm factored 18-site t-J"]["perm_gather"]))
+         est_runs["12d ed --ftlm factored 18-site t-J"]["perm_gather"]),
+        # float32 and complex64 solves with their refinement, the bf16
+        # forms (phase 14), by the form each launch took
+        ("factor_matmul (float32 solves)", "float32 solves",
+         "f32 3432x3432.3432x3432^T", low_forms.get("factor_matmul f32", 0)),
+        ("factor_matmul (bf16 factors, float32 out)",
+         "bf16 factors under a float32 state: 14e's Kitaev ring, 14h's chain",
+         "bf16 22-site Kitaev left half",
+         low_forms.get("factor_matmul bf16_f32", 0)),
+        ("factor_matmul (bf16 factors, float64 out)",
+         "bf16 factors under a float64 state: 14h's chain",
+         "bf16->f64 3432^3", low_forms.get("factor_matmul bf16_f64", 0)),
+        ("ell_spmv (float32)", "float32 solves",
+         "f32 12-site SuperHubbardExtended J-ELL, R=1",
+         low_forms.get("ell_spmv f32", 0)),
+        ("perm_gather (float32)", "float32 solves: factored t-J",
+         "f32 18-site t-J largest PermCrossTerm",
+         low_forms.get("perm_gather f32", 0)),
+        ("perm_gather (complex64)", "complex64 solves: factored Rashba",
+         "c64 12-site Rashba half-cut largest PermCrossTerm",
+         low_forms.get("perm_gather c64", 0)),
+        ("perm_gather (bf16 source, float32 sums)", "bf16cross in float32",
+         "bf16->f32 13-site Rashba half-cut largest PermCrossTerm",
+         low_forms.get("perm_gather bf16_f32", 0)),
+        ("perm_gather (bf16 source, float64 sums)", "bf16cross in float64",
+         "bf16->f64 13-site Rashba half-cut largest PermCrossTerm",
+         low_forms.get("perm_gather bf16_f64", 0)))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -3391,6 +3938,8 @@ def main() -> None:
                                       for counts in est_runs.values()),
                 launches_phase_13=sum(counts[kernel]
                                       for counts in cli_runs.values()),
+                launches_phase_14=sum(n for form, n in low_forms.items()
+                                      if form.split(" ")[0] == kernel),
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(

@@ -6,7 +6,7 @@ it calls):
 
   python -m lanczosplusplus_tpu_torch.cli.lanczos_main -f input.inp
          [-g op] [-c op] [-m spec] [-M spec] [-s "s1,s2"] [-r site]
-         [-p precision] [--device cuda|cpu]
+         [-p precision] [--device cuda|cpu] [--dtype float64|float32]
 
 It prints ``Energy=`` and one ``E[i]=`` line per computed state, runs the
 printmatrix/dumpmatrix oracle, and then the measurements: ``-m`` brakets,
@@ -20,7 +20,10 @@ back to the site basis.  ``--kpm`` and ``--ftlm-dos BETA`` add, for every
 diagonal pair of ``-g``, the local density of states by the kernel
 polynomial method (``<input><counter>.kpmdos``) and by the FTLM
 double-Krylov estimator at inverse temperature BETA
-(``<input><counter>.ftlmdos``).
+(``<input><counter>.ftlmdos``).  ``--dtype float32`` solves the ground
+state in float32 (complex64 with useComplex), the JAX CLI's precision on
+its chip, where x64 is off; ``Energy=`` prints the energy refined to the
+float64 bar, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -50,6 +53,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda; no card "
                         "is an error, not a CPU run)")
+    p.add_argument("--dtype", choices=("float64", "float32"),
+                   default="float64",
+                   help="the solve's real type (default float64); float32 "
+                        "energies are refined to the float64 bar")
     p.add_argument("-g", dest="gf", action="append", default=[],
                    help="spectral-function operator (c, sz, splus, ...)")
     p.add_argument("-c", dest="cicj", action="append", default=[],
@@ -202,7 +209,8 @@ def run(argv=None):
     np.set_printoptions(precision=args.precision)
     inp = read_input(args.input)
     validate_input(inp)
-    config = Config.from_input(inp, device=args.device)
+    config = Config.from_input(inp, device=args.device,
+                               real_dtype=getattr(torch, args.dtype))
     geometry = Geometry(inp)
     model = build_model(inp, geometry)
     engine = Engine(model, inp, config=config)

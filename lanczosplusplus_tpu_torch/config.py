@@ -2,9 +2,12 @@
 
 Counterpart of ``lanczosplusplus_tpu/config.py``.  The reference is double
 precision throughout (reference: src/Engine/LanczosDriver.h:29-33), and
-Hopper has native FP64, so the default is float64 on every device.  The
-device is explicit: asking for ``cuda`` where there is no card raises; it
-never runs on the CPU instead.
+Hopper has native FP64, so the default is float64 on every device.
+float32 (complex64 with useComplex) is the JAX package's precision on its
+own chip, asked for here with ``real_dtype``: its energies are refined to
+the float64 bar (``solver/lanczos._maybe_refine``).  The device is
+explicit: asking for ``cuda`` where there is no card raises; it never runs
+on the CPU instead.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 _REAL_OF = {torch.float64: torch.float64, torch.float32: torch.float32,
             torch.complex128: torch.float64, torch.complex64: torch.float32}
+_COMPLEX_OF = {torch.float64: torch.complex128, torch.float32: torch.complex64}
 _NUMPY_OF = {torch.float64: np.float64, torch.float32: np.float32,
              torch.complex128: np.complex128, torch.complex64: np.complex64}
 
@@ -23,6 +27,11 @@ _NUMPY_OF = {torch.float64: np.float64, torch.float32: np.float32,
 def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
     """float64 for float64/complex128, float32 for float32/complex64."""
     return _REAL_OF[dtype]
+
+
+def complex_dtype_for(real_dtype: torch.dtype) -> torch.dtype:
+    """complex128 for float64, complex64 for float32."""
+    return _COMPLEX_OF[real_dtype]
 
 
 def numpy_dtype(dtype: torch.dtype):
@@ -49,19 +58,27 @@ class Config:
     seed: int = 7239443
     use_complex: bool = False
     device: torch.device | str = "cuda"
+    # float64, or float32 on request (the JAX package's default on its
+    # chip, where x64 is off)
+    real_dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.real_dtype not in _COMPLEX_OF:
+            raise ValueError(f"real_dtype must be torch.float64 or "
+                             f"torch.float32, not {self.real_dtype}")
 
     @classmethod
-    def from_input(cls, inp, device="cuda") -> "Config":
+    def from_input(cls, inp, device="cuda",
+                   real_dtype: torch.dtype = torch.float64) -> "Config":
         """The labels the reference reads into its solver parameters."""
         return cls(use_complex="useComplex" in inp.solver_options(),
                    lanczos_steps=inp.integer("LanczosSteps", default=200),
-                   device=device)
+                   device=device, real_dtype=real_dtype)
 
     @property
     def scalar_dtype(self) -> torch.dtype:
-        """float64, or complex128 with useComplex.  A float32 solve comes
-        back with the refinement it needs (ROADMAP Queue 1 item 11)."""
-        return torch.complex128 if self.use_complex else torch.float64
+        """real_dtype, or its complex type with useComplex."""
+        if self.use_complex:
+            return complex_dtype_for(self.real_dtype)
+        return self.real_dtype

@@ -31,8 +31,14 @@ factors R_n at once, the second with depth nb * rows over the L_n side by
 side) and nb + 1 for a batch.  A ``PermCrossTerm`` is one ``perm_gather``
 launch for all its channels.
 
-The bf16 cross gathers (``state_cast="bf16"``) wait for the float32 path
-and its refinement (ROADMAP Queue 1 item 11) and raise.
+Every term runs in the form's type: float64, float32, complex128 or
+complex64.  The bf16 cross gathers (``make_perm_cross(cross_dtype=
+torch.bfloat16)``, ``state_cast="bf16"``, real types only) round the
+state to bfloat16 once a matvec and gather from that copy through the
+kernel's bfloat16-source form, the amplitudes and sums staying in the
+state's type (JAX ``_cross_state``): such a form is ``quantized``, and
+the solver reorthogonalizes it fully and refines its energies with the
+unquantized operator (``ops/refine``).
 """
 
 from __future__ import annotations
@@ -43,17 +49,17 @@ import functools
 import numpy as np
 import torch
 
-from lanczosplusplus_tpu_torch.config import numpy_dtype
+from lanczosplusplus_tpu_torch.config import numpy_dtype, real_dtype_of
 from lanczosplusplus_tpu_torch.ops import kernels
-
-BF16_CROSS = ("the bf16 cross gathers (SolverOptions=factored,bf16cross) "
-              "wait for the float32 path and its refinement (ROADMAP Queue "
-              "1 item 11)")
 
 
 def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
-    """A contiguous tensor of `dtype` (int32 or a scalar type) on `device`
-    from a host array."""
+    """A contiguous tensor of `dtype` (int32, a scalar type or bfloat16,
+    which numpy lacks: rounded from the host array on the way) on
+    `device` from a host array."""
+    if dtype == torch.bfloat16:
+        return torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype)
     host = np.int32 if dtype == torch.int32 else numpy_dtype(dtype)
     return torch.as_tensor(np.ascontiguousarray(np.asarray(a).astype(host)),
                            device=device)
@@ -100,7 +106,10 @@ class PermCrossTerm:
     Invalid destinations carry amplitude 0 (index 0).  `groups` (channels
     sharing a row map) and `col_groups` (channels sharing a column map and
     amplitudes) are the JAX package's dedup of its bond loop; the plain
-    version follows them, the kernel needs none."""
+    version follows them, the kernel needs none.  `state_cast` "bf16"
+    gathers from the source block rounded to bfloat16 (the amplitude
+    tables stay in the state's type, so the refinement applies the true
+    operator)."""
     row_src: torch.Tensor   # (nb, rows_dst) int32 into src rows
     row_amp: torch.Tensor   # (nb, rows_dst)
     col_src: torch.Tensor   # (nb, cols_dst) int32 into src cols
@@ -109,6 +118,7 @@ class PermCrossTerm:
     dst: int
     groups: tuple | None = None
     col_groups: tuple | None = None
+    state_cast: str | None = None
 
 
 def _signature_groups(keys) -> tuple:
@@ -128,10 +138,12 @@ def make_perm_cross(row_src, row_amp, col_src, col_amp, src, dst,
                     cross_dtype=None) -> PermCrossTerm:
     """PermCrossTerm from host channel tables, on `device`: computes the
     shared-row-map channel groups and the shared-(column map, column
-    amplitude) groups on the host.  A `cross_dtype` below the state's
-    (bf16) raises, naming ROADMAP Queue 1 item 11."""
-    if cross_dtype is not None:
-        raise NotImplementedError(BF16_CROSS)
+    amplitude) groups on the host.  `cross_dtype` torch.bfloat16 gathers
+    a real state's source block in bfloat16 (``state_cast="bf16"``; a
+    complex state is never cast, as in the JAX package)."""
+    if cross_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"make_perm_cross: cross_dtype must be None or "
+                         f"torch.bfloat16, not {cross_dtype}")
     row_src = np.asarray(row_src)
     col_src = np.asarray(col_src)
     col_amp = np.asarray(col_amp)
@@ -143,7 +155,9 @@ def make_perm_cross(row_src, row_amp, col_src, col_amp, src, dst,
         row_amp=to_device(row_amp, dtype, device),
         col_src=to_device(col_src, torch.int32, device),
         col_amp=to_device(col_amp, dtype, device),
-        src=src, dst=dst, groups=groups, col_groups=col_groups)
+        src=src, dst=dst, groups=groups, col_groups=col_groups,
+        state_cast=("bf16" if cross_dtype == torch.bfloat16
+                    and not dtype.is_complex else None))
 
 
 def _cross_half(x, y, right, left_cat) -> None:
@@ -200,9 +214,11 @@ class BlockKronHamiltonian:
 
     @property
     def quantized(self) -> bool:
-        """Whether a stage quantizes the state below the compute type.
-        Never here: the bf16 cross gathers raise (``BF16_CROSS``)."""
-        return False
+        """Whether a stage quantizes the state below the compute type (the
+        bf16 cross gathers): the solver then reorthogonalizes fully, since
+        the selective omega recurrence assumes an exact three-term
+        recurrence (JAX ``BlockKronHamiltonian.quantized``)."""
+        return any(t.state_cast is not None for t in self.perm_cross)
 
     @property
     def nnz(self) -> int:
@@ -313,8 +329,12 @@ class BlockKronHamiltonian:
             _cross_half(xs[t.src], ys[t.dst], t.right, t.left_cat)
             if t.add_hc:
                 _cross_half(xs[t.dst], ys[t.src], t.right_h, t.left_h_cat)
+        # the bf16cross source blocks: the state rounded once a matvec
+        xs_bf16 = (self._split(xk.to(torch.bfloat16)) if self.quantized
+                   else None)
         for t in self.perm_cross:
-            kernels.perm_gather(xs[t.src], ys[t.dst], rs=t.row_src,
+            src = xs[t.src] if t.state_cast is None else xs_bf16[t.src]
+            kernels.perm_gather(src, ys[t.dst], rs=t.row_src,
                                 a=t.row_amp, cs=t.col_src, beta=t.col_amp,
                                 groups=t.groups, col_groups=t.col_groups)
         return y
@@ -390,7 +410,8 @@ class PermutedHamiltonian:
     inner: BlockKronHamiltonian
     perm: torch.Tensor   # block position p -> flat index perm[p]
     inv: torch.Tensor    # flat index f -> block position inv[f]
-    sign: torch.Tensor | None = None   # (dim,) inner order, real +-1
+    sign: torch.Tensor | None = None   # (dim,) inner order, +-1 of the
+    #                                     inner form's real type
 
     @property
     def dim(self) -> int:
@@ -447,5 +468,5 @@ def permuted(inner: BlockKronHamiltonian, perm: np.ndarray,
     return PermutedHamiltonian(
         inner=inner, perm=torch.as_tensor(perm, device=dev),
         inv=torch.as_tensor(inv, device=dev),
-        sign=None if sign is None else torch.as_tensor(
-            np.asarray(sign, dtype=np.float64), device=dev))
+        sign=None if sign is None else to_device(
+            sign, real_dtype_of(inner.dtype), dev))

@@ -24,6 +24,12 @@ generic ELL part go through the ``ell_spmv`` kernel.  A batch of states
 is a batch-major (R, dim) block, viewed as (R, size_down, size_up): the
 up GEMM folds (R, size_down) into its rows, the dn GEMM and the ELL
 kernel take the batch in one launch each (``matmat_t``).
+
+Every form runs in float64, float32, complex128 or complex64.  Dense
+factors may be stored in bfloat16 below a real state's type
+(``densify_factors(factor_dtype=torch.bfloat16)``): the state is then
+rounded to bfloat16 before the GEMMs, which sum in float32 into the
+state's type (JAX ``_downcast_state``), and the form is ``quantized``.
 """
 
 from __future__ import annotations
@@ -190,11 +196,17 @@ class SpinFactorizedPart:
         whole block: a dense up factor with (R, size_down) folded into the
         GEMM's rows, a dense dn factor batched over transposed views; a
         factor in gather form one ``perm_gather``, up with the rows the
-        identity and the columns gathered, dn the other way round."""
+        identity and the columns gathered, dn the other way round.  A
+        bfloat16 dense factor meets the state rounded to bfloat16 once."""
+        xq = x
+        if any(d is not None and d.dtype == torch.bfloat16
+               for d in (self.up_dense, self.dn_dense)):
+            xq = x.to(torch.bfloat16)
         if self.up_dense is not None:
             # y[b, d, u] += sum_c x[b, d, c] A_up[u, c]
             szu = x.shape[-1]
-            kernels.factor_matmul(x.view(-1, szu), self.up_dense,
+            xu = xq if self.up_dense.dtype == torch.bfloat16 else x
+            kernels.factor_matmul(xu.reshape(-1, szu), self.up_dense,
                                   out=y.view(-1, szu), accumulate=True)
         elif self.up_gather is not None:
             # y[b, d, u] += sum_k vals[u, k] x[b, d, cols[u, k]]
@@ -203,7 +215,8 @@ class SpinFactorizedPart:
         if self.dn_dense is not None:
             # y[b, d, u] += sum_c A_dn[d, c] x[b, c, u], as
             # y[b]^T += x[b]^T . A_dn^T on transposed views
-            kernels.factor_matmul(x.transpose(-1, -2), self.dn_dense,
+            xd = xq if self.dn_dense.dtype == torch.bfloat16 else x
+            kernels.factor_matmul(xd.transpose(-1, -2), self.dn_dense,
                                   out=y.transpose(-1, -2), accumulate=True)
         elif self.dn_gather is not None:
             # y[b, d, u] += sum_k vals[d, k] x[b, cols[d, k], u]
@@ -240,6 +253,17 @@ class Hamiltonian:
                     return v.dtype
         return self.diag.dtype
 
+    @property
+    def quantized(self) -> bool:
+        """Whether a dense factor is stored below the state's type
+        (bfloat16), so that the matvec rounds the state: the solver then
+        reorthogonalizes fully and refines the energies with the factors'
+        gather maps in float64."""
+        f = self.factorized
+        return f is not None and any(
+            d is not None and d.dtype == torch.bfloat16
+            for d in (f.up_dense, f.dn_dense))
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """H x for one contiguous (dim,) state."""
         return self.matmat_t(x)
@@ -264,7 +288,9 @@ class Hamiltonian:
         batch-major copy, seen transposed again."""
         return self.matmat_t(x.T.contiguous()).T
 
-    def densify_factors(self, max_bytes: int | None = None) -> "Hamiltonian":
+    def densify_factors(self, max_bytes: int | None = None,
+                        factor_dtype: torch.dtype | None = None
+                        ) -> "Hamiltonian":
         """Materialize the Kronecker one-spin factors as dense matrices
         when each fits in `max_bytes`, so matvec runs as GEMMs.  By
         default a factor may take a quarter of the card's free memory
@@ -273,10 +299,22 @@ class Hamiltonian:
         sector may mix the two forms; ``max_bytes=0`` keeps both in gather
         form.  The ELL maps are kept alongside, so ``to_dense`` keeps
         working.  A Hamiltonian that is densified already comes back as it
-        is."""
+        is.
+
+        `factor_dtype` torch.bfloat16 stores the dense factors in bf16
+        below a real state's type (JAX ``densify_factors(factor_dtype=)``):
+        their GEMMs take ``factor_matmul``'s bf16 form, and the state is
+        rounded to bf16 for them (``quantized``)."""
         f = self.factorized
         if f is None or f.up_dense is not None or f.dn_dense is not None:
             return self
+        if factor_dtype not in (None, torch.bfloat16, self.dtype):
+            raise ValueError(f"densify_factors: factor_dtype must be None, "
+                             f"torch.bfloat16 or {self.dtype}, not "
+                             f"{factor_dtype}")
+        if factor_dtype == torch.bfloat16 and self.dtype.is_complex:
+            raise ValueError("densify_factors: bfloat16 factors take a real "
+                             f"state, not {self.dtype}")
         on_cuda = self.device.type == "cuda"
         if max_bytes is None:
             max_bytes = (torch.cuda.mem_get_info(self.device)[0] // 4
@@ -288,7 +326,8 @@ class Hamiltonian:
             size = cols.shape[0]
             if size * size * vals.element_size() > max_bytes:
                 return None
-            return _dense_from_ell(cols, vals)
+            dense = _dense_from_ell(cols, vals)
+            return dense if factor_dtype is None else dense.to(factor_dtype)
 
         up_d = densify(f.up_cols, f.up_vals)
         dn_d = densify(f.dn_cols, f.dn_vals)

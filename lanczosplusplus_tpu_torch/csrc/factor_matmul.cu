@@ -1,5 +1,5 @@
 // factor_matmul: Y[m, n] (+)= sum_k X[m, k] * A[n, k], an NT GEMM on
-// strided operands, for float64 and float32.
+// strided operands, for float64, float32 and bfloat16 operands.
 //
 // Replaces the Pallas TPU kernel lanczosplusplus_tpu/ops/pallas_kernels.py
 // factor_matmul (body _matmul_kernel).  On the main path X is the
@@ -55,6 +55,34 @@
 // float32 has no exact tensor-core route (TF32 rounds the inputs) and is
 // off the main path: it keeps the SIMT kernel, a 64 x 64 tile per
 // 256-thread block with a 4 x 4 register micro-tile per thread.
+//
+// bfloat16 operands (the TPU kernel's own contract: bf16 X and A, float32
+// accumulation, pallas_kernels.py preferred_element_type=jnp.float32) run
+// on the tensor cores with the warp-level
+//   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// whose fragments hold pairs of k-neighbours in one 32-bit register.  With
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row): a[0] = A[g][2t, 2t+1],     a[1] = A[g+8][2t, 2t+1],
+//                     a[2] = A[g][2t+8, 2t+9],   a[3] = A[g+8][2t+8, 2t+9]
+//   B (16 x 8, col):  b[0] = B[2t, 2t+1][g],     b[1] = B[2t+8, 2t+9][g]
+//   C (16 x 8, f32):  c[2 h + e] = C[g + 8 h][2 t + e]
+// (ops/kernels.py bf16_fragment_map).  As for DMMA the instruction's "A" is
+// a 16-row slab of X and its "B" an 8-row slab of the factor, both
+// indexed (row, k), so each register is two k-neighbours of one row: both
+// operands are staged k-major, [row][k] with a pitch of 40 bf16 (20
+// words, which spreads a fragment load of 8 rows x 4 words over all 32
+// banks).  A block of 256 threads owns a 128 x 128 output tile (8 warps,
+// each 64 x 32: 4 x 4 m16n8 accumulators, 64 floats a thread) and walks k
+// in 32-deep stages through two shared-memory buffers; the next stage's
+// elements are loaded into registers while the tensor cores work on this
+// one, one element a load along the operand's contiguous axis (any
+// strides; ragged edges and the k tail read as zeros).  This is the
+// simple form: it is bound by its loads and address arithmetic, not the
+// tensor cores (989 TFLOP/s dense bf16); TMA and wgmma are the way to the
+// card's rate.  The product of two bf16 values is exact in float32, so
+// the result differs from a float32 product of the widened operands only
+// by the order of the float32 sums.  The float32 sums are converted to Y's
+// type (float32 or float64) and stored, or added to Y.
 //
 // `accumulate` adds the product into Y so the diagonal term and both
 // factor applies can write one output.
@@ -546,6 +574,202 @@ factor_matmul_simt_kernel(const T* __restrict__ X, long long xsb,
   }
 }
 
+// ---------------------------------------------------------------------
+// bfloat16 operands, float32 accumulation: m16n8k16 tensor-core kernel
+// ---------------------------------------------------------------------
+
+constexpr int HBM = 128;  // output rows per block
+constexpr int HBN = 128;  // output columns per block
+constexpr int HBK = 32;   // contraction depth of one stage
+constexpr int HWM = 64;   // warp tile
+constexpr int HWN = 32;
+constexpr int HWARPS_M = HBM / HWM;
+constexpr int HNT = HWARPS_M * (HBN / HWN) * 32;  // 256 threads
+constexpr int HPITCH = HBK + 8;                   // bf16 a staged row
+constexpr int HMT = HWM / 16;                     // m16 tiles a warp
+constexpr int HNTL = HWN / 8;                     // n8 tiles a warp
+// elements of one operand's stage a thread loads (both operands: 128 rows)
+constexpr int HLOADS = HBM * HBK / HNT;
+static_assert(HBM == HBN && HBM * HBK % HNT == 0, "staging layout");
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The (row, k) of element q of a thread's share of a 128 x 32 stage: along
+// k when k is the operand's contiguous axis (s1 == 1), else along rows, so
+// neighbouring threads read neighbouring addresses either way.
+__device__ __forceinline__ void stage_coords(bool kfast, int tid, int q,
+                                             int& r, int& kk) {
+  const int e = tid + q * HNT;
+  if (kfast) {
+    r = e / HBK;
+    kk = e % HBK;
+  } else {
+    r = e % HBM;
+    kk = e / HBM;
+  }
+}
+
+// Load a thread's share of the stage [row0, row0 + 128) x [k0, k0 + 32) of
+// the strided bf16 matrix M (element (r, k) at M[r * s0 + k * s1]) into
+// registers, zeros outside it.
+__device__ __forceinline__ void load_stage(unsigned short (&v)[HLOADS],
+                                           const unsigned short* M,
+                                           long long s0, long long s1,
+                                           int row0, int nrows, int k0,
+                                           int kdim, int tid) {
+  const bool kfast = s1 == 1;
+#pragma unroll
+  for (int q = 0; q < HLOADS; ++q) {
+    int r, kk;
+    stage_coords(kfast, tid, q, r, kk);
+    const int gr = row0 + r, gk = k0 + kk;
+    v[q] = (gr < nrows && gk < kdim)
+               ? __ldg(M + static_cast<long long>(gr) * s0 +
+                       static_cast<long long>(gk) * s1)
+               : static_cast<unsigned short>(0);
+  }
+}
+
+__device__ __forceinline__ void store_stage(unsigned short* tile,
+                                            const unsigned short (&v)[HLOADS],
+                                            bool kfast, int tid) {
+#pragma unroll
+  for (int q = 0; q < HLOADS; ++q) {
+    int r, kk;
+    stage_coords(kfast, tid, q, r, kk);
+    tile[r * HPITCH + kk] = v[q];
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(HNT)
+factor_matmul_bf16_kernel(const unsigned short* __restrict__ X,
+                          long long xsb, long long xs0, long long xs1,
+                          const unsigned short* __restrict__ A,
+                          long long asb, long long as0, long long as1,
+                          OutT* __restrict__ Y, long long ysb, long long ys0,
+                          long long ys1, int m, int n, int k,
+                          int accumulate) {
+  // two buffers a operand, [row][k] with pitch HPITCH
+  __shared__ __align__(16) unsigned short Xs[2][HBM * HPITCH];
+  __shared__ __align__(16) unsigned short As[2][HBN * HPITCH];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wm0 = (warp % HWARPS_M) * HWM;
+  const int wn0 = (warp / HWARPS_M) * HWN;
+  const int m0 = blockIdx.y * HBM;
+  const int n0 = blockIdx.x * HBN;
+  X += blockIdx.z * xsb;  // batch member
+  A += blockIdx.z * asb;
+  Y += blockIdx.z * ysb;
+  const bool xk = xs1 == 1, ak = as1 == 1;
+
+  float acc[HMT][HNTL][4];
+#pragma unroll
+  for (int i = 0; i < HMT; ++i)
+#pragma unroll
+    for (int j = 0; j < HNTL; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+  unsigned short xv[HLOADS], av[HLOADS];
+  load_stage(xv, X, xs0, xs1, m0, m, 0, k, tid);
+  load_stage(av, A, as0, as1, n0, n, 0, k, tid);
+  store_stage(Xs[0], xv, xk, tid);
+  store_stage(As[0], av, ak, tid);
+  __syncthreads();
+
+  const int stages = (k + HBK - 1) / HBK;
+  for (int kt = 0; kt < stages; ++kt) {
+    const int buf = kt % 2;
+    const bool more = kt + 1 < stages;
+    // the next stage's loads are in flight while this one's MMAs run
+    if (more) {
+      load_stage(xv, X, xs0, xs1, m0, m, (kt + 1) * HBK, k, tid);
+      load_stage(av, A, as0, as1, n0, n, (kt + 1) * HBK, k, tid);
+    }
+    const unsigned short* xs = Xs[buf];
+    const unsigned short* as = As[buf];
+#pragma unroll
+    for (int kk = 0; kk < HBK; kk += 16) {
+      uint32_t bfrag[HNTL][2];
+#pragma unroll
+      for (int j = 0; j < HNTL; ++j) {
+        const unsigned short* p = as + (wn0 + 8 * j + g) * HPITCH + kk + 2 * t;
+        bfrag[j][0] = *reinterpret_cast<const uint32_t*>(p);
+        bfrag[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < HMT; ++i) {
+        const unsigned short* p = xs + (wm0 + 16 * i + g) * HPITCH + kk + 2 * t;
+        uint32_t afrag[4];
+        afrag[0] = *reinterpret_cast<const uint32_t*>(p);
+        afrag[1] = *reinterpret_cast<const uint32_t*>(p + 8 * HPITCH);
+        afrag[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        afrag[3] = *reinterpret_cast<const uint32_t*>(p + 8 * HPITCH + 8);
+#pragma unroll
+        for (int j = 0; j < HNTL; ++j) mma_bf16(acc[i][j], afrag, bfrag[j]);
+      }
+    }
+    if (more) {
+      // the other buffer was last read in stage kt - 1, before the
+      // barrier that ended it
+      store_stage(Xs[buf ^ 1], xv, xk, tid);
+      store_stage(As[buf ^ 1], av, ak, tid);
+    }
+    __syncthreads();
+  }
+
+  // c[2 h + e] = C[g + 8 h][2 t + e]
+#pragma unroll
+  for (int i = 0; i < HMT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wm0 + 16 * i + g + 8 * h;
+      if (gm >= m) continue;
+#pragma unroll
+      for (int j = 0; j < HNTL; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gn = n0 + wn0 + 8 * j + 2 * t + e;
+          if (gn >= n) continue;
+          OutT* p = Y + gm * ys0 + gn * ys1;
+          const OutT v = static_cast<OutT>(acc[i][j][2 * h + e]);
+          *p = accumulate ? *p + v : v;
+        }
+      }
+    }
+  }
+}
+
+template <typename OutT>
+int launch_bf16(const void* x, long long xsb, long long xs0, long long xs1,
+                const void* a, long long asb, long long as0, long long as1,
+                void* y, long long ysb, long long ys0, long long ys1,
+                int batch, int m, int n, int k, int accumulate,
+                void* stream) {
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid((n + HBN - 1) / HBN, (m + HBM - 1) / HBM, batch);
+  factor_matmul_bf16_kernel<OutT>
+      <<<grid, HNT, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const unsigned short*>(x), xsb, xs0, xs1,
+          static_cast<const unsigned short*>(a), asb, as0, as1,
+          static_cast<OutT*>(y), ysb, ys0, ys1, m, n, k, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Strides in elements; xsb, asb and ysb step from one batch member to the
@@ -606,4 +830,24 @@ extern "C" int lpp_factor_matmul_f32(const void* x, long long xsb,
           static_cast<const float*>(a), asb, as0, as1,
           static_cast<float*>(y), ysb, ys0, ys1, m, n, k, accumulate);
   return static_cast<int>(cudaGetLastError());
+}
+
+// bfloat16 X and A (their 16 bits), float32 sums, Y float32 (_f32) or
+// float64 (_f64); the arguments as for the float32 kernel.
+extern "C" int lpp_factor_matmul_bf16_f32(
+    const void* x, long long xsb, long long xs0, long long xs1, const void* a,
+    long long asb, long long as0, long long as1, void* y, long long ysb,
+    long long ys0, long long ys1, int batch, int m, int n, int k,
+    int accumulate, void* stream) {
+  return launch_bf16<float>(x, xsb, xs0, xs1, a, asb, as0, as1, y, ysb, ys0,
+                            ys1, batch, m, n, k, accumulate, stream);
+}
+
+extern "C" int lpp_factor_matmul_bf16_f64(
+    const void* x, long long xsb, long long xs0, long long xs1, const void* a,
+    long long asb, long long as0, long long as1, void* y, long long ysb,
+    long long ys0, long long ys1, int batch, int m, int n, int k,
+    int accumulate, void* stream) {
+  return launch_bf16<double>(x, xsb, xs0, xs1, a, asb, as0, as1, y, ysb, ys0,
+                             ys1, batch, m, n, k, accumulate, stream);
 }

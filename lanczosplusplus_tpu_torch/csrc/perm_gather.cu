@@ -1,8 +1,10 @@
 // perm_gather: Y[b, r, c] += sum_n a[n, r] * beta[n, c] * X[b, rs[n, r], cs[n, c]]
 // for a batch of strided 2-D blocks X (batch, rows_src, cols_src) and Y
 // (batch, rows, cols), int32 index tables rs (nb, rows) and cs (nb, cols),
-// amplitude tables a (nb, rows) and beta (nb, cols) of the state's type,
-// float64 or complex128.  Either side may be the identity with amplitude 1:
+// amplitude tables a (nb, rows) and beta (nb, cols) of the state's type:
+// float64, float32, complex128 or complex64.  A bfloat16 source block X
+// meets float32 or float64 amplitudes and Y (the bf16cross form below).
+// Either side may be the identity with amplitude 1:
 // a null rs reads row r, a null cs column c, a null a or beta multiplies by
 // 1.  Destinations a channel does not reach carry amplitude 0 (at index 0
 // or at their own index).
@@ -51,10 +53,22 @@
 // result is bit-equal to it: float64 through __dmul_rn and __dadd_rn,
 // which are never fused; a complex128 sum likewise, while its product is
 // written as torch's c10::complex multiply is, and nvcc contracts it into
-// FMAs as it does torch's own, which the card tests hold bit for bit.
-// P is fixed by the type: 16 bytes of sums, float64 P = 2, complex128
-// P = 1, the fastest of P = 1, 2, 4 on chip_smoke.py phase 10's cases:
-// more holds more registers and leaves fewer threads to hide the loads.
+// FMAs as it does torch's own, which the card tests hold bit for bit;
+// float32 and complex64 the same way with the float intrinsics.
+// P is fixed by the type of the sums: 16 bytes of them, float64 P = 2,
+// complex128 P = 1, the fastest of P = 1, 2, 4 on chip_smoke.py phase
+// 10's cases: more holds more registers and leaves fewer threads to hide
+// the loads.  float32 takes P = 4 and complex64 P = 2 by the same rule:
+// the same bytes of sums and of gathers in flight a thread, and the same
+// register budget (a pair's row pointer is 8 bytes whatever the type).
+//
+// bf16cross.  The bfloat16 source form is the JAX package's state_cast
+// "bf16" (core/blockkron.py _cross_state and _perm_cross_apply): the
+// caller rounds the source block to bfloat16 once, the gathers read half
+// the bytes, and each gathered value is widened exactly to the
+// amplitudes' type before the products, which are rounded and summed in
+// that type as above.  So it equals the plain version on the widened
+// block bit for bit.
 // Offsets are 64-bit: a batch of 14 states of the 20-site sector (35 M
 // each) passes 2^31 elements, and a group may span two batch members; the
 // pair count is within int32 and walked unsigned, so the step past the
@@ -67,45 +81,81 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MAX_GRID_Y = 65535;
 
-// Complex scalar: the arithmetic perm_gather needs and no more.
+// Complex scalar of real part type R: the arithmetic perm_gather needs
+// and no more.
+template <typename R>
 struct Cplx {
-  double re, im;
+  R re, im;
   __device__ __forceinline__ Cplx() {}
-  __device__ __forceinline__ explicit Cplx(double r) : re(r), im(0) {}
-  __device__ __forceinline__ Cplx(double r, double i) : re(r), im(i) {}
+  __device__ __forceinline__ explicit Cplx(R r) : re(r), im(0) {}
+  __device__ __forceinline__ Cplx(R r, R i) : re(r), im(i) {}
 };
 
 // As c10::complex multiplies, left to nvcc to contract into FMAs as it
 // contracts torch's own complex product on the card.
-__device__ __forceinline__ Cplx operator*(const Cplx& a, const Cplx& b) {
-  return Cplx(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
+template <typename R>
+__device__ __forceinline__ Cplx<R> operator*(const Cplx<R>& a,
+                                             const Cplx<R>& b) {
+  return Cplx<R>(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
 }
 
 // The plain version multiplies and adds in separate tensor operations,
-// each rounded: so do these (the float64 intrinsics are never fused; a
-// complex product is rounded as torch's is, above).
+// each rounded: so do these (the intrinsics are never fused; a complex
+// product is rounded as torch's is, above).
 __device__ __forceinline__ double mul(double a, double b) {
   return __dmul_rn(a, b);
 }
-__device__ __forceinline__ Cplx mul(const Cplx& a, const Cplx& b) {
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R> mul(const Cplx<R>& a, const Cplx<R>& b) {
   return a * b;
 }
 __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
 }
-__device__ __forceinline__ Cplx add(const Cplx& a, const Cplx& b) {
-  return Cplx(__dadd_rn(a.re, b.re), __dadd_rn(a.im, b.im));
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+template <typename R>
+__device__ __forceinline__ Cplx<R> add(const Cplx<R>& a, const Cplx<R>& b) {
+  return Cplx<R>(add(a.re, b.re), add(a.im, b.im));
 }
 
 __device__ __forceinline__ double ld(const double* p) { return __ldg(p); }
-__device__ __forceinline__ Cplx ld(const Cplx* p) {
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ Cplx<double> ld(const Cplx<double>* p) {
   const double2 t = __ldg(reinterpret_cast<const double2*>(p));
-  return Cplx(t.x, t.y);
+  return Cplx<double>(t.x, t.y);
+}
+__device__ __forceinline__ Cplx<float> ld(const Cplx<float>* p) {
+  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+  return Cplx<float>(t.x, t.y);
+}
+
+// A bfloat16 value, as its 16 bits: the high half of a float32.
+struct Bf16 {
+  unsigned short bits;
+};
+
+// A gathered source value in the sums' type T: as it is, or a bfloat16
+// widened exactly (its bits are the high half of the float32).
+template <typename T>
+__device__ __forceinline__ T ldx(const T* p) {
+  return ld(p);
+}
+template <typename T>
+__device__ __forceinline__ T ldx(const Bf16* p) {
+  const unsigned b = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return static_cast<T>(__uint_as_float(b << 16));
 }
 
 __device__ __forceinline__ bool is_zero(double v) { return v == 0.0; }
-__device__ __forceinline__ bool is_zero(const Cplx& v) {
-  return v.re == 0.0 && v.im == 0.0;
+__device__ __forceinline__ bool is_zero(float v) { return v == 0.0f; }
+template <typename R>
+__device__ __forceinline__ bool is_zero(const Cplx<R>& v) {
+  return v.re == R(0) && v.im == R(0);
 }
 
 // P, the (b, r) pairs a thread carries: 16 bytes of sums.
@@ -119,9 +169,11 @@ __host__ __device__ constexpr int pairs_of() {
 // allowed, and every register fewer is more threads to hide the loads.
 constexpr int MIN_BLOCKS = 10;
 
-template <typename T, bool ROWS>
+// T: the type of the amplitudes, the sums and Y; XT: the source block's
+// (T, or Bf16 for the bf16cross form).
+template <typename T, typename XT, bool ROWS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-perm_gather_kernel(const T* __restrict__ X, long long xsb, long long xs0,
+perm_gather_kernel(const XT* __restrict__ X, long long xsb, long long xs0,
                    long long xs1, T* __restrict__ Y, long long ysb,
                    long long ys0, long long ys1, const int* __restrict__ rs,
                    const T* __restrict__ ra, const int* __restrict__ cs,
@@ -133,7 +185,7 @@ perm_gather_kernel(const T* __restrict__ X, long long xsb, long long xs0,
   for (unsigned p0 = blockIdx.y * P; p0 < pairs; p0 += gridDim.y * P) {
     const int live = min(static_cast<int>(pairs - p0), P);
     int r[P];
-    const T* xb[P];  // the pair's batch member of X
+    const XT* xb[P];  // the pair's batch member of X
     T acc[P];
 #pragma unroll
     for (int i = 0; i < P; ++i) {
@@ -175,8 +227,8 @@ perm_gather_kernel(const T* __restrict__ X, long long xsb, long long xs0,
 #pragma unroll
       for (int i = 0; i < P; ++i) {
         if (i < live && !is_zero(be) && !is_zero(a[i]))
-          acc[i] = add(acc[i], mul(mul(a[i], ld(xb[i] + sr[i] * xs0 +
-                                                sc * xs1)),
+          acc[i] = add(acc[i], mul(mul(a[i], ldx<T>(xb[i] + sr[i] * xs0 +
+                                                    sc * xs1)),
                                    be));
       }
     }
@@ -190,7 +242,7 @@ perm_gather_kernel(const T* __restrict__ X, long long xsb, long long xs0,
   }
 }
 
-template <typename T, bool ROWS>
+template <typename T, typename XT, bool ROWS>
 int launch_rows(const void* x, long long xsb, long long xs0, long long xs1,
                 void* y, long long ysb, long long ys0, long long ys1,
                 const void* rs, const void* ra, const void* cs,
@@ -200,16 +252,16 @@ int launch_rows(const void* x, long long xsb, long long xs0, long long xs1,
   const unsigned groups = (pairs + P - 1) / P;
   const dim3 grid((cols + THREADS - 1) / THREADS,
                   groups < MAX_GRID_Y ? groups : MAX_GRID_Y);
-  perm_gather_kernel<T, ROWS><<<grid, THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), xsb, xs0, xs1, static_cast<T*>(y), ysb, ys0,
+  perm_gather_kernel<T, XT, ROWS><<<grid, THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const XT*>(x), xsb, xs0, xs1, static_cast<T*>(y), ysb, ys0,
       ys1, static_cast<const int*>(rs), static_cast<const T*>(ra),
       static_cast<const int*>(cs), static_cast<const T*>(ca), nb, rows, cols,
       pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename XT = T>
 int launch(const void* x, long long xsb, long long xs0, long long xs1,
            void* y, long long ysb, long long ys0, long long ys1,
            const void* rs, const void* ra, const void* cs, const void* ca,
@@ -218,37 +270,37 @@ int launch(const void* x, long long xsb, long long xs0, long long xs1,
   if (pairs > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   return rs != nullptr || ra != nullptr
-             ? launch_rows<T, true>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs,
-                                    ra, cs, ca, nb, rows, cols,
-                                    static_cast<unsigned>(pairs), stream)
-             : launch_rows<T, false>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs,
-                                     ra, cs, ca, nb, rows, cols,
-                                     static_cast<unsigned>(pairs), stream);
+             ? launch_rows<T, XT, true>(x, xsb, xs0, xs1, y, ysb, ys0, ys1,
+                                        rs, ra, cs, ca, nb, rows, cols,
+                                        static_cast<unsigned>(pairs), stream)
+             : launch_rows<T, XT, false>(x, xsb, xs0, xs1, y, ysb, ys0, ys1,
+                                         rs, ra, cs, ca, nb, rows, cols,
+                                         static_cast<unsigned>(pairs),
+                                         stream);
 }
 
 }  // namespace
 
 // Strides in elements; xsb and ysb step from one batch member to the next.
 // rs, ra, cs, ca: contiguous (nb, rows) / (nb, cols) tables or null (the
-// identity, amplitude 1).  batch * rows within int32.  Returns the launch's cudaError (0 on success).
-extern "C" int lpp_perm_gather_f64(const void* x, long long xsb,
-                                   long long xs0, long long xs1, void* y,
-                                   long long ysb, long long ys0,
-                                   long long ys1, const void* rs,
-                                   const void* ra, const void* cs,
-                                   const void* ca, int nb, int rows, int cols,
-                                   int batch, void* stream) {
-  return launch<double>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs, ca,
-                        nb, rows, cols, batch, stream);
-}
+// identity, amplitude 1).  batch * rows within int32.  Returns the
+// launch's cudaError (0 on success).  The suffix names the type of the
+// amplitudes, sums and Y; bf16_ in front, a bfloat16 source block X.
+#define LPP_PERM_GATHER(NAME, T, XT)                                        \
+  extern "C" int NAME(const void* x, long long xsb, long long xs0,          \
+                      long long xs1, void* y, long long ysb, long long ys0, \
+                      long long ys1, const void* rs, const void* ra,        \
+                      const void* cs, const void* ca, int nb, int rows,     \
+                      int cols, int batch, void* stream) {                  \
+    return launch<T, XT>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs,    \
+                         ca, nb, rows, cols, batch, stream);                \
+  }
 
-extern "C" int lpp_perm_gather_c128(const void* x, long long xsb,
-                                    long long xs0, long long xs1, void* y,
-                                    long long ysb, long long ys0,
-                                    long long ys1, const void* rs,
-                                    const void* ra, const void* cs,
-                                    const void* ca, int nb, int rows,
-                                    int cols, int batch, void* stream) {
-  return launch<Cplx>(x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs, ca, nb,
-                      rows, cols, batch, stream);
-}
+LPP_PERM_GATHER(lpp_perm_gather_f64, double, double)
+LPP_PERM_GATHER(lpp_perm_gather_f32, float, float)
+LPP_PERM_GATHER(lpp_perm_gather_c128, Cplx<double>, Cplx<double>)
+LPP_PERM_GATHER(lpp_perm_gather_c64, Cplx<float>, Cplx<float>)
+LPP_PERM_GATHER(lpp_perm_gather_bf16_f64, double, Bf16)
+LPP_PERM_GATHER(lpp_perm_gather_bf16_f32, float, Bf16)
+
+#undef LPP_PERM_GATHER

@@ -22,6 +22,14 @@ Hamiltonian's: a model may force a complex one whatever the input asks,
 and a complex momentum sector makes the later sector Hamiltonians complex
 (``scalar_dtype``).
 
+``Config.real_dtype`` float32 runs the ground state in float32 (complex64)
+in the flat, factored and dense forms, with its energies refined to the
+float64 bar (``solver/lanczos._maybe_refine``), and the static
+observables from that state; the symmetry sectors, the spectral functions
+and the estimators take float64 only and raise for float32 (ROADMAP
+Queue 1 item 11b).  ``SolverOptions=factored,bf16cross`` gathers the
+cut-crossing terms of a real state from its bfloat16 copy.
+
 States are tensors on the configured device; operator index maps are
 built on the host in numpy and applied there as ``index_add_`` scatters.
 """
@@ -32,7 +40,6 @@ import numpy as np
 import torch
 
 from lanczosplusplus_tpu_torch.config import Config
-from lanczosplusplus_tpu_torch.core.blockkron import BF16_CROSS
 from lanczosplusplus_tpu_torch.engine import operators as ops
 from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
 from lanczosplusplus_tpu_torch.engine.spectral import (
@@ -69,22 +76,26 @@ class Engine:
         self.parts = model.default_parts(inp)
         self.basis = model.create_basis(self.parts)
         self._flat_ham = None
+        # the float64 form the target sector's float32 form was cast from,
+        # held for the ground state's refinement and dropped after it
+        self._ham64 = None
         self._factored = False
         self._complex_state = False
         self.factored_fallback_reason = None
         # symmetry sectors take precedence over SolverOptions=factored
         use_symmetry = (inp.integer("UseTranslationSymmetry", default=0) or
                         inp.integer("UseReflectionSymmetry", default=0))
+        if use_symmetry:
+            self._float64_only("the symmetry sectors")
         if "factored" in inp.solver_options() and not use_symmetry:
-            if "bf16cross" in inp.solver_options():
-                raise NotImplementedError(BF16_CROSS)
             # models and inputs without a factored form fall back to the
             # flat form, with the reason logged and kept in solve_info
             ham_f = self._factored_hamiltonian(self.parts, self.basis,
                                                warn=self._warn_fallback)
             if ham_f is not None:
                 self._factored = True
-                self._ham_cache = {self.parts: ham_f}
+                self._ham_cache = {self.parts: self._solve_form(self.parts,
+                                                                ham_f)}
         with self.progress.phase(
                 f"diagonalization dim={self.basis.size}"):
             if use_symmetry:
@@ -95,8 +106,42 @@ class Engine:
                     num_states=self.excited + 1,
                     seed=self.config.seed,
                     max_steps=self.config.lanczos_steps,
-                    return_info=True, v0=v0)
+                    return_info=True, v0=v0,
+                    refine=self._refine_target())
+                self._ham64 = None
                 self._log_solve(info)
+
+    def _solve_form(self, parts, ham64):
+        """The form the solver applies in a sector, from its float64 form:
+        that form itself, or under ``real_dtype`` float32 its float32 copy
+        (``ops/refine.narrowed``).  The target sector's float64 form is
+        kept until the ground state's energies are refined against it; no
+        other sector's is kept."""
+        if self.config.real_dtype == torch.float64:
+            return ham64
+        from lanczosplusplus_tpu_torch.ops.refine import narrowed
+        if parts == self.parts and not hasattr(self, "_energies"):
+            self._ham64 = ham64
+        return narrowed(ham64)
+
+    def _refine_target(self):
+        """What the ground state's solve refines its energies against: the
+        float64 form its float32 form was cast from, without bf16 stages
+        (so a coupling float32 cannot hold keeps its float64 value), or
+        True (the solved form's own tables in float64)."""
+        if self._ham64 is None:
+            return True
+        from lanczosplusplus_tpu_torch.ops.refine import f64_twin
+        return f64_twin(self._ham64)
+
+    def _float64_only(self, what: str) -> None:
+        """Raise for a float32 configuration where `what` is not carried
+        in float32 yet."""
+        if self.config.real_dtype != torch.float64:
+            raise NotImplementedError(
+                f"{what} run in float64 only; float32 "
+                f"({self.config.real_dtype}) waits for ROADMAP Queue 1 "
+                f"item 11b")
 
     def _warn_fallback(self, reason: str):
         self.factored_fallback_reason = reason
@@ -113,6 +158,13 @@ class Engine:
         if self._complex_state:
             return torch.complex128
         return self.config.scalar_dtype
+
+    @property
+    def _table_dtype(self) -> torch.dtype:
+        """The type every form is built in: float64, or complex128 for a
+        complex scalar type (a float32 solve casts the form down)."""
+        return torch.complex128 if self.scalar_dtype.is_complex \
+            else torch.float64
 
     def _solve_with_symmetry(self, inp, nstates):
         """Sector scan keeping the lowest states (reference:
@@ -237,12 +289,21 @@ class Engine:
         """The sector's factored form on the configured device (half-cut
         Sz blocks for Heisenberg of any spin S, the half-cut Kronecker
         product for Kitaev, block-Kronecker unions for Rashba, t-J, FeAs
-        spin-orbit and the single FeAs block), or None."""
+        spin-orbit and the single FeAs block), or None.
+        SolverOptions=factored,bf16cross gathers the cut-crossing terms
+        from the state rounded to bfloat16 (real scalars only, JAX
+        ``Engine._factored_hamiltonian``): a matvec quantized at the
+        4e-3 level, which the solver's refinement removes from the
+        energies."""
         from lanczosplusplus_tpu_torch.models.factored import (
             factored_hamiltonian_or_none)
+        cross_dtype = None
+        if "bf16cross" in self.inp.solver_options() \
+                and not self.config.use_complex:
+            cross_dtype = torch.bfloat16
         return factored_hamiltonian_or_none(
-            self.model, basis, parts, self.scalar_dtype,
-            device=self.config.device, warn=warn)
+            self.model, basis, parts, self._table_dtype,
+            device=self.config.device, warn=warn, cross_dtype=cross_dtype)
 
     def _log_solve(self, info):
         """Reference-style convergence report (Engine.h:624-639 prints
@@ -261,13 +322,14 @@ class Engine:
                 "sector too large for dense fallback")
 
     def _build_hamiltonian(self, basis):
-        """A sector's flat Hamiltonian on the configured device.  On CUDA
+        """A sector's flat Hamiltonian on the configured device, in float64
+        (complex128; see ``_solve_form`` for a float32 solve).  On CUDA
         the Kronecker one-spin factors, where the model has any, are
         densified where they fit a quarter of the free memory, so the
         matvec runs them as ``factor_matmul`` GEMMs; a factor too large
         stays in gather form, applied by ``perm_gather``.  The CPU keeps
         the gather form.  The form taken is logged."""
-        ham = self.model.hamiltonian(basis, dtype=self.scalar_dtype,
+        ham = self.model.hamiltonian(basis, dtype=self._table_dtype,
                                      device=self.config.device)
         if self.config.device.type == "cuda":
             ham = ham.densify_factors()
@@ -286,9 +348,11 @@ class Engine:
 
     @property
     def hamiltonian(self):
-        """The target sector's Hamiltonian, built lazily."""
+        """The target sector's flat Hamiltonian in the solve's type, built
+        lazily."""
         if self._flat_ham is None:
-            self._flat_ham = self._build_hamiltonian(self.basis)
+            self._flat_ham = self._solve_form(
+                self.parts, self._build_hamiltonian(self.basis))
         return self._flat_ham
 
     def energies(self, i: int = 0) -> float:
@@ -327,9 +391,12 @@ class Engine:
             if self._factored:
                 ham = self._factored_hamiltonian(parts,
                                                  self._cached_basis(parts))
+                if ham is not None:
+                    ham = self._solve_form(parts, ham)
             if ham is None:
                 ham = (self.hamiltonian if parts == self.parts else
-                       self._build_hamiltonian(self._cached_basis(parts)))
+                       self._solve_form(parts, self._build_hamiltonian(
+                           self._cached_basis(parts))))
             self._ham_cache[parts] = ham
         return self._ham_cache[parts]
 
@@ -411,6 +478,7 @@ class Engine:
         """Green's function G_op(isite, jsite, omega) as a
         continued-fraction collection via the 4-type decomposition
         (reference: Engine.h:133-206 spectralFunction)."""
+        self._float64_only("the spectral functions (-g)")
         gs = self.eigenvector(0)
         is_diagonal = (isite == jsite and orbs[0] == orbs[1])
         coll = ContinuedFractionCollection()
@@ -450,6 +518,7 @@ class Engine:
 
         Returns a list of (ContinuedFractionCollection, labels), one per
         entry of `pairs`."""
+        self._float64_only("the spectral functions (-g)")
         gs = self.eigenvector(0)
         steps = self._spectral_steps()
         per_pair_items = [[] for _ in pairs]
@@ -593,6 +662,7 @@ class Engine:
         destination sector, no reorthogonalization.  The start vector
         (operator maps and scatter) and the moments are timed as phases
         of their own."""
+        self._float64_only("the KPM estimator (--kpm)")
         from lanczosplusplus_tpu_torch.engine.kpm import kpm_spectral
 
         op1 = LabeledOperator(op_name)
@@ -670,6 +740,7 @@ class Engine:
         positive for fermionic ones.  One source fleet of R stored runs
         serves both operator types; the operator maps, the source runs and
         each type's destination runs are timed as phases of their own."""
+        self._float64_only("the FTLM estimators (--ftlm-dos)")
         from lanczosplusplus_tpu_torch.engine.ftlm import start_block
         from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import (
             ftlm_dynamic, ftlm_source_runs)
@@ -720,6 +791,7 @@ class Engine:
         The per-site operator maps are built once.  The reference reaches
         S(q, w) only at T=0 (sqomega.pl) or through full spectra.
         Returns (qs, S[len(qs), len(omegas)])."""
+        self._float64_only("the FTLM estimators (S(q, omega))")
         from lanczosplusplus_tpu_torch.engine.ftlm import start_block
         from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import (
             ftlm_dynamic, ftlm_source_runs)

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from lanczosplusplus_tpu_torch.core.blockkron import BF16_CROSS
-
 
 def factored_hamiltonian_or_none(model, basis, parts, dtype: torch.dtype,
                                  device="cpu", warn=None, cross_dtype=None):
@@ -22,10 +20,9 @@ def factored_hamiltonian_or_none(model, basis, parts, dtype: torch.dtype,
     sectors under a half-cut, t-J spatial half-cut, FeAs spin-orbit
     (nup, ndown) union blocks, FeAs single block), on `device`, or None.
     `warn` is an optional callable(str), invoked with the reason whenever
-    the factored form is unavailable.  A `cross_dtype` (bf16 cross
-    gathers) raises, naming ROADMAP Queue 1 item 11."""
-    if cross_dtype is not None:
-        raise NotImplementedError(BF16_CROSS)
+    the factored form is unavailable.  `cross_dtype` (torch.bfloat16: the
+    bf16 cross gathers) reaches the builders whose cross terms are
+    gathers, Rashba and t-J, as in the JAX package."""
     name = type(model).__name__
     try:
         if name == "KitaevModel":
@@ -46,12 +43,13 @@ def factored_hamiltonian_or_none(model, basis, parts, dtype: torch.dtype,
             from lanczosplusplus_tpu_torch.models.rashba_halfcut import (
                 build_halfcut_rashba)
             return build_halfcut_rashba(model, basis, dtype=dtype,
-                                        device=device)
+                                        device=device,
+                                        cross_dtype=cross_dtype)
         if name == "TjMultiOrbModel":
             from lanczosplusplus_tpu_torch.models.tj_factored import (
                 build_factored_tj)
             return build_factored_tj(model, basis, dtype=dtype,
-                                     device=device)
+                                     device=device, cross_dtype=cross_dtype)
         if name == "FeAsSpinOrbitModel":
             from lanczosplusplus_tpu_torch.models.feas_spinorbit_factored \
                 import build_factored_feas_spinorbit

@@ -24,9 +24,12 @@ losslessly into a (2^nL, 2^nR) matrix over a left/right site cut
   the Q_k side by side.
 
 No fermion signs (spins commute), no sector bookkeeping.  Selected by
-SolverOptions=factored (same flag as Heisenberg).  Factors stored below
-the state's precision (``factor_dtype``) wait for the float32 path and
-its refinement (ROADMAP Queue 1 item 11) and raise.
+SolverOptions=factored (same flag as Heisenberg).  The factors may be
+stored in bfloat16 below a real state's type (``factor_dtype``, JAX
+``build_factored_kitaev(factor_dtype=)``): every product then takes
+``factor_matmul``'s bf16 form, the state (and the P_k X intermediate) is
+rounded to bfloat16 before it and the sums land in the state's type, and
+the form is ``quantized``.
 """
 
 from __future__ import annotations
@@ -102,6 +105,13 @@ class FactoredKitaevHamiltonian:
     def device(self) -> torch.device:
         return self.diag2d.device
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the factors are stored below the state's type (bf16),
+        so that the matvec rounds the state: the solver then
+        reorthogonalizes fully and refines with the factors upcast."""
+        return self.hl.dtype == torch.bfloat16
+
     @functools.cached_property
     def q_cat(self) -> torch.Tensor:
         """(dimR, K * dimR): the Q_k side by side."""
@@ -112,11 +122,14 @@ class FactoredKitaevHamiltonian:
         """H applied to one (dim,) state or to every row of a batch-major
         (members, dim) block, Y = D * X + H_L X + X hr_t + sum_k P_k X
         Q_k^T: every product one ``factor_matmul`` launch (the P_k side
-        one a factor for a batch)."""
+        one a factor for a batch).  With bf16 factors the products read
+        the state, and P_k X, rounded to bf16 (JAX ``_downcast_state``)."""
         dl, dr = self.diag2d.shape
         lead = xk.shape[:-1]
         xm = xk.contiguous().view(*lead, dl, dr)
         y = self.diag2d * xm
+        if self.quantized:
+            xm = xm.to(torch.bfloat16)
         # right half: X hr_t = X . (hr_t^T)^T, the batch folded into rows
         kernels.factor_matmul(xm.view(-1, dr), self.hr_t.T,
                               out=y.view(-1, dr), accumulate=True)
@@ -138,6 +151,8 @@ class FactoredKitaevHamiltonian:
                         xm.transpose(-1, -2), self.p[j],
                         out=px[..., j, :].transpose(-1, -2))
             # Y += [P_0 X ... P_K-1 X] [Q_0 ... Q_K-1]^T
+            if self.quantized:
+                px = px.to(torch.bfloat16)
             kernels.factor_matmul(px.view(*lead, dl, k * dr), self.q_cat,
                                   out=y, accumulate=True)
         return y.view(*lead, dl * dr)
@@ -159,12 +174,14 @@ def build_factored_kitaev(model, basis, dtype: torch.dtype = torch.float64,
     flat basis order (words ascending) IS the row-major order of the
     (2^nL, 2^nR) reshape, so no permutation wrapper is needed.
 
-    A `factor_dtype` other than the state's (bf16 factors) raises: it
-    waits for ROADMAP Queue 1 item 11."""
-    if factor_dtype is not None and factor_dtype != dtype:
-        raise NotImplementedError(
-            "Kitaev factors below the state's precision wait for the "
-            "float32 path and its refinement (ROADMAP Queue 1 item 11)")
+    `factor_dtype` torch.bfloat16 stores the half and cross factors in
+    bf16 (a real state only); the diagonal stays in the state's type."""
+    if factor_dtype not in (None, torch.bfloat16, real_dtype_of(dtype)):
+        raise ValueError(f"build_factored_kitaev: factor_dtype must be None "
+                         f"or torch.bfloat16, not {factor_dtype}")
+    if factor_dtype == torch.bfloat16 and dtype.is_complex:
+        raise ValueError(f"build_factored_kitaev: bfloat16 factors take a "
+                         f"real state, not {dtype}")
     np_dtype = np.float64
     n = basis.nsite
     n_l = n_left if n_left is not None else n // 2
@@ -214,7 +231,7 @@ def build_factored_kitaev(model, basis, dtype: torch.dtype = torch.float64,
     diag = model.diagonal(basis).reshape(dl, dr)
     # the factors are real; a complex state takes them through
     # factor_matmul's real-factor path
-    fdt = real_dtype_of(dtype)
+    fdt = factor_dtype or real_dtype_of(dtype)
     return FactoredKitaevHamiltonian(
         diag2d=to_device(diag, dtype, device), hl=to_device(hl, fdt, device),
         hr_t=to_device(hr.T, fdt, device), p=to_device(p, fdt, device),

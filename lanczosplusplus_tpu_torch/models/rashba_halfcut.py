@@ -153,8 +153,9 @@ def build_halfcut_rashba(model, basis, dtype: torch.dtype = torch.float64,
                          cross_dtype=None):
     """Half-cut factorized Hamiltonian for a total-N Rashba sector,
     wrapped (with the JW twist sign) to the flat RashbaBasis order.
-    `basis` is the full-lattice RashbaBasis.  A `cross_dtype` (bf16
-    amplitude tables) raises, naming ROADMAP Queue 1 item 11."""
+    `basis` is the full-lattice RashbaBasis.  `cross_dtype`
+    torch.bfloat16 (real inputs only) gathers the cut-crossing terms from
+    the state rounded to bf16 (``make_perm_cross``)."""
     torch_dtype, dtype = dtype, numpy_dtype(dtype)
     n = model.geometry.number_of_sites()
     ne = basis.ne
@@ -244,7 +245,7 @@ def build_halfcut_rashba(model, basis, dtype: torch.dtype = torch.float64,
             col_src[k], col_amp[k] = ri, ra
         # shared-row-map channel groups (e.g. the up-hop and Rashba-
         # branch-B channels of the same crossing bond reuse one row
-        # gather) + optional bf16 amplitude tables: make_perm_cross
+        # gather) + the optional bf16 source block: make_perm_cross
         perm_cross.append(make_perm_cross(
             row_src, row_amp, col_src, col_amp,
             pos[src_aL], pos[dst_aL], torch_dtype, device, cross_dtype))

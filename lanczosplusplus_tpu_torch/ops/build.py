@@ -43,20 +43,25 @@ SIGNATURES = {
                               _L, _I, _I, _I, _I, _I, _I, _P),
     # plan -> bytes of dynamic shared memory (not a launcher)
     "lpp_factor_matmul_f64_smem_bytes": (_I,),
-    # as the float64 one, without the plan
+    # as the float64 one, without the plan; the bf16 forms (bfloat16 X
+    # and A, float32 sums) add into a float32 or float64 Y
     "lpp_factor_matmul_f32": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
                               _L, _I, _I, _I, _I, _I, _P),
+    "lpp_factor_matmul_bf16_f32": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
+                                   _L, _L, _I, _I, _I, _I, _I, _P),
+    "lpp_factor_matmul_bf16_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
+                                   _L, _L, _I, _I, _I, _I, _I, _P),
     # diag, cols, vals, x, y, dim, K, batch, stream
     "lpp_ell_spmv_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs, ca, nb, rows, cols,
-    # batch, stream (a null table: the identity, amplitude 1)
-    "lpp_perm_gather_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P),
-    "lpp_perm_gather_c128": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _P),
+    # batch, stream (a null table: the identity, amplitude 1); bf16_: a
+    # bfloat16 x with amplitudes and y of the suffix's type
+    **{f"lpp_perm_gather_{suffix}": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P,
+                                     _P, _P, _I, _I, _I, _I, _P)
+       for suffix in ("f64", "f32", "c128", "c64", "bf16_f64", "bf16_f32")},
 }
 
 

@@ -7,13 +7,15 @@ kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
   shared or one per batch member: the dense Kronecker hop factors of every
   Lanczos matvec and, with a batch of states, of every batched step, and
   every product of the block-Kronecker forms, on the FP64 tensor cores in
-  float64 (``csrc/factor_matmul.cu``);
+  float64, and in the TPU kernel's bf16 form (bfloat16 operands, float32
+  sums) on the bf16 tensor cores (``csrc/factor_matmul.cu``);
 - ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
   over a padded ELL matrix and one vector or a batch-major block of them,
   real or complex (``csrc/ell_spmv.cu``);
 - ``perm_gather``: ``Y[b, r, c] += sum_n a[n, r] beta[n, c]
   X[b, rs[n, r], cs[n, c]]``, the partial permutations of the
-  block-Kronecker forms and the one-spin hop maps in gather form
+  block-Kronecker forms and the one-spin hop maps in gather form, real or
+  complex, and from a bfloat16 source block (bf16cross)
   (``csrc/perm_gather.cu``; it has no TPU counterpart: the JAX package
   runs these gathers outside Pallas).
 
@@ -25,18 +27,47 @@ real kernel.
 Dispatch is by the tensors' device and nothing else: a CPU tensor takes
 the plain version (``*_ref``), a CUDA tensor launches the kernel or
 raises.  There is no fallback from one to the other.  Each wrapper adds
-one to ``LAUNCHES[name]`` where it launches its kernel, so a run can show
-that its main path went through the kernels.
+one to ``FORM_LAUNCHES["<name> <form>"]`` where it launches its kernel,
+the form being the launcher's type suffix (``f64``, ``f32``, ``c128``,
+``c64``, ``bf16_f32``, ...), so a run can show that its main path went
+through the kernels; ``LAUNCHES[name]`` reads the sum over a kernel's
+forms.
 """
 
 from __future__ import annotations
 
 import functools
+from collections.abc import Mapping
 from typing import NamedTuple
 
 import torch
 
-LAUNCHES = {"factor_matmul": 0, "ell_spmv": 0, "perm_gather": 0}
+FORM_LAUNCHES: dict[str, int] = {}
+
+
+class _KernelLaunches(Mapping):
+    """Launches by kernel, read from ``FORM_LAUNCHES``: the sum over the
+    kernel's forms."""
+
+    _NAMES = ("factor_matmul", "ell_spmv", "perm_gather")
+
+    def __getitem__(self, name: str) -> int:
+        if name not in self._NAMES:
+            raise KeyError(name)
+        return sum(n for key, n in FORM_LAUNCHES.items()
+                   if key.split(" ", 1)[0] == name)
+
+    def __iter__(self):
+        return iter(self._NAMES)
+
+    def __len__(self) -> int:
+        return len(self._NAMES)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = _KernelLaunches()
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32",
            torch.complex128: "c128", torch.complex64: "c64"}
@@ -46,15 +77,22 @@ BIG_TILE, SMALL_TILE = 128, 64
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    FORM_LAUNCHES.clear()
+
+
+def _launched(name: str, form: str) -> None:
+    key = f"{name} {form}"
+    FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
 
 
 def factor_matmul_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Plain version of ``factor_matmul``: ``x @ a^T``, for one (m, k)
     matrix or a (batch, m, k) block against the shared factor or a
     (batch, n, k) stack of them; a complex state may meet a real
-    factor."""
+    factor.  bfloat16 operands are widened to float32 (exactly) and their
+    product summed in float32, as the kernel's bf16 form does."""
+    if x.dtype == torch.bfloat16:
+        return x.float() @ a.transpose(-1, -2).float()
     return x @ a.transpose(-1, -2).to(x.dtype)
 
 
@@ -178,6 +216,28 @@ def dmma_fragment_map() -> dict[str, dict[tuple[int, int], tuple[int, int]]]:
     return frag
 
 
+def bf16_fragment_map() -> dict[str, dict[tuple[int, int], tuple[int, int]]]:
+    """Register-fragment layout of ``mma.sync.aligned.m16n8k16.row.col.f32
+    .bf16.bf16.f32`` as ``csrc/factor_matmul.cu`` uses it: for each
+    operand, (lane, element) -> (row, column) of its tile, an element
+    being one bf16 value of A (16 x 16, 8 a lane) and B (16 x 8, 4 a
+    lane, two to a 32-bit register) or one float of C (16 x 8, 4 a lane).
+    With g = lane // 4 and t = lane % 4: A element e is row g + 8 ((e // 2)
+    % 2), column 2 t + e % 2 + 8 (e // 4); B element e is row 2 t + e % 2 +
+    8 (e // 2), column g; C element e is row g + 8 (e // 2), column 2 t +
+    e % 2."""
+    frag = {"A": {}, "B": {}, "C": {}}
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e in range(8):
+            frag["A"][lane, e] = (g + 8 * ((e // 2) % 2),
+                                  2 * t + e % 2 + 8 * (e // 4))
+        for e in range(4):
+            frag["B"][lane, e] = (2 * t + e % 2 + 8 * (e // 2), g)
+            frag["C"][lane, e] = (g + 8 * (e // 2), 2 * t + e % 2)
+    return frag
+
+
 def factor_matmul(x: torch.Tensor, a: torch.Tensor,
                   out: torch.Tensor | None = None,
                   accumulate: bool = False) -> torch.Tensor:
@@ -195,6 +255,10 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     ``factor_matmul(X.transpose(1, 2), A_dn, out=Y.transpose(1, 2), ...)``.
     ``out`` must not overlap ``x`` or ``a``.  In float64 the kernel runs
     on the FP64 tensor cores along the path ``factor_matmul_plan`` picks.
+
+    bfloat16 ``x`` and ``a`` (the TPU kernel's bf16 operands; the caller
+    rounds the state) run on the bf16 tensor cores with float32 sums, into
+    a float32 (the default) or float64 ``out``.
 
     Complex ``x`` and ``out`` (complex128 or complex64) run through the
     same real kernel: the state is split into contiguous real and
@@ -214,10 +278,12 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     if a.shape[-1] != k or (a.dim() == 3 and a.shape[0] != x.shape[0]):
         raise ValueError(f"factor_matmul: contraction mismatch "
                          f"{tuple(x.shape)} . {tuple(a.shape)}^T")
+    bf16 = x.dtype == torch.bfloat16
     if out is None:
         if accumulate:
             raise ValueError("factor_matmul: accumulate needs an out tensor")
-        out = torch.empty((*lead, m, n), dtype=x.dtype, device=x.device)
+        out = torch.empty((*lead, m, n), device=x.device,
+                          dtype=torch.float32 if bf16 else x.dtype)
     elif tuple(out.shape) != (*lead, m, n):
         raise ValueError(f"factor_matmul: out has shape {tuple(out.shape)}, "
                          f"expected {(*lead, m, n)}")
@@ -234,8 +300,17 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     if x.is_complex():
         return _factor_matmul_planes(x, a, out, accumulate)
 
-    _check_cuda_operands("factor_matmul", x, a, out,
-                         dtypes=(torch.float64, torch.float32))
+    if bf16:
+        _check_cuda_operands("factor_matmul", x, a,
+                             dtypes=(torch.bfloat16,))
+        _check_cuda_operands("factor_matmul", out,
+                             dtypes=(torch.float32, torch.float64))
+        if out.device != x.device:
+            raise ValueError(f"factor_matmul: out on {out.device}, x on "
+                             f"{x.device}")
+    else:
+        _check_cuda_operands("factor_matmul", x, a, out,
+                             dtypes=(torch.float64, torch.float32))
     if _overlaps(out, x) or _overlaps(out, a):
         raise ValueError("factor_matmul: out overlaps an input")
     batch = lead[0] if lead else 1
@@ -251,7 +326,8 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     if batch == 0 or m == 0 or n == 0:
         return out
     from lanczosplusplus_tpu_torch.ops.build import load_library
-    fn = getattr(load_library(), f"lpp_factor_matmul_{_SUFFIX[x.dtype]}")
+    form = f"bf16_{_SUFFIX[out.dtype]}" if bf16 else _SUFFIX[x.dtype]
+    fn = getattr(load_library(), f"lpp_factor_matmul_{form}")
     args = [x.data_ptr(), *x_strides, a.data_ptr(), *a_strides,
             out.data_ptr(), *y_strides, batch, m, n, k, int(accumulate)]
     if x.dtype == torch.float64:
@@ -261,7 +337,7 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
             _sm_count(x.device.index), batch).bits)
     with torch.cuda.device(x.device):
         err = fn(*args, _stream(x))
-    LAUNCHES["factor_matmul"] += 1
+    _launched("factor_matmul", form)
     if err != 0:
         raise RuntimeError(f"factor_matmul: kernel launch failed, "
                            f"cudaError {err}")
@@ -355,11 +431,12 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     if dim == 0 or batch == 0:
         return y
     from lanczosplusplus_tpu_torch.ops.build import load_library
-    fn = getattr(load_library(), f"lpp_ell_spmv_{_SUFFIX[x.dtype]}")
+    form = _SUFFIX[x.dtype]
+    fn = getattr(load_library(), f"lpp_ell_spmv_{form}")
     with torch.cuda.device(x.device):
         err = fn(diag.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                  x.data_ptr(), y.data_ptr(), dim, k, batch, _stream(x))
-    LAUNCHES["ell_spmv"] += 1
+    _launched("ell_spmv", form)
     if err != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed, cudaError {err}")
     return y
@@ -385,7 +462,12 @@ def perm_gather_ref(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
     Channels in one of `groups` share their row gather; channels in one
     of `col_groups` (same column map and amplitudes) sum their row sides
     before one column gather.  Each term is added into `out` in place.
-    None for a table is the identity with amplitude 1."""
+    None for a table is the identity with amplitude 1.  A bfloat16 `x`
+    (bf16cross) is widened to out's type first, exactly, and the sums run
+    in that type (the JAX package's col-dedup path rounds each group's
+    summed row side to bf16 again; this version does not)."""
+    if x.dtype == torch.bfloat16:
+        x = x.to(out.dtype)
     nb = _channels(rs, a, cs, beta)
     groups = groups or tuple((n,) for n in range(nb))
     rows_of = {}
@@ -426,7 +508,9 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
     contiguous, amplitudes of out's dtype.  None for an index table is the
     identity, None for an amplitude table 1.  The channel groups only
     steer the plain version (``perm_gather_ref``), which a CPU tensor
-    takes; the CUDA kernel needs none and takes float64 or complex128.
+    takes; the CUDA kernel needs none.  It takes float64, float32,
+    complex128 or complex64 throughout, or a bfloat16 x (the bf16cross
+    source block) with float32 or float64 amplitudes and out.
     """
     nb = _channels(rs, a, cs, beta)
     if x.dim() not in (2, 3) or out.dim() != x.dim() or \
@@ -455,8 +539,16 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
     if x.device.type != "cuda":
         raise ValueError(f"perm_gather: no kernel for device {x.device}")
     amps = [t for t in (a, beta) if t is not None]
-    _check_cuda_operands("perm_gather", x, out, *amps,
-                         dtypes=(torch.float64, torch.complex128))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _check_cuda_operands("perm_gather", out, *amps,
+                             dtypes=(torch.float64, torch.float32))
+        if x.device != out.device:
+            raise ValueError(f"perm_gather: x on {x.device}, out on "
+                             f"{out.device}")
+    else:
+        _check_cuda_operands("perm_gather", x, out, *amps,
+                             dtypes=tuple(_SUFFIX))
     if any(t.device != x.device for t in (rs, cs) if t is not None):
         raise ValueError("perm_gather: index tables on another device")
     if _overlaps(out, x):
@@ -469,7 +561,8 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
     if batch == 0 or rows == 0 or cols == 0:
         return out
     from lanczosplusplus_tpu_torch.ops.build import load_library
-    fn = getattr(load_library(), f"lpp_perm_gather_{_SUFFIX[x.dtype]}")
+    form = ("bf16_" if bf16 else "") + _SUFFIX[out.dtype]
+    fn = getattr(load_library(), f"lpp_perm_gather_{form}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -479,7 +572,7 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
                  out.stride(0) if lead else 0, *out.stride()[-2:],
                  ptr(rs), ptr(a), ptr(cs), ptr(beta), nb, rows, cols, batch,
                  _stream(x))
-    LAUNCHES["perm_gather"] += 1
+    _launched("perm_gather", form)
     if err != 0:
         raise RuntimeError(f"perm_gather: kernel launch failed, "
                            f"cudaError {err}")

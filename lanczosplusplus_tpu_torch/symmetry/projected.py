@@ -91,6 +91,10 @@ class ProjectedTranslationSolver:
             raise ValueError(
                 f"projected translation needs the full 2^L space "
                 f"(dim {ham.dim} != 2^{nsite})")
+        if ham.dtype not in (torch.float64, torch.complex128):
+            raise NotImplementedError(
+                f"projected translation runs in float64 only; {ham.dtype} "
+                f"waits for ROADMAP Queue 1 item 11b")
         self.ham = ham
         self.nsite = nsite
         self._ks = translation_sectors(nsite)
@@ -122,8 +126,9 @@ class ProjectedTranslationSolver:
                      max_steps: int = 200, seed: int = 7239443, **kw):
         """(evals, vecs, info) for momentum sector s, no dense fallback.
         The JAX package then refines the energies of a state stored below
-        float64; the port's states are float64 or complex128, whose
-        energies it keeps as they are."""
+        float64; the port projects float64 and complex128 states only
+        (ROADMAP Queue 1 item 11b), whose energies it keeps as they
+        are."""
         from lanczosplusplus_tpu_torch.solver import lanczos as lz
         return lz.lowest_states(
             self.projected(s), num_states=num_states, max_steps=max_steps,

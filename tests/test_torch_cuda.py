@@ -455,7 +455,8 @@ GATHER_GEOMETRY_CASES = {"pair_tail": (3, 7, 203, 5),
                          "grid_y_loop": (3, 100_001, 33, 2)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128,
+                                   torch.float32, torch.complex64])
 @pytest.mark.parametrize("case", sorted(GATHER_GEOMETRY_CASES))
 @pytest.mark.parametrize("sides", ["both", "rows_identity",
                                    "cols_identity"])
@@ -465,18 +466,20 @@ def test_perm_gather_geometry_bit_equal(cuda, dtype, case, sides):
     channels, the grid-y loop, a column block cut short, rows and columns
     of amplitude 0 in some channels, a strided x; with tables on both
     sides, and with the rows (the kernel without a row side) or the
-    columns the identity."""
+    columns the identity; in each of the kernel's four types (float32
+    four pairs a thread, complex64 two)."""
     batch, rows, cols, nb = GATHER_GEOMETRY_CASES[case]
     rows_src = rows if sides == "rows_identity" else rows + 3
     cols_src = cols if sides == "cols_identity" else cols + 11
     g = torch.Generator(device=cuda).manual_seed(rows * cols + nb)
+    real = torch.float64 if dtype in (torch.float64, torch.complex128) \
+        else torch.float32
 
     def rand(*shape):
-        t = torch.randn(shape, generator=g, device=cuda, dtype=torch.float64)
+        t = torch.randn(shape, generator=g, device=cuda, dtype=real)
         if dtype.is_complex:
             t = torch.complex(t, torch.randn(shape, generator=g,
-                                             device=cuda,
-                                             dtype=torch.float64))
+                                             device=cuda, dtype=real))
         return t
     x = rand(batch, cols_src, rows_src).transpose(1, 2)
     y0 = rand(batch, rows, cols)
@@ -501,6 +504,175 @@ def test_perm_gather_geometry_bit_equal(cuda, dtype, case, sides):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["perm_gather"] == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(GATHER_GEOMETRY_CASES))
+@pytest.mark.parametrize("sides", ["both", "rows_identity"])
+def test_perm_gather_bf16_source_bit_equal(cuda, dtype, case, sides):
+    """The bf16cross form: a bfloat16 source block (strided), amplitudes
+    and out in float32 or float64, equal bit for bit to the plain version,
+    which widens the block first."""
+    batch, rows, cols, nb = GATHER_GEOMETRY_CASES[case]
+    rows_src = rows if sides == "rows_identity" else rows + 3
+    g = torch.Generator(device=cuda).manual_seed(rows + cols + nb)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    x = rand(batch, cols + 11, rows_src).to(torch.bfloat16).transpose(1, 2)
+    y0 = rand(batch, rows, cols)
+    a = rand(nb, rows)
+    a[:, ::3] = 0.0
+    tabs = dict(rs=torch.randint(0, rows_src, (nb, rows), generator=g,
+                                 device=cuda, dtype=torch.int32),
+                a=a,
+                cs=torch.randint(0, cols + 11, (nb, cols), generator=g,
+                                 device=cuda, dtype=torch.int32),
+                beta=rand(nb, cols))
+    if sides == "rows_identity":
+        tabs.update(rs=None, a=None)
+    want = kernels.perm_gather_ref(x, y0.clone(), **tabs)
+    got = y0.clone()
+    kernels.reset_launches()
+    kernels.perm_gather(x, got, **tabs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["perm_gather"] == 1
+    assert torch.equal(got, want)
+
+
+# float32 sums of exact bf16 products, in another order than the plain
+# version's: a few units of float32 rounding of max |y|
+BF16_TOL = 2e-5
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,k", [(300, 123, 257), (64, 64, 16),
+                                   (1, 70, 5), (129, 1, 300), (260, 130, 33)])
+@pytest.mark.parametrize("layout", ["k_major", "row_major"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_factor_matmul_bf16_kernel(cuda, out_dtype, m, n, k, layout,
+                                   accumulate):
+    """The bf16 form on the tensor cores against its plain version (the
+    operands widened to float32, a float32 product), k-contiguous or
+    row-contiguous operands (transposed views), ragged edges and k tails,
+    stored or added into a float32 or float64 out."""
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn(n, k, generator=g, device=cuda).to(torch.bfloat16)
+    if layout == "row_major":
+        x = x.T.contiguous().T
+        a = a.T.contiguous().T
+    y0 = torch.randn(m, n, generator=g, device=cuda, dtype=out_dtype)
+    got = y0.clone()
+    before = kernels.LAUNCHES["factor_matmul"]
+    kernels.factor_matmul(x, a, out=got, accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["factor_matmul"] == before + 1
+    want = (y0 if accumulate else torch.zeros_like(y0)) \
+        + kernels.factor_matmul_ref(x, a)
+    assert _rel(got, want) <= BF16_TOL
+    if not accumulate:
+        assert kernels.factor_matmul(x, a).dtype == torch.float32
+
+
+def test_factor_matmul_bf16_batched(cuda):
+    """A batch of states against a shared bf16 factor and against a factor
+    per member (blockIdx.z), the dn form on transposed views."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(3, 200, 136, generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn(3, 136, 136, generator=g, device=cuda).to(torch.bfloat16)
+    for factor in (a[0], a):
+        got = kernels.factor_matmul(x, factor)
+        assert _rel(got, kernels.factor_matmul_ref(x, factor)) <= BF16_TOL
+    # y[b] += A x[b] for states x[b] of (136, 200), as y[b]^T += x[b]^T A^T
+    xd = x.transpose(1, 2).contiguous()
+    y = torch.zeros(3, 136, 200, device=cuda, dtype=torch.float64)
+    kernels.factor_matmul(xd.transpose(1, 2), a[0], out=y.transpose(1, 2),
+                          accumulate=True)
+    assert _rel(y, a[0].double() @ xd.double()) <= BF16_TOL
+
+
+def test_new_forms_refuse_what_they_do_not_take(cuda):
+    xb = torch.zeros(8, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):    # a float32 factor under a bf16 state
+        kernels.factor_matmul(xb, torch.zeros(4, 4, device=cuda))
+    with pytest.raises(TypeError):    # a bf16 product into half precision
+        kernels.factor_matmul(xb, xb, out=torch.zeros(
+            8, 8, device=cuda, dtype=torch.float16))
+    out = torch.zeros(8, 4, device=cuda, dtype=torch.complex64)
+    with pytest.raises(TypeError):    # bf16cross takes real amplitudes
+        kernels.perm_gather(xb, out, cs=torch.zeros(
+            1, 4, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):    # amplitudes of another type than out
+        kernels.perm_gather(xb, torch.zeros(8, 4, device=cuda),
+                            cs=torch.zeros(1, 4, dtype=torch.int32,
+                                           device=cuda),
+                            beta=torch.ones(1, 4, device=cuda,
+                                            dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bf16_factor_entry_points_on_card_match_cpu(cuda, dtype):
+    """The two entry points to bf16 factors on the card: the 8-site
+    Hubbard chain's densify_factors(factor_dtype=torch.bfloat16) under a
+    float32 and a float64 state, and the 10-site Kitaev ring's
+    build_factored_kitaev(factor_dtype=torch.bfloat16) under a float32
+    state.  Each matvec launches the bf16 factor_matmul into the state's
+    type and equals the CPU form's to float32 rounding; the Hubbard form's
+    refined E0 equals the float64 one within 1e-10."""
+    from lanczosplusplus_tpu_torch.models.kitaev_factored import (
+        build_factored_kitaev)
+    from test_torch_inputs import kitaev_text
+    form = f"factor_matmul bf16_{'f32' if dtype == torch.float32 else 'f64'}"
+    inp = parse_input(hubbard_chain_text(8, 4))
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+    forms = [model.hamiltonian(basis, dtype=dtype, device=dev).densify_factors(
+        max_bytes=1 << 30, factor_dtype=torch.bfloat16)
+        for dev in ("cpu", cuda)]
+    e64 = float(lz.lowest_states(model.hamiltonian(
+        basis, dtype=torch.float64, device="cpu"))[0][0])
+    if dtype == torch.float32:
+        kinp = parse_input(kitaev_text(10, 1.1, 0.7, 0.9, periodic=1))
+        kmodel = build_model(kinp, Geometry(kinp))
+        kbasis = kmodel.create_basis(kmodel.default_parts(kinp))
+        forms += [build_factored_kitaev(kmodel, kbasis, dtype=dtype,
+                                        device=dev,
+                                        factor_dtype=torch.bfloat16)
+                  for dev in ("cpu", cuda)]
+    for cpu_form, card_form in zip(forms[::2], forms[1::2]):
+        assert card_form.quantized
+        x = torch.randn(cpu_form.dim, generator=torch.Generator().manual_seed(
+            3), dtype=torch.float64).to(dtype)
+        kernels.reset_launches()
+        y = card_form.matvec(x.to(cuda))
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and kernels.FORM_LAUNCHES.get(form, 0) > 0
+        assert _rel(y.cpu(), cpu_form.matvec(x)) <= BF16_TOL
+    kernels.reset_launches()
+    e0 = float(lz.lowest_states(forms[1], seed=5)[0][0])
+    assert kernels.FORM_LAUNCHES.get(form, 0) > 0
+    assert abs(e0 - e64) <= 1e-10 * abs(e64)
+
+
+def test_float32_solves_on_card_refine_to_the_float64_bar(cuda):
+    """A float32 solve on the card (the flat Hubbard form through the f32
+    GEMMs, the SuperHubbardExtended J-ELL through the f32 ell_spmv, a
+    bf16cross half-cut Rashba form through the bf16-source perm_gather)
+    refines to the float64 energy within 1e-10, as on the CPU."""
+    texts = (hubbard_chain_text(8, 4), SUPER6,
+             rashba_text(6, 6, r=0.5, options="factored,bf16cross"))
+    for text in texts:
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        e64 = Engine(model, inp, config=Config.from_input(
+            inp, device="cpu")).ground_energy
+        kernels.reset_launches()
+        eng = Engine(model, inp, config=Config.from_input(
+            inp, device=cuda, real_dtype=torch.float32))
+        assert eng.eigenvector(0).dtype in (torch.float32, torch.complex64)
+        assert sum(kernels.LAUNCHES.values()) > 0
+        assert abs(eng.ground_energy - e64) <= 1e-10 * abs(e64)
 
 
 @pytest.mark.parametrize("rows,m,n,k", [(3, 300, 123, 257), (7, 64, 64, 16),

@@ -177,25 +177,76 @@ def test_unknown_model_raises():
     "UseTranslationSymmetry=1",
     pytest.param("SolverOptions=factored,bf16cross",
                  id="SolverOptions=factored")])
-def test_unported_inputs_raise(tmp_path, monkeypatch, edit):
-    """The bf16 cross gathers of the factored forms raise (the factored
-    forms themselves run: tests/test_torch_factored.py).  Symmetry sectors
-    are ported (tests/test_torch_symmetry.py): on input0's open chain,
-    where translation does not commute with H, the port raises the JAX
-    CLI's error."""
+def test_unported_inputs_raise(tmp_path, monkeypatch, capsys, edit):
+    """Inputs the port once refused.  Symmetry sectors are ported
+    (tests/test_torch_symmetry.py): on input0's open chain, where
+    translation does not commute with H, the port raises the JAX CLI's
+    error.  The bf16 cross gathers are ported (tests/test_torch_lowprec.py):
+    on input0, a Hubbard chain with no factored builder, both CLIs take the
+    flat form and print the same energy."""
     monkeypatch.chdir(tmp_path)
     text = INPUT0.replace("SolverOptions=none", edit)
     path = _write(tmp_path, text)
+    from lanczosplusplus_tpu.cli import lanczos_main as jax_main
     if edit.startswith("UseTranslationSymmetry"):
-        from lanczosplusplus_tpu.cli import lanczos_main as jax_main
         for run, args in ((lanczos_main.run, ["--device", "cpu"]),
                           (jax_main.run, [])):
             with pytest.raises(ValueError, match="does not commute with "
                                                  "the symmetry"):
                 run(["-f", path, *args])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        lanczos_main.run(["-f", path, "--device", "cpu"])
+    printed = []
+    for run, args in ((lanczos_main.run, ["--device", "cpu"]),
+                      (jax_main.run, [])):
+        engine = run(["-f", path, "-p", "17", *args])
+        assert not engine._factored
+        printed.append(float(re.search(r"^Energy=(\S+)$",
+                                       capsys.readouterr().out,
+                                       re.M).group(1)))
+    assert abs(printed[0] - printed[1]) <= 1e-12
+    assert abs(printed[0] - E0_INPUT0) <= 1e-12
+
+
+@pytest.mark.parametrize("args", [["--dtype", "float32", "-g", "c"],
+                                  ["--dtype", "float32", "--kpm", "-g", "c"]],
+                         ids=["spectral", "kpm"])
+def test_float32_paths_not_carried_raise_naming_item_11b(tmp_path,
+                                                         monkeypatch, args):
+    """float32 reaches the ground state and the static observables; the
+    spectral functions, the estimators and the symmetry sectors run in
+    float64 only and say so, naming ROADMAP Queue 1 item 11b, rather than
+    running float64 silently."""
+    monkeypatch.chdir(tmp_path)
+    path = _write(tmp_path, hubbard_chain_text(6) + "TSPSites 2 0 0\n")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
+        lanczos_main.run(["-f", path, "--device", "cpu", *args])
+    inp = parse_input(hubbard_chain_text(6) + "UseTranslationSymmetry=1\n")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
+        Engine(build_model(inp, Geometry(inp)), inp,
+               config=Config(device="cpu", real_dtype=torch.float32))
+
+
+def test_float32_cli_prints_the_refined_energy(tmp_path, monkeypatch,
+                                               capsys):
+    """lanczos --dtype float32: the state in float32, Energy= the energy
+    refined to the float64 bar (the JAX CLI's, run in float64 here), and
+    -c from the float32 state within float32 rounding of the float64
+    run's."""
+    monkeypatch.chdir(tmp_path)
+    path = _write(tmp_path, hubbard_chain_text(8))
+    got = {}
+    for dtype in ("float64", "float32"):
+        engine = lanczos_main.run(["-f", path, "--device", "cpu", "-p", "17",
+                                   "--dtype", dtype, "-c", "n"])
+        out = capsys.readouterr().out
+        got[dtype] = (float(re.search(r"^Energy=(\S+)$", out,
+                                      re.M).group(1)), engine)
+    assert got["float32"][1].eigenvector(0).dtype == torch.float32
+    assert abs(got["float32"][0] - got["float64"][0]) <= 1e-10 * abs(
+        got["float64"][0])
+    c32 = got["float32"][1].two_point("n")
+    c64 = got["float64"][1].two_point("n")
+    assert np.abs(c32 - c64).max() <= 1e-5
 
 
 def test_density_of_states_input_runs(tmp_path, monkeypatch):

@@ -6,8 +6,9 @@ flat model in flat order (1e-12, at the sizes of the JAX package's own
 factored tests), the Engine and the CLI with SolverOptions=factored
 (energies 1e-10 against the JAX Engine and the flat path, eigenvectors in
 flat order, -g against the flat path as evaluated functions), the
-fallback of an input no builder serves, and the bf16 options, which
-raise.  The port runs the plain versions of its kernels here."""
+fallback of an input no builder serves, and the bf16 options against
+the JAX package's.  The port runs the plain versions of its kernels
+here."""
 
 import dataclasses
 import re
@@ -374,20 +375,45 @@ def test_model_without_builder_falls_back():
 
 
 def test_bf16_options_raise_naming_item_11():
-    """bf16 cross gathers and bf16 Kitaev factors wait for ROADMAP Queue 1
-    item 11."""
+    """The three bf16 calls that raised naming ROADMAP Queue 1 item 11
+    until it was ported now run, each held against the JAX package: the
+    bf16cross Engine on the t-J ring (quantized, its refined energy within
+    1e-8 of the JAX package's bf16cross Engine), bf16 Kitaev factors
+    (equal to the JAX builder's, the matvec to float32 rounding of the JAX
+    one: float32 sums against its float64 ones) and make_perm_cross with
+    cross_dtype=bf16 (state_cast "bf16", the same channel groups)."""
+    import lanczosplusplus_tpu.core.blockkron as jbk
+    from lanczosplusplus_tpu.models.kitaev_factored import (
+        build_factored_kitaev as jax_build_kitaev)
+
     text = _factored(CASES["tj6_ring"]).replace(
         "SolverOptions=factored", "SolverOptions=factored,bf16cross")
-    inp = parse_input(text)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        Engine(build_model(inp, Geometry(inp)), inp, config=CPU)
-    inp, model, basis, parts, _, _ = _both("kitaev6")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        build_factored_kitaev(model, basis, factor_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        make_perm_cross(np.zeros((1, 2), np.int32), np.zeros((1, 2)),
-                        np.zeros((1, 2), np.int32), np.zeros((1, 2)), 0, 0,
-                        torch.float64, cross_dtype=torch.bfloat16)
+    inp, jinp = parse_input(text), jax_parse(text)
+    engine = Engine(build_model(inp, Geometry(inp)), inp, config=CPU)
+    jengine = JaxEngine(jax_build_model(jinp, JaxGeometry(jinp)), jinp)
+    assert engine._cached_hamiltonian(engine.parts).quantized
+    assert engine.ground_energy == pytest.approx(jengine.ground_energy,
+                                                 abs=1e-8)
+    inp, model, basis, parts, jmodel, jbasis = _both("kitaev6")
+    form = build_factored_kitaev(model, basis, factor_dtype=torch.bfloat16)
+    jform = jax_build_kitaev(jmodel, jbasis, factor_dtype=jnp.bfloat16)
+    assert form.quantized and form.hl.dtype == torch.bfloat16
+    assert np.array_equal(form.p.float().numpy(),
+                          np.asarray(jform.p).astype(np.float32))
+    x = np.random.default_rng(4).standard_normal(form.dim)
+    assert _rel(form.matvec(torch.from_numpy(x)).numpy(),
+                _jax_matvec(jform, jnp.asarray(x))) <= 1e-5
+    rng = np.random.default_rng(7)
+    tables = (rng.integers(0, 3, (3, 4)).astype(np.int32),
+              rng.standard_normal((3, 4)),
+              np.zeros((3, 5), np.int32), rng.standard_normal((3, 5)))
+    tables[2][1] = 2
+    t = make_perm_cross(*tables, 0, 0, torch.float64,
+                        cross_dtype=torch.bfloat16)
+    jt = jbk.make_perm_cross(*tables, 0, 0, np.float64,
+                             cross_dtype=jnp.bfloat16)
+    assert t.state_cast == jt.state_cast == "bf16"
+    assert (t.groups, t.col_groups) == (jt.groups, jt.col_groups)
 
 
 def test_factored_forms_launch_nothing_on_the_cpu():

@@ -120,7 +120,7 @@ def test_form_launches_counts_one_matvec(text):
 
 
 def _card_like_launches():
-    """Wrappers that add to ``LAUNCHES`` as the card's do (a complex
+    """Wrappers that count launches as the card's do (a complex
     state's factor_matmul as its planes), around the plain versions.  A
     test that installs them puts the counts back when it ends, since
     other tests read them."""
@@ -130,11 +130,12 @@ def _card_like_launches():
         planes = 1
         if x.is_complex():
             planes = (1 if a.dim() == 2 else 2) + 2 * a.is_complex()
-        kernels.LAUNCHES["factor_matmul"] += planes
+        for _ in range(planes):
+            kernels._launched("factor_matmul", "f64")
         return real[0](x, a, **kw)
 
     def gather(*args, **kw):
-        kernels.LAUNCHES["perm_gather"] += 1
+        kernels._launched("perm_gather", "f64")
         return real[1](*args, **kw)
     return real, (gemm, gather)
 
@@ -157,7 +158,7 @@ def test_launches_by_site_measures_each_form(text):
                                        parts, dtype)
     form = getattr(ham, "inner", ham)
     real, fakes = _card_like_launches()
-    counts = dict(kernels.LAUNCHES)
+    counts = dict(kernels.FORM_LAUNCHES)
     kernels.factor_matmul, kernels.perm_gather = fakes
     try:
         with chip_smoke.launches_by_site() as (forms, applies):
@@ -166,7 +167,8 @@ def test_launches_by_site_measures_each_form(text):
         assert (kernels.factor_matmul, kernels.perm_gather) == fakes
     finally:
         kernels.factor_matmul, kernels.perm_gather = real
-        kernels.LAUNCHES.update(counts)
+        kernels.FORM_LAUNCHES.clear()
+        kernels.FORM_LAUNCHES.update(counts)
     site = "blockkron" if hasattr(form, "shapes") else "kitaev"
     assert applies[site] == 2
     want = {k: 2 * n for k, n in chip_smoke.form_launches(form).items() if n}
@@ -184,14 +186,15 @@ def test_launches_by_site_one_spin_forms(max_bytes):
                             device="cpu").densify_factors(max_bytes)
     f = ham.factorized
     real, fakes = _card_like_launches()
-    counts = dict(kernels.LAUNCHES)
+    counts = dict(kernels.FORM_LAUNCHES)
     kernels.factor_matmul, kernels.perm_gather = fakes
     try:
         with chip_smoke.launches_by_site() as (forms, applies):
             ham.matvec(torch.ones(ham.dim, dtype=torch.float64))
     finally:
         kernels.factor_matmul, kernels.perm_gather = real
-        kernels.LAUNCHES.update(counts)
+        kernels.FORM_LAUNCHES.clear()
+        kernels.FORM_LAUNCHES.update(counts)
     assert applies == {"one-spin": 1}
     assert (f.up_dense is None, f.dn_dense is None) == (
         (True, True) if max_bytes == 0 else (True, False))
