@@ -11,13 +11,15 @@ Phases, each printing one line with its numbers:
 2. build: the three hand-written CUDA kernels compiled from csrc/, with
    each kernel's registers, shared memory and spills (which must be 0, for
    the complex, float32 and bf16-source instantiations of ell_spmv and
-   perm_gather and the bf16 factor_matmul too) and the counts of FP64 and
-   bf16 tensor-core instructions (DMMA, HMMA) in the machine code;
+   perm_gather and the float32 and bf16 factor_matmul too) and the counts
+   of FP64 and warpgroup bf16 tensor-core instructions (DMMA, HGMMA) in
+   the machine code;
 3. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (TF32 off): factor_matmul at 3432^3 (14 sites) and
    924^3 (12 sites) in float64, each also in its transposed accumulate
-   form, at 3432^3 in float32, and a ragged 300x257 . 123x257 whose odd
-   pitch takes the 8-byte copies; the batched forms of the spectral
+   form, at 3432^3 and 924^3 in float32 (both forms too), and a ragged
+   300x257 . 123x257 whose odd pitch takes one-element copies; the
+   batched forms of the spectral
    path, a block of 14 states of the 14-site N_up = 8 sector (3432 x 3003
    each) and a block of 23 of the 12-site N_up = 7 sector (924 x 792
    each, the TSPCenter fleet's): the up product with the batch folded
@@ -170,10 +172,13 @@ Phases, each printing one line with its numbers:
    phase 5's chain with bf16 dense factors from
    densify_factors(factor_dtype=torch.bfloat16) under a float32 and a
    float64 state (the matvec within 1e-2 of the unquantized form's, the
-   refined E0 against phase 5's, 1e-10); then each new kernel form alone
-   against its plain version and one library call: the bf16
+   refined E0 against phase 5's, 1e-10); the float32 chain's unrefined
+   E0 and first Lanczos coefficients are printed, and the bf16 runs
+   (14e, 14h) must repack no operand for TMA; then each new kernel form
+   alone against its plain version and one library call: the bf16
    factor_matmul at 3432^3 into float32 and float64, 4096^3 and the
-   Kitaev half (bound at 989 TFLOP/s dense bf16), the float32 J-ELL,
+   Kitaev half (bound at 989 TFLOP/s dense bf16), the float32 t-J
+   form's largest tier, the float32 J-ELL,
    perm_gather in float32 and complex64 (the 14-site one-spin up form,
    the 8-site FeAs term, the path's cross terms) and from a bf16 source
    into float32 and float64 sums.
@@ -2442,11 +2447,13 @@ def interrupted_after(lz, chunks: int):
 
 
 @contextlib.contextmanager
-def solve_record(lz, refinements: list, chunks: list):
+def solve_record(lz, refinements: list, chunks: list,
+                 coefficients: list | None = None):
     """Records, within the block, every energy refinement of the solver
     (the energies it was given, those it returned, seconds, the card
     synchronized at both ends) and every chunk of Lanczos steps (steps,
-    whether selective)."""
+    whether selective), and into `coefficients`, where given, the chunks'
+    (alphas, betas)."""
     refine, chunk = lz._maybe_refine, lz._lanczos_chunk
 
     def timed(ham, evals, vecs, twin=None):
@@ -2461,7 +2468,10 @@ def solve_record(lz, refinements: list, chunks: list):
 
     def counted(ham, V, carry, js, selective):
         chunks.append((len(js), selective))
-        return chunk(ham, V, carry, js, selective)
+        out = chunk(ham, V, carry, js, selective)
+        if coefficients is not None:
+            coefficients.append((list(out[1]), list(out[2])))
+        return out
     lz._maybe_refine, lz._lanczos_chunk = timed, counted
     try:
         yield
@@ -2507,7 +2517,7 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     from lanczosplusplus_tpu_torch.ops.refine import narrowed
     from lanczosplusplus_tpu_torch.solver import lanczos as lz
     f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
-    runs, above = {}, {}
+    runs, above, repacks, coefficients = {}, {}, {}, {}
 
     def rel(a, b):
         return abs(a - b) / abs(b)
@@ -2515,19 +2525,23 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     def solved(label, run):
         """Runs run() with the launch counts set to 0 before and read
         after; returns (what it returns, its refinements, its chunks of
-        steps, wall seconds).  The device memory the run took above what
-        was held before it goes to ``above[label]`` (GB)."""
+        steps, wall seconds); its bf16 repacks go to ``repacks[label]``,
+        its Lanczos coefficients to ``coefficients[label]``.  The device
+        memory the run took above what was held before it goes to
+        ``above[label]`` (GB)."""
         refinements, chunks = [], []
+        coefficients[label] = []
         K.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated(dev)
         t = time.perf_counter()
-        with solve_record(lz, refinements, chunks):
+        with solve_record(lz, refinements, chunks, coefficients[label]):
             got = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         runs[label] = dict(K.FORM_LAUNCHES)
+        repacks[label] = dict(K.REPACKS)
         above[label] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
         return got, refinements, chunks, wall
 
@@ -2567,6 +2581,13 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     check(printed == eng.ground_energy, f"14a: printed {printed!r}")
     report("a", "14-site U=4 chain via lanczos -f --dtype float32", eng,
            refinements, chunks, wall, refs["e0_u4"], TOL_E0)
+    (unrefined, _, _), = refinements
+    alphas = [a for chunk, _ in coefficients["a"] for a in chunk]
+    betas = [b for _, chunk in coefficients["a"] for b in chunk]
+    say(f"phase 14a float32 solve before its refinement: unrefined E0 "
+        f"{float(unrefined[0])!r}; first Lanczos coefficients alpha "
+        f"{[float(a) for a in alphas[:5]]!r}, beta "
+        f"{[float(b) for b in betas[:5]]!r}; {len(alphas)} steps")
     forms = runs["a"]
     check(forms.get("factor_matmul f32", 0) > 0
           and forms.get("factor_matmul f64", 0) > 0,
@@ -2619,6 +2640,9 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
               f"14h {tag}: E0 off by {err:.3e}")
         check(full and runs[key].get(f"factor_matmul bf16_{tag}", 0) > 0,
               f"14h {tag}: full reorthogonalization {full}, {runs[key]}")
+        say(f"phase 14h {tag}: bf16 operands repacked for TMA "
+            f"{repacks[key]} (none expected)")
+        check(not repacks[key], f"14h {tag}: bf16 repacks {repacks[key]}")
         del hb, f
     del model14, basis14, x, plain
     torch.cuda.empty_cache()
@@ -2695,6 +2719,10 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
         name = ("18-site t-J" if "t-J" in label
                 else "12-site Rashba half-cut")
         cross_terms[form.dtype] = largest_cross_term(form, name)
+        if form.dtype == f32:   # its largest tier, timed in 14g
+            t_big = max(range(len(form.tiers)),
+                        key=lambda i: form.col_t[i].numel())
+            tier32 = (form.col_t[t_big], form.diag_t[t_big].shape[:2])
         del eng, form
     torch.cuda.empty_cache()
 
@@ -2736,6 +2764,9 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     check(b16.quantized and full
           and runs["e"].get("factor_matmul bf16_f32", 0) > 0,
           f"14e: quantized {b16.quantized}, full {full}, {runs['e']}")
+    say(f"phase 14e: bf16 operands repacked for TMA {repacks['e']} (none "
+        f"expected)")
+    check(not repacks["e"], f"14e: bf16 repacks {repacks['e']}")
     kitaev_half = (b16.hl, form32.hl.shape[0])
     del form32, x
     torch.cuda.empty_cache()
@@ -2797,7 +2828,7 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
         ref = K.factor_matmul_ref(xb, ab)
         torch.cuda.synchronize()
         record(results, "factor_matmul",
-               f"bf16 {size}^3 (m16n8k16 tensor cores, float32 sums; library "
+               f"bf16 {size}^3 (wgmma fed by TMA, float32 sums; library "
                f"torch.matmul, bf16 out)", got, ref, TOL_BF16,
                (lambda: K.factor_matmul(xb, ab, out=out),
                 lambda: K.factor_matmul_ref(xb, ab),
@@ -2809,9 +2840,9 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
             ref = K.factor_matmul_ref(xb, ab).to(f64)
             torch.cuda.synchronize()
             record(results, "factor_matmul",
-                   f"bf16->f64 {size}^3 (m16n8k16 tensor cores, float32 "
-                   f"sums stored into float64; library torch.matmul, bf16 "
-                   f"out)", got, ref, TOL_BF16,
+                   f"bf16->f64 {size}^3 (wgmma fed by TMA, float32 sums "
+                   f"stored into float64; library torch.matmul, bf16 out)",
+                   got, ref, TOL_BF16,
                    (lambda: K.factor_matmul(xb, ab, out=out),
                     lambda: K.factor_matmul_ref(xb, ab).to(f64),
                     lambda: torch.matmul(xb, ab.T)),
@@ -2827,12 +2858,31 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     y1 = y0.clone()
     record(results, "factor_matmul",
            f"bf16 22-site Kitaev left half: Y+=H_L.X, {half}^3 into float32 "
-           f"(transposed views)", got, ref, TOL_BF16,
+           f"(transposed views, MN-major X)", got, ref, TOL_BF16,
            (lambda: K.factor_matmul(xk.T, hl, out=y1.T, accumulate=True),
             lambda: y1.T.add_(K.factor_matmul_ref(xk.T, hl)),
             lambda: torch.matmul(hl, xk)),
            1e3 * 2 * half ** 3 / PEAK_BF16_FLOPS, "operations")
     del hl, xk, y0, y1, got, ref
+    # the float32 t-J form's largest tier: a factor per block, one launch
+    a3, (nblk, rt) = tier32
+    x3 = torch.randn(nblk, rt, a3.shape[1], generator=gen, device=dev,
+                     dtype=f32)
+    y0 = torch.randn_like(x3)
+    got = y0.clone()
+    K.factor_matmul(x3, a3, out=got, accumulate=True)
+    ref = y0 + torch.matmul(x3, a3.transpose(1, 2))
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    record(results, "factor_matmul",
+           f"f32 18-site t-J tier: {nblk} blocks of {rt}x{a3.shape[1]} . "
+           f"their own {a3.shape[1]}^2 factors, one launch (A batch "
+           f"stride)", got, ref, TOL_F32,
+           (lambda: K.factor_matmul(x3, a3, out=y1, accumulate=True),
+            lambda: y1.add_(K.factor_matmul_ref(x3, a3)),
+            lambda: y1.baddbmm_(x3, a3.transpose(1, 2))),
+           1e3 * 2 * x3.numel() * a3.shape[1] / PEAK_FLOPS, "operations")
+    del tier32, a3, x3, y0, y1, got, ref
     ell_case("f32 12-site SuperHubbardExtended J-ELL, R=1", she32.diag,
              she32.ell.cols, she32.ell.vals, (she32.dim,), TOL_F32)
     # the one-spin up form of the 14-site sector and the 8-site FeAs
@@ -2913,7 +2963,12 @@ def main() -> None:
                           r["name"])
         # the sums' and the source's types, row tables
         gather = re.search(r"perm_gather_kernelI(.*?)Lb(\d)E", r["name"])
-        bf16 = re.search(r"factor_matmul_bf16_kernelI(\w)E", r["name"])
+        # X k-major, A k-major, the sums' store type
+        bf16 = re.search(r"factor_matmul_wgmma_kernelILb(\d)ELb(\d)E(\w)E",
+                         r["name"])
+        # tile rows and columns, X k-major, A k-major
+        f32 = re.search(r"factor_matmul_simt_kernelILi(\d+)ELi(\d+)ELb(\d)"
+                        r"ELb(\d)E", r["name"])
         if gather:
             tag = GATHER_TAGS[gather.group(1)]
             side = ("row tables" if gather.group(2) == "1"
@@ -2922,10 +2977,18 @@ def main() -> None:
                      f"{r['static_smem_bytes']} B")
             built.add(f"perm_gather {tag} {side}")
         elif bf16:
-            tag = {"d": "f64", "f": "f32"}[bf16.group(1)]
-            label = (f"factor_matmul bf16 operands into {tag}, static smem "
-                     f"{r['static_smem_bytes']} B")
+            xk, ak, out = bf16.groups()
+            tag = {"d": "f64", "f": "f32"}[out]
+            label = (f"factor_matmul bf16 operands into {tag} (wgmma, TMA), "
+                     f"128x256 tile, X {'k' if xk == '1' else 'MN'}-major, A "
+                     f"{'k' if ak == '1' else 'MN'}-major")
             built.add(f"factor_matmul bf16 {tag}")
+        elif f32:
+            bm, bn, xk, ak = f32.groups()
+            label = (f"factor_matmul f32 {bm}x{bn} tile, X "
+                     f"{'k' if xk == '1' else 'row'}-major, A "
+                     f"{'k' if ak == '1' else 'row'}-major")
+            built.add("factor_matmul f32")
         elif found:
             bm, bn, xk, ak = map(int, found.groups())
             bits = K.MatmulPlan(bool(xk), False, bool(ak), False, False,
@@ -2936,7 +2999,7 @@ def main() -> None:
                      f"{lib_c.lpp_factor_matmul_f64_smem_bytes(bits)} B")
         else:
             # value type: d or f, inside Cplx<...> for the complex ones
-            kind = re.search(r"(factor_matmul_simt|ell_spmv)_kernelI"
+            kind = re.search(r"(ell_spmv)_kernelI"
                              r"(?:\w*?4CplxI(\w)E)?(\w)(?:Li(\d+)E)?",
                              r["name"])
             cplx, plain, entries = kind.group(2, 3, 4)
@@ -2951,14 +3014,14 @@ def main() -> None:
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
               f"{r['name']} spills registers")
     check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
-           "ell_spmv c64", "factor_matmul bf16 f32",
+           "ell_spmv c64", "factor_matmul f32", "factor_matmul bf16 f32",
            "factor_matmul bf16 f64"} | {
                f"perm_gather {t} {side}" for t in GATHER_TAGS.values()
                for side in ("row tables", "rows the identity")} <= built,
-          f"ell_spmv, perm_gather and bf16 factor_matmul instantiations: "
-          f"{built}")
+          f"ell_spmv, perm_gather and float32 and bf16 factor_matmul "
+          f"instantiations: {built}")
     for opcode, what in (("DMMA", "the float64 factor_matmul"),
-                         ("HMMA", "the bf16 factor_matmul")):
+                         ("HGMMA", "the bf16 factor_matmul")):
         found = build.sass_opcode_counts(lib, opcode)
         say(f"  {opcode} instructions in the library's machine code: "
             f"{found} (None: no cuobjdump)")
@@ -2976,7 +3039,8 @@ def main() -> None:
     for dt, tol, shapes in (
             (torch.float64, TOL_F64, ((3432, 3432, 3432), (1820, 1820, 1820),
                                       (924, 924, 924), (300, 123, 257))),
-            (torch.float32, TOL_F32, ((3432, 3432, 3432), (300, 123, 257)))):
+            (torch.float32, TOL_F32, ((3432, 3432, 3432), (924, 924, 924),
+                                      (300, 123, 257)))):
         tag = "f64" if dt == torch.float64 else "f32"
         for m, n, k in shapes:
             x = torch.randn(m, k, generator=gen, device=dev, dtype=dt)
@@ -2985,13 +3049,17 @@ def main() -> None:
             out = torch.empty(m, n, device=dev, dtype=dt)
             plan = K.factor_matmul_plan(
                 x.data_ptr(), x.stride(), a.data_ptr(), a.stride(),
-                out.data_ptr(), out.stride(), m, n, sms)
-            path = "SIMT"
-            if dt == torch.float64:
-                wide = plan.x_vec16 and plan.a_vec16
-                path = f"{plan.tile}-tile, {16 if wide else 8}-byte copies"
-                check(wide == (k % 2 == 0),
-                      f"{m}x{k}: 16-byte copies planned: {wide}")
+                out.data_ptr(), out.stride(), m, n, sms, 1, x.element_size())
+            # float32: the same cp.async staging, an FMA consumer, the
+            # large tile 256 x 128
+            wide = plan.x_vec16 and plan.a_vec16
+            vec = 16 // x.element_size()
+            tile = ("256x128" if dt == torch.float32 and plan.tile == 128
+                    else f"{plan.tile}x{plan.tile}")
+            path = (f"{'FMA, ' if dt == torch.float32 else ''}{tile} tile, "
+                    f"{16 if wide else x.element_size()}-byte copies")
+            check(wide == (k % vec == 0),
+                  f"{tag} {m}x{k}: 16-byte copies planned: {wide}")
             got = K.factor_matmul(x, a)
             ref = K.factor_matmul_ref(x, a)
             torch.cuda.synchronize()

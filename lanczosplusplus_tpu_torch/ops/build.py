@@ -2,8 +2,10 @@
 
 The sources compile with ``nvcc`` for Hopper (``sm_90a``), one compiler
 process per source and all at once, and link into one shared library with
-a plain C interface, loaded with ``ctypes``.  No PyTorch header is
-involved, so a build takes seconds.  The library lands in the package's
+a plain C interface, loaded with ``ctypes``, linked against libcuda
+(``-lcuda``: the bf16 kernel encodes its TMA tensor maps with
+``cuTensorMapEncodeTiled``).  No PyTorch header is involved, so a build
+takes seconds.  The library lands in the package's
 ``_build/`` directory under a name derived from the sources' and flags'
 digest: a changed source builds anew, an unchanged one loads the existing
 file.  Nothing here runs at import; the first kernel launch builds.
@@ -28,7 +30,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v", "-c")
-LINK_FLAGS = (*ARCH_FLAGS, "-shared")
+# libcuda for cuTensorMapEncodeTiled, the bf16 kernel's TMA descriptors
+LINK_FLAGS = (*ARCH_FLAGS, "-shared", "-lcuda")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,14 +46,14 @@ SIGNATURES = {
                               _L, _I, _I, _I, _I, _I, _I, _P),
     # plan -> bytes of dynamic shared memory (not a launcher)
     "lpp_factor_matmul_f64_smem_bytes": (_I,),
-    # as the float64 one, without the plan; the bf16 forms (bfloat16 X
-    # and A, float32 sums) add into a float32 or float64 Y
+    # as the float64 one; the bf16 forms (bfloat16 X and A, float32 sums)
+    # add into a float32 or float64 Y, their plan the bf16 kernel's
     "lpp_factor_matmul_f32": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
-                              _L, _I, _I, _I, _I, _I, _P),
+                              _L, _I, _I, _I, _I, _I, _I, _P),
     "lpp_factor_matmul_bf16_f32": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
-                                   _L, _L, _I, _I, _I, _I, _I, _P),
+                                   _L, _L, _I, _I, _I, _I, _I, _I, _P),
     "lpp_factor_matmul_bf16_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
-                                   _L, _L, _I, _I, _I, _I, _I, _P),
+                                   _L, _L, _I, _I, _I, _I, _I, _I, _P),
     # diag, cols, vals, x, y, dim, K, batch, stream
     "lpp_ell_spmv_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lpp_ell_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

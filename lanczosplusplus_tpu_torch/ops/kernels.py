@@ -7,8 +7,9 @@ kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
   shared or one per batch member: the dense Kronecker hop factors of every
   Lanczos matvec and, with a batch of states, of every batched step, and
   every product of the block-Kronecker forms, on the FP64 tensor cores in
-  float64, and in the TPU kernel's bf16 form (bfloat16 operands, float32
-  sums) on the bf16 tensor cores (``csrc/factor_matmul.cu``);
+  float64, on the FP32 units on the same ``cp.async`` ring in float32, and
+  in the TPU kernel's bf16 form (bfloat16 operands, float32 sums) on
+  ``wgmma`` fed by TMA (``csrc/factor_matmul.cu``);
 - ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
   over a padded ELL matrix and one vector or a batch-major block of them,
   real or complex (``csrc/ell_spmv.cu``);
@@ -31,7 +32,9 @@ one to ``FORM_LAUNCHES["<name> <form>"]`` where it launches its kernel,
 the form being the launcher's type suffix (``f64``, ``f32``, ``c128``,
 ``c64``, ``bf16_f32``, ...), so a run can show that its main path went
 through the kernels; ``LAUNCHES[name]`` reads the sum over a kernel's
-forms.
+forms.  ``REPACKS["factor_matmul bf16"]`` counts the bf16 operands the
+wrapper copied into a padded layout TMA can address before a launch (no
+path's operand needs one).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 FORM_LAUNCHES: dict[str, int] = {}
+REPACKS: dict[str, int] = {}
 
 
 class _KernelLaunches(Mapping):
@@ -74,10 +78,15 @@ _SUFFIX = {torch.float64: "f64", torch.float32: "f32",
 _INT_MAX = 2**31 - 1
 H100_SMS = 132
 BIG_TILE, SMALL_TILE = 128, 64
+# the bf16 kernel's tile rows, its stage's k and one TMA box of 64 rows by
+# 64 k in bytes (csrc/factor_matmul.cu GBM, GBK, GBOX); its tiles are 256
+# columns wide
+WGMMA_TILE_M, WGMMA_STAGE_K, WGMMA_BOX = 128, 64, 64 * 64 * 2
 
 
 def reset_launches() -> None:
     FORM_LAUNCHES.clear()
+    REPACKS.clear()
 
 
 def _launched(name: str, form: str) -> None:
@@ -138,13 +147,14 @@ def _sm_count(device_index: int | None) -> int:
 
 
 class MatmulPlan(NamedTuple):
-    """How the float64 ``factor_matmul`` kernel runs one product."""
+    """How the float64 or float32 ``factor_matmul`` kernel runs one
+    product."""
     x_kmajor: bool  # X staged [row][k] (else [k][row])
-    x_vec16: bool   # X copied 16 bytes at a time (else 8)
+    x_vec16: bool   # X copied 16 bytes at a time (else an element)
     a_kmajor: bool
     a_vec16: bool
     y_vec16: bool   # Y read and written 16 bytes at a time
-    tile: int       # output tile edge of a block: 128 or 64
+    tile: int       # 128: the large tile, 64: the small one
 
     @property
     def bits(self) -> int:
@@ -155,18 +165,19 @@ class MatmulPlan(NamedTuple):
 
 
 def _staging(ptr: int, row_stride: int, k_stride: int,
-             batch_stride: int = 0) -> tuple[bool, bool]:
-    """(k-major, 16-byte copies) for an (rows, k) float64 operand at byte
-    address `ptr` with strides in elements.  The operand is staged along
-    its contiguous axis; 16-byte copies need that axis at stride 1, an
-    even pitch on the other, a 16-byte aligned base and, under a batch,
-    an even batch stride.  With no contiguous axis the nearer one is
-    walked, 8 bytes at a time."""
-    aligned = ptr % 16 == 0 and batch_stride % 2 == 0
+             batch_stride: int = 0, elem_size: int = 8) -> tuple[bool, bool]:
+    """(k-major, 16-byte copies) for an (rows, k) operand of `elem_size`
+    bytes at byte address `ptr` with strides in elements.  The operand is
+    staged along its contiguous axis; 16-byte copies need that axis at
+    stride 1, a pitch on the other and, under a batch, a batch stride that
+    are multiples of 16 bytes, and a 16-byte aligned base.  With no
+    contiguous axis the nearer one is walked, one element at a time."""
+    vec = 16 // elem_size
+    aligned = ptr % 16 == 0 and batch_stride % vec == 0
     if k_stride == 1:
-        return True, aligned and row_stride % 2 == 0
+        return True, aligned and row_stride % vec == 0
     if row_stride == 1:
-        return False, aligned and k_stride % 2 == 0
+        return False, aligned and k_stride % vec == 0
     return k_stride <= row_stride, False
 
 
@@ -174,28 +185,110 @@ def factor_matmul_plan(x_ptr: int, x_strides: tuple[int, ...],
                        a_ptr: int, a_strides: tuple[int, ...],
                        y_ptr: int, y_strides: tuple[int, ...],
                        m: int, n: int, sm_count: int = H100_SMS,
-                       batch: int = 1) -> MatmulPlan:
-    """The float64 kernel's path for one product, from pointers (byte
-    addresses), strides (in elements) and shape alone.  `x_strides`,
-    `a_strides` and `y_strides` are (row, k) pairs, or (batch, row, k)
-    triples for a batched product (a batch stride of 0 shares the
-    operand).
+                       batch: int = 1, elem_size: int = 8) -> MatmulPlan:
+    """The float64 (`elem_size` 8) or float32 (4) kernel's path for one
+    product, from pointers (byte addresses), strides (in elements) and
+    shape alone.  `x_strides`, `a_strides` and `y_strides` are (row, k)
+    pairs, or (batch, row, k) triples for a batched product (a batch
+    stride of 0 shares the operand).  Both kernels stage through the same
+    ``cp.async`` ring: 16-byte copies take a pitch that is a multiple of
+    2 doubles or 4 floats (3432 and 924 do, 3003 and 257 do not).
 
-    Tile rule: 128 x 128 output tiles when the whole batch has at least
-    one for every SM of the card, else 64 x 64 (four times the blocks,
-    two of which fit an SM): 3432^2 gives 729 large tiles and takes
-    them, 924^2 gives 64 and takes 225 small ones, a batch of 14 such
-    products gives 896 and takes the large ones."""
+    Tile rule: the large tile (128 x 128 in float64, 256 x 128 in
+    float32) when the whole batch has at least one 128 x 128 tile for
+    every SM of the card, else 64 x 64 (many more blocks, two of which
+    fit an SM): 3432^2 gives 729 and takes the large tiles, 924^2 gives
+    64 and takes 225 small ones, a batch of 14 such products gives 896
+    and takes the large ones."""
     *xb, xs0, xs1 = x_strides
     *yb, ys0, ys1 = y_strides
     *ab, as0, as1 = a_strides
-    x_kmajor, x_vec16 = _staging(x_ptr, xs0, xs1, *xb)
-    a_kmajor, a_vec16 = _staging(a_ptr, as0, as1, *ab)
-    y_vec16 = (ys1 == 1 and ys0 % 2 == 0 and y_ptr % 16 == 0
-               and all(s % 2 == 0 for s in yb))
+    vec = 16 // elem_size
+    x_kmajor, x_vec16 = _staging(x_ptr, xs0, xs1, *xb, elem_size=elem_size)
+    a_kmajor, a_vec16 = _staging(a_ptr, as0, as1, *ab, elem_size=elem_size)
+    y_vec16 = (ys1 == 1 and ys0 % vec == 0 and y_ptr % 16 == 0
+               and all(s % vec == 0 for s in yb))
     big_tiles = batch * -(-m // BIG_TILE) * -(-n // BIG_TILE)
     return MatmulPlan(x_kmajor, x_vec16, a_kmajor, a_vec16, y_vec16,
                       BIG_TILE if big_tiles >= sm_count else SMALL_TILE)
+
+
+class Bf16Plan(NamedTuple):
+    """How the bf16 ``factor_matmul`` kernel (``wgmma`` fed by TMA, 128 x
+    256 output tiles) runs one product."""
+    x_kmajor: bool  # X staged k-major (k contiguous), else MN-major
+    x_tma: bool     # TMA addresses X where it lies (else it is repacked)
+    a_kmajor: bool
+    a_tma: bool
+    x_3d: bool      # a 3-D tensor map, one X per batch member (else 2-D)
+    a_3d: bool
+
+    @property
+    def bits(self) -> int:
+        """The bit set ``csrc/factor_matmul.cu`` reads (BPLAN_*)."""
+        return (self.x_kmajor | self.a_kmajor << 1 | self.x_3d << 2
+                | self.a_3d << 3)
+
+
+def _pad8(k: int) -> int:
+    return -(-k // 8) * 8
+
+
+def _tma_layout(ptr: int, rows: int, k: int, strides: tuple[int, ...],
+                batch: int = 1) -> tuple[bool, bool]:
+    """(k-major, TMA can address it) for an (rows, k) bfloat16 operand at
+    byte address `ptr`, strides (row, k) or (batch, row, k) in elements.
+    The operand is staged along its contiguous axis, k-major when that is
+    k; TMA takes a 16-byte aligned base, a pitch that is a multiple of 8
+    elements (16 bytes) and no shorter than a row and, for an operand per
+    batch member, a batch stride that is a multiple of 8 and no shorter
+    than a member.  With no contiguous axis it cannot: the wrapper
+    repacks such an operand k-major."""
+    *sb, s0, s1 = strides
+    sb = sb[0] if sb and batch > 1 else 0
+    if s1 == 1:
+        kmajor, inner, outer, pitch = True, k, rows, s0
+    elif s0 == 1:
+        kmajor, inner, outer, pitch = False, rows, k, s1
+    else:
+        return True, False
+    ok = ptr % 16 == 0 and pitch % 8 == 0 and pitch >= inner
+    if sb:
+        ok = ok and sb % 8 == 0 and sb >= pitch * outer
+    return kmajor, ok
+
+
+def factor_matmul_bf16_plan(x_ptr: int, x_strides: tuple[int, ...],
+                            a_ptr: int, a_strides: tuple[int, ...],
+                            m: int, n: int, k: int,
+                            batch: int = 1) -> Bf16Plan:
+    """The bf16 kernel's path for one product, from pointers (byte
+    addresses), strides (in elements) and shape alone: each operand's
+    majorness and whether TMA can address it (``_tma_layout``), and the
+    batch handling, a 2-D tensor map for a shared operand (batch stride 0,
+    or batch 1) and a 3-D one for an operand per member.  The tile is
+    always 128 x 256."""
+    x_kmajor, x_tma = _tma_layout(x_ptr, m, k, x_strides, batch)
+    a_kmajor, a_tma = _tma_layout(a_ptr, n, k, a_strides, batch)
+    return Bf16Plan(x_kmajor, x_tma, a_kmajor, a_tma,
+                    batch > 1 and len(x_strides) == 3 and x_strides[0] != 0,
+                    batch > 1 and len(a_strides) == 3 and a_strides[0] != 0)
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """`t`, a (rows, k) or (batch, rows, k) bfloat16 operand, itself where
+    TMA can address it, else a k-major copy into a zero-padded buffer
+    whose pitch is a multiple of 8 elements (one member's copy, expanded,
+    for a shared operand of batch stride 0): the same values."""
+    rows, k = t.shape[-2:]
+    batch = t.shape[0] if t.dim() == 3 else 1
+    if _tma_layout(t.data_ptr(), rows, k, t.stride(), batch)[1]:
+        return t
+    if batch > 1 and t.stride(0) == 0:
+        return tma_operand(t[0]).expand_as(t)
+    buf = t.new_zeros((*t.shape[:-1], _pad8(max(k, 1))))
+    buf[..., :k] = t
+    return buf[..., :k]
 
 
 def dmma_fragment_map() -> dict[str, dict[tuple[int, int], tuple[int, int]]]:
@@ -216,26 +309,68 @@ def dmma_fragment_map() -> dict[str, dict[tuple[int, int], tuple[int, int]]]:
     return frag
 
 
-def bf16_fragment_map() -> dict[str, dict[tuple[int, int], tuple[int, int]]]:
-    """Register-fragment layout of ``mma.sync.aligned.m16n8k16.row.col.f32
-    .bf16.bf16.f32`` as ``csrc/factor_matmul.cu`` uses it: for each
-    operand, (lane, element) -> (row, column) of its tile, an element
-    being one bf16 value of A (16 x 16, 8 a lane) and B (16 x 8, 4 a
-    lane, two to a 32-bit register) or one float of C (16 x 8, 4 a lane).
-    With g = lane // 4 and t = lane % 4: A element e is row g + 8 ((e // 2)
-    % 2), column 2 t + e % 2 + 8 (e // 4); B element e is row 2 t + e % 2 +
-    8 (e // 2), column g; C element e is row g + 8 (e // 2), column 2 t +
-    e % 2."""
-    frag = {"A": {}, "B": {}, "C": {}}
-    for lane in range(32):
+def wgmma_accumulator_map(n: int) -> dict[tuple[int, int], tuple[int, int]]:
+    """The float32 accumulator of ``wgmma.mma_async.sync.aligned.m64nNk16
+    .f32.bf16.bf16`` (the kernel runs N = 256) as ``csrc/factor_matmul.cu``
+    stores it: (thread of the warpgroup, register) -> (row, column) of its
+    64 x n tile.  Register
+    i of thread t holds row 16 (t // 32) + (t % 32) // 4 + 8 ((i // 2) % 2),
+    column 8 (i // 4) + 2 (t % 4) + i % 2; n // 2 registers a thread."""
+    acc = {}
+    for thread in range(128):
+        warp, lane = divmod(thread, 32)
         g, t = divmod(lane, 4)
-        for e in range(8):
-            frag["A"][lane, e] = (g + 8 * ((e // 2) % 2),
-                                  2 * t + e % 2 + 8 * (e // 4))
-        for e in range(4):
-            frag["B"][lane, e] = (2 * t + e % 2 + 8 * (e // 2), g)
-            frag["C"][lane, e] = (g + 8 * (e // 2), 2 * t + e % 2)
-    return frag
+        for i in range(n // 2):
+            acc[thread, i] = (16 * warp + g + 8 * ((i // 2) % 2),
+                              8 * (i // 4) + 2 * t + i % 2)
+    return acc
+
+
+# The bf16 kernel's staging (csrc/factor_matmul.cu): a stage is 64 k deep;
+# a k-major tile is one TMA box [row][64 k], an MN-major tile boxes of 64
+# rows [k][64 rows], WGMMA_BOX bytes apart; both in the 128-byte swizzle.
+# The wgmma descriptors: k-major SBO 1024, k16 step 32 bytes; MN-major LBO
+# WGMMA_BOX, SBO 1024, k16 step 2048 bytes.
+WGMMA_DESC = {True: dict(lbo=16, sbo=1024, step=32),
+              False: dict(lbo=WGMMA_BOX, sbo=1024, step=2048)}
+
+
+def _swizzle128(offset: int) -> int:
+    """Byte offset under the 128-byte swizzle (CUTLASS's Swizzle<3,4,3>):
+    the 16-byte chunk within a 128-byte row XOR the row within 8."""
+    return offset ^ (((offset >> 7) & 7) << 4)
+
+
+def tma_smem_offset(kmajor: bool, row: int, k: int) -> int:
+    """Byte offset from a staged tile's start at which TMA puts element
+    (row, k) of the tile, k < 64: a k-major box has 128-byte rows of k, an
+    MN-major box (64 rows) 128-byte rows of 64 rows, one a k."""
+    if kmajor:
+        return _swizzle128(128 * row + 2 * k)
+    box, r = divmod(row, 64)
+    return box * WGMMA_BOX + _swizzle128(128 * k + 2 * r)
+
+
+def wgmma_smem_offset(kmajor: bool, row: int, k: int) -> int:
+    """Byte offset from a staged tile's start from which wgmma reads
+    element (row, k), k < 64, through the kernel's descriptor for the k16
+    step k // 16 (start, LBO, SBO of ``WGMMA_DESC``), by the canonical
+    layouts of the 128-byte swizzle (CUTLASS make_gmma_desc), in 16-byte
+    units T = 8 elements:
+    k-major  ((8, m), (T, 2)) : ((8T, SBO), (1, T)),
+    MN-major ((T, 8, m), (8, 2)) : ((1, T, LBO), (8T, SBO))."""
+    d = WGMMA_DESC[kmajor]
+    step, kk = divmod(k, 16)
+    start = step * d["step"]
+    if kmajor:
+        r0, r1 = row % 8, row // 8
+        k0, k1 = kk % 8, kk // 8
+        offset = 128 * r0 + d["sbo"] * r1 + 2 * k0 + 16 * k1
+    else:
+        a, b, c = row % 8, (row // 8) % 8, row // 64
+        k0, k1 = kk % 8, kk // 8
+        offset = 2 * a + 16 * b + d["lbo"] * c + 128 * k0 + d["sbo"] * k1
+    return _swizzle128(start + offset)
 
 
 def factor_matmul(x: torch.Tensor, a: torch.Tensor,
@@ -253,12 +388,14 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     as ``factor_matmul(X.T, A_dn, out=Y.T, accumulate=True)`` with no
     copy, and for a block of states as
     ``factor_matmul(X.transpose(1, 2), A_dn, out=Y.transpose(1, 2), ...)``.
-    ``out`` must not overlap ``x`` or ``a``.  In float64 the kernel runs
-    on the FP64 tensor cores along the path ``factor_matmul_plan`` picks.
+    ``out`` must not overlap ``x`` or ``a``.  In float64 and float32 the
+    kernel runs along the path ``factor_matmul_plan`` picks.
 
     bfloat16 ``x`` and ``a`` (the TPU kernel's bf16 operands; the caller
-    rounds the state) run on the bf16 tensor cores with float32 sums, into
-    a float32 (the default) or float64 ``out``.
+    rounds the state) run on ``wgmma`` with float32 sums, into a float32
+    (the default) or float64 ``out``, along the path
+    ``factor_matmul_bf16_plan`` picks; an operand TMA cannot address is
+    first copied by ``tma_operand`` (counted in ``REPACKS``).
 
     Complex ``x`` and ``out`` (complex128 or complex64) run through the
     same real kernel: the state is split into contiguous real and
@@ -314,29 +451,39 @@ def factor_matmul(x: torch.Tensor, a: torch.Tensor,
     if _overlaps(out, x) or _overlaps(out, a):
         raise ValueError("factor_matmul: out overlaps an input")
     batch = lead[0] if lead else 1
+    if max(batch, m, n, k) > _INT_MAX or min(
+            (*x.stride(), *a.stride(), *out.stride())) < 0:
+        raise ValueError("factor_matmul: a size over int32 range or a "
+                         "negative stride")
+    if batch == 0 or m == 0 or n == 0:
+        return out
+    if bf16:
+        ready = tma_operand(x), tma_operand(a)
+        copies = (ready[0] is not x) + (ready[1] is not a)
+        if copies:
+            key = "factor_matmul bf16"
+            REPACKS[key] = REPACKS.get(key, 0) + copies
+        x, a = ready
     # (batch, row, k) strides; the batch stride of one member is never used
     x_strides = (x.stride(0) if batch > 1 else 0, *x.stride()[-2:])
     a_strides = (a.stride(0) if batch > 1 and a.dim() == 3 else 0,
                  *a.stride()[-2:])
     y_strides = (out.stride(0) if batch > 1 else 0, *out.stride()[-2:])
-    strides = (*x_strides, *a_strides, *y_strides)
-    if max(batch, m, n, k) > _INT_MAX or min(strides) < 0:
-        raise ValueError("factor_matmul: a size over int32 range or a "
-                         "negative stride")
-    if batch == 0 or m == 0 or n == 0:
-        return out
     from lanczosplusplus_tpu_torch.ops.build import load_library
     form = f"bf16_{_SUFFIX[out.dtype]}" if bf16 else _SUFFIX[x.dtype]
     fn = getattr(load_library(), f"lpp_factor_matmul_{form}")
-    args = [x.data_ptr(), *x_strides, a.data_ptr(), *a_strides,
-            out.data_ptr(), *y_strides, batch, m, n, k, int(accumulate)]
-    if x.dtype == torch.float64:
-        args.append(factor_matmul_plan(
+    if bf16:
+        plan = factor_matmul_bf16_plan(x.data_ptr(), x_strides, a.data_ptr(),
+                                       a_strides, m, n, k, batch).bits
+    else:
+        plan = factor_matmul_plan(
             x.data_ptr(), x_strides, a.data_ptr(), a_strides,
-            out.data_ptr(), y_strides, m, n,
-            _sm_count(x.device.index), batch).bits)
+            out.data_ptr(), y_strides, m, n, _sm_count(x.device.index),
+            batch, x.element_size()).bits
     with torch.cuda.device(x.device):
-        err = fn(*args, _stream(x))
+        err = fn(x.data_ptr(), *x_strides, a.data_ptr(), *a_strides,
+                 out.data_ptr(), *y_strides, batch, m, n, k,
+                 int(accumulate), plan, _stream(x))
     _launched("factor_matmul", form)
     if err != 0:
         raise RuntimeError(f"factor_matmul: kernel launch failed, "

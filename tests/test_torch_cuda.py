@@ -592,6 +592,117 @@ def test_factor_matmul_bf16_batched(cuda):
     assert _rel(y, a[0].double() @ xd.double()) <= BF16_TOL
 
 
+def _bf16_path_case(case, g, cuda):
+    """(x, a, out, want) for the layouts the paths hand the bf16 kernel, at
+    a reduced size: the 14-site chain's up and dn applies (14h), a batch
+    of states' dn apply, and the Kitaev form's four products
+    (models/kitaev_factored.py matmat_t, dl = dr = 264, K = 3 cut terms)."""
+    def bf(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    d, k3 = 264, 3
+    xm, f = bf(d, d), bf(d, d)
+    if case == "up":                      # X . A_up^T
+        return xm, f, torch.zeros(d, d, device=cuda), None
+    if case == "dn":                      # Y^T += X^T . A_dn^T
+        y = torch.randn(d, d, generator=g, device=cuda, dtype=torch.float64)
+        want = y + f.double() @ xm.double()
+        return xm.T, f, y.T, want.T
+    if case == "batched dn":              # the same for a block of states
+        xb = bf(3, d, 136)
+        y = torch.zeros(3, d, 136, device=cuda)
+        want = torch.matmul(f.float(), xb.float())
+        return xb.transpose(1, 2), f, y.transpose(1, 2), want.transpose(1, 2)
+    if case == "kitaev right half":       # X . hr_t, A = hr_t.T MN-major
+        return xm, f.T, torch.zeros(d, d, device=cuda), None
+    if case == "kitaev left half":        # Y^T += X^T . hl^T
+        y = torch.randn(d, d, generator=g, device=cuda)
+        return xm.T, f, y.T, (y + f.float() @ xm.float()).T
+    p = bf(k3, d, d)
+    if case == "kitaev P_k X":            # X^T shared, a P_k per member
+        px = torch.zeros(d, k3, d, device=cuda)
+        want = torch.einsum("kac,cd->akd", p.float(), xm.float())
+        return (xm.T.expand(k3, d, d), p, px.permute(1, 2, 0),
+                want.permute(1, 2, 0))
+    # Y += [P_0 X ... P_K-1 X] [Q_0 ... Q_K-1]^T, pitch K d
+    pxq = bf(d, k3 * d)
+    return pxq, bf(d, k3 * d), torch.zeros(d, d, device=cuda), None
+
+
+@pytest.mark.parametrize("case", ["up", "dn", "batched dn",
+                                  "kitaev right half", "kitaev left half",
+                                  "kitaev P_k X", "kitaev Q"])
+def test_factor_matmul_bf16_path_layouts(cuda, case):
+    """The bf16 kernel on every stride pattern a path hands it: k-major
+    and MN-major X and A, Y transposed, X shared by a batch (stride 0), a
+    factor per member, px.permute(1, 2, 0) as Y; one launch each, no
+    operand repacked, within BF16_TOL of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    x, a, out, want = _bf16_path_case(case, g, cuda)
+    accumulate = want is not None and case in ("dn", "kitaev left half")
+    if want is None:
+        want = kernels.factor_matmul_ref(x, a)
+    elif case in ("batched dn", "kitaev P_k X"):
+        want = want.to(out.dtype)
+    kernels.reset_launches()
+    kernels.factor_matmul(x, a, out=out, accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["factor_matmul"] == 1 and not kernels.REPACKS
+    assert _rel(out, want) <= BF16_TOL
+
+
+def test_factor_matmul_bf16_repacks_only_what_tma_cannot_take(cuda):
+    """An operand whose pitch is not a multiple of 16 bytes is copied into
+    a padded one before the launch, counted in REPACKS and nowhere in the
+    launch counts; an aligned one is not, also where its rows are a view
+    narrower than their pitch."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(300, 257, generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn(123, 264, generator=g, device=cuda).to(torch.bfloat16)
+    kernels.reset_launches()
+    got = kernels.factor_matmul(x, a[:, :257])
+    torch.cuda.synchronize()
+    assert kernels.REPACKS == {"factor_matmul bf16": 1}
+    assert kernels.FORM_LAUNCHES == {"factor_matmul bf16_f32": 1}
+    assert _rel(got, kernels.factor_matmul_ref(x, a[:, :257])) <= BF16_TOL
+    kernels.reset_launches()
+    got = kernels.factor_matmul(x[:, :256].contiguous(), a[:, :256])
+    torch.cuda.synchronize()
+    assert not kernels.REPACKS
+    assert kernels.FORM_LAUNCHES == {"factor_matmul bf16_f32": 1}
+
+
+@pytest.mark.parametrize("layout", ["up", "dn"])
+def test_factor_matmul_f32_tiles_and_batch_bit_equal(cuda, layout):
+    """Every float32 output is one chain of FMAs in k order: the large and
+    the small tile's plans give the same bits, and so does a batch of one
+    against the 2-D call."""
+    from lanczosplusplus_tpu_torch.ops.build import load_library
+    g = torch.Generator(device=cuda).manual_seed(12)
+    size = 700
+    x = torch.randn(size, size, generator=g, device=cuda)
+    a = torch.randn(size, size, generator=g, device=cuda)
+    if layout == "dn":
+        x = x.T
+    y0 = torch.randn(size, size, generator=g, device=cuda)
+    outs = []
+    for tile in (128, 64):
+        y = y0.clone()
+        plan = kernels.factor_matmul_plan(
+            x.data_ptr(), x.stride(), a.data_ptr(), a.stride(), y.data_ptr(),
+            y.stride(), size, size, elem_size=4)._replace(tile=tile)
+        err = load_library().lpp_factor_matmul_f32(
+            x.data_ptr(), 0, *x.stride(), a.data_ptr(), 0, *a.stride(),
+            y.data_ptr(), 0, *y.stride(), 1, size, size, size, 1, plan.bits,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        outs.append(y)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert _rel(outs[0], y0 + kernels.factor_matmul_ref(x, a)) <= 1e-5
+    assert torch.equal(kernels.factor_matmul(x[None], a)[0],
+                       kernels.factor_matmul(x, a))
+
+
 def test_new_forms_refuse_what_they_do_not_take(cuda):
     xb = torch.zeros(8, 4, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):    # a float32 factor under a bf16 state

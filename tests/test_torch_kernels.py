@@ -202,6 +202,37 @@ def test_tile_rule_counts_the_whole_batch():
     assert tiles == [64, 64, 128, 128]
 
 
+@pytest.mark.parametrize("pitch,vec16", [(3432, True), (924, True),
+                                         (3003, False), (257, False)])
+def test_float32_plan(pitch, vec16):
+    """The float32 kernel stages through the float64 kernel's plan at
+    4-byte elements: 16-byte copies take a pitch that is a multiple of 4
+    floats (3432 and 924 do, 3003 and 257 do not, where float64's take any
+    even one), in the up and the dn apply's layouts alike, and a 16-byte
+    aligned base; the tile rule is float64's."""
+    base = 1 << 20
+    row, col = (pitch, 1), (1, pitch)
+    up = kernels.factor_matmul_plan(base, row, base, row, base, row, pitch,
+                                    pitch, elem_size=4)
+    dn = kernels.factor_matmul_plan(base, col, base, row, base, col, pitch,
+                                    pitch, elem_size=4)
+    assert (up.x_kmajor, up.x_vec16, up.a_kmajor, up.a_vec16) == (
+        True, vec16, True, vec16)
+    assert (dn.x_kmajor, dn.x_vec16, dn.a_vec16) == (False, vec16, vec16)
+    f64 = kernels.factor_matmul_plan(base, row, base, row, base, row, pitch,
+                                     pitch)
+    assert f64.x_vec16 == (pitch % 2 == 0)
+    assert up.tile == dn.tile == f64.tile == (128 if pitch > 2000 else 64)
+    assert not kernels.factor_matmul_plan(base + 8, row, base, row, base,
+                                          row, pitch, pitch,
+                                          elem_size=4).x_vec16
+    # a batch of states: the batch stride too is a multiple of 4 floats
+    batched = kernels.factor_matmul_plan(
+        base, (pitch * pitch + 2, *row), base, row, base, (0, *row), pitch,
+        pitch, batch=3, elem_size=4)
+    assert not batched.x_vec16 and batched.a_vec16 == vec16
+
+
 @pytest.mark.parametrize("operand,rows,cols", [("A", 16, 4), ("B", 4, 8),
                                                ("C", 16, 8)])
 def test_dmma_fragment_map_covers_tile(operand, rows, cols):

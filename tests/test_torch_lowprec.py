@@ -4,7 +4,10 @@ bf16 form of ``factor_matmul`` against the Pallas kernel's bf16 contract,
 ``perm_gather`` in float32, complex64 and from a bfloat16 source block
 (bf16cross) against ``_perm_cross_apply``, ``densify_factors(factor_dtype=
 bf16)`` and bf16 Kitaev factors against the JAX forms, the bf16cross
-Engine energy, and the m16n8k16 fragment map of the bf16 kernel.
+Engine energy, and the pure parts of the bf16 kernel (``wgmma`` fed by
+TMA): its plan over the paths' layouts, the repack of an operand TMA
+cannot address, the m64nNk16 accumulator table and the shared-memory
+descriptors against TMA's swizzled layout.
 
 Tolerances.  A bf16 product is exact in float32, so the two packages'
 float32 sums of the same bf16 operands differ by their order only: 1e-5
@@ -332,49 +335,160 @@ def test_float32_engine_drops_the_float64_form_after_refining():
     assert eng._ham64 is None
 
 
-@pytest.mark.parametrize("operand,rows,cols,per_lane",
-                         [("A", 16, 16, 8), ("B", 16, 8, 4),
-                          ("C", 16, 8, 4)])
-def test_bf16_fragment_map_covers_tile(operand, rows, cols, per_lane):
-    """Every element of each m16n8k16 operand tile is held by exactly one
-    (lane, element), and every lane holds the same number."""
-    frag = kernels.bf16_fragment_map()[operand]
-    assert sorted(frag.values()) == [(r, c) for r in range(rows)
-                                     for c in range(cols)]
-    assert sorted(frag) == [(lane, e) for lane in range(32)
-                            for e in range(per_lane)]
+BASE = 1 << 20   # a 16-byte aligned address
 
 
-def test_bf16_fragment_map_multiplies():
-    """The bf16 kernel's fragment loads, copied here from
-    csrc/factor_matmul.cu (two k-neighbours of one row a 32-bit register,
-    from [row][k] tiles of X and of A), multiplied as the table pairs
-    them and stored as the kernel stores them, give X . A^T."""
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal((16, 16))
-    a = rng.standard_normal((8, 16))
-    a_el = np.empty((32, 8))
-    b_el = np.empty((32, 4))
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        # afrag[0..3] = X[g][2t..], X[g+8][2t..], X[g][2t+8..], X[g+8][2t+8..]
-        for reg, (r, c) in enumerate(((g, 2 * t), (g + 8, 2 * t),
-                                      (g, 2 * t + 8), (g + 8, 2 * t + 8))):
-            a_el[lane, 2 * reg:2 * reg + 2] = x[r, c:c + 2]
-        # bfrag[0..1] = A[g][2t..], A[g][2t+8..]
-        for reg, c in enumerate((2 * t, 2 * t + 8)):
-            b_el[lane, 2 * reg:2 * reg + 2] = a[g, c:c + 2]
-    frag = kernels.bf16_fragment_map()
-    a_at = {pos: held for held, pos in frag["A"].items()}
-    b_at = {pos: held for held, pos in frag["B"].items()}
-    c_el = np.zeros((32, 4))
-    for (lane, e), (r, col) in frag["C"].items():
-        for kk in range(16):
-            c_el[lane, e] += a_el[a_at[r, kk]] * b_el[b_at[kk, col]]
-    y = np.empty((16, 8))
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for h in range(2):
-            for e in range(2):                 # Y[g + 8 h][2 t + e]
-                y[g + 8 * h, 2 * t + e] = c_el[lane, 2 * h + e]
+def _bf16_case(case):
+    """(plan arguments, expected plan) for the layouts the paths hand the
+    bf16 kernel and for the card tests' odd ones: the 14-site chain's up
+    and dn applies (14h), the Kitaev form's four products at 22 sites
+    (dl = dr = 2048, K = 4 cut terms; models/kitaev_factored.py matmat_t)."""
+    big, half, k4 = 3432, 2048, 4
+    row, col = (big, 1), (1, big)
+    hrow, hcol = (half, 1), (1, half)
+    cases = {
+        # X . A_up^T: both k-contiguous
+        "14h up": ((BASE, row, BASE, row, big, big, big),
+                   (True, True, True, True, False, False)),
+        # A_dn . X as X^T . A_dn^T: X^T is row-contiguous (MN-major)
+        "14h dn": ((BASE, col, BASE, row, big, big, big),
+                   (False, True, True, True, False, False)),
+        # X . hr_t: A = hr_t.T is row-contiguous
+        "kitaev right half": ((BASE, hrow, BASE, hcol, half, half, half),
+                              (True, True, False, True, False, False)),
+        # Y^T += X^T . hl^T
+        "kitaev left half": ((BASE, hcol, BASE, hrow, half, half, half),
+                             (False, True, True, True, False, False)),
+        # (P_k X)^T = X^T . P_k^T for the K terms in one launch: X^T shared
+        # (batch stride 0, a 2-D map), a P_k per member (a 3-D map)
+        "kitaev P_k X": ((BASE, (0, 1, half), BASE, (half * half, half, 1),
+                          half, half, half, k4),
+                         (False, True, True, True, False, True)),
+        # [P_0 X ... P_K-1 X] [Q_0 ... Q_K-1]^T: pitch K dr
+        "kitaev Q": ((BASE, (k4 * half, 1), BASE, (k4 * half, 1), half,
+                      half, k4 * half),
+                     (True, True, True, True, False, False)),
+        # the card tests' pitches 257 and 5: not multiples of 16 bytes,
+        # beside an MN-major factor of pitch 72 that TMA takes
+        "pitch 257": ((BASE, (257, 1), BASE, (257, 1), 300, 123, 257),
+                      (True, False, True, False, False, False)),
+        "pitch 5": ((BASE, (5, 1), BASE, (1, 72), 1, 70, 5),
+                    (True, False, False, True, False, False)),
+        # an aligned pitch one element into its storage
+        "base off 16 bytes": ((BASE + 2, row, BASE, row, big, big, big),
+                              (True, False, True, True, False, False)),
+        # no contiguous axis
+        "strided": ((BASE, (2 * big, 2), BASE, row, big, big, big),
+                    (True, False, True, True, False, False)),
+        # a batch of states whose batch stride is not a multiple of 8
+        "odd batch stride": ((BASE, (136 * 200 + 1, 136, 1), BASE, (136, 1),
+                              200, 136, 136, 3),
+                             (True, False, True, True, True, False)),
+        # a pitch shorter than its row: rows that overlap
+        "overlapping rows": ((BASE, (8, 1), BASE, row, 64, big, 64),
+                             (True, False, True, True, False, False)),
+    }
+    return cases[case]
+
+
+@pytest.mark.parametrize("case", [
+    "14h up", "14h dn", "kitaev right half", "kitaev left half",
+    "kitaev P_k X", "kitaev Q", "pitch 257", "pitch 5", "base off 16 bytes",
+    "strided", "odd batch stride", "overlapping rows"])
+def test_bf16_plan(case):
+    """The bf16 kernel's path, a pure function of pointers, strides and
+    shape: each operand's majorness and whether TMA can address it where
+    it lies (every path's layout can: no repack on a path) and a 3-D
+    tensor map for an operand per batch member only."""
+    args, expect = _bf16_case(case)
+    plan = kernels.factor_matmul_bf16_plan(*args)
+    assert tuple(plan) == expect
+    assert plan.bits == (expect[0] | expect[2] << 1 | expect[4] << 2
+                         | expect[5] << 3)
+
+
+@pytest.mark.parametrize("layout", ["pitch 257", "transposed pitch 33",
+                                    "shared, pitch 5", "aligned"])
+def test_tma_operand_repacks_on_cpu(layout):
+    """An operand TMA cannot address is copied k-major into a zero-padded
+    buffer whose pitch is a multiple of 8 elements: the same values, whose
+    plain product is the original's (to float32 rounding, the sums'
+    order); an aligned one is handed back as it is."""
+    rng = np.random.default_rng(12)
+    bf = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape)).to(BF16)
+    a = bf(24, 257)
+    if layout == "pitch 257":
+        x = bf(40, 257)
+    elif layout == "transposed pitch 33":
+        x, a = bf(33, 257).T, bf(24, 33)
+    elif layout == "shared, pitch 5":
+        x, a = bf(6, 5).expand(3, 6, 5), bf(3, 24, 5)
+    else:
+        x, a = bf(40, 256), bf(24, 256)
+    ready = kernels.tma_operand(x)
+    if layout == "aligned":
+        assert ready is x
+    else:
+        assert ready is not x and ready.shape == x.shape
+        *_, rows, k = ready.shape
+        batch = ready.shape[0] if ready.dim() == 3 else 1
+        assert ready.stride(-1) == 1 and ready.stride(-2) % 8 == 0
+        assert kernels._tma_layout(ready.data_ptr(), rows, k, ready.stride(),
+                                   batch) == (True, True)
+        if layout == "shared, pitch 5":
+            assert ready.stride(0) == 0   # one member's copy, expanded
+        base = ready[0] if ready.dim() == 3 else ready
+        pitch = base.stride(0)
+        padded = torch.as_strided(base, (rows, pitch), (pitch, 1))
+        assert (padded[:, k:] == 0).all()
+    assert torch.equal(ready, x)
+    np.testing.assert_allclose(kernels.factor_matmul_ref(ready, a).numpy(),
+                               kernels.factor_matmul_ref(x, a).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_accumulator_map_covers_tile(n):
+    """Every element of a warpgroup's 64 x n tile is held by exactly one
+    (thread, register), n / 2 registers a thread."""
+    acc = kernels.wgmma_accumulator_map(n)
+    assert sorted(acc.values()) == [(r, c) for r in range(64)
+                                    for c in range(n)]
+    assert sorted(acc) == [(t, i) for t in range(128) for i in range(n // 2)]
+
+
+def test_wgmma_accumulator_map_multiplies():
+    """The bf16 kernel's stores, copied here from csrc/factor_matmul.cu
+    (row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +
+    2 (t % 4) + i % 2 of register i of thread t), put the sums the table
+    says each register holds where X . A^T has them."""
+    rng = np.random.default_rng(13)
+    n, k = 128, 16
+    x = rng.standard_normal((64, k))
+    a = rng.standard_normal((n, k))
+    sums = {held: x[r] @ a[c]
+            for held, (r, c) in kernels.wgmma_accumulator_map(n).items()}
+    y = np.full((64, n), np.nan)
+    for t in range(128):
+        row0, col0 = 16 * (t // 32) + (t % 32) // 4, 2 * (t % 4)
+        for i in range(n // 2):
+            y[row0 + 8 * ((i // 2) % 2), col0 + 8 * (i // 4) + i % 2] = \
+                sums[t, i]
     np.testing.assert_allclose(y, x @ a.T, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("kmajor", [True, False])
+def test_wgmma_descriptors_read_what_tma_wrote(kmajor):
+    """For every element (row, k) of a stage's 128-row tile, the byte the
+    kernel's wgmma descriptor (start + its k16 step, LBO, SBO, 128-byte
+    swizzle) reads is the byte TMA wrote it to, and the tile's bytes are
+    each read once."""
+    rows, depth = kernels.WGMMA_TILE_M, kernels.WGMMA_STAGE_K
+    read = {}
+    for row in range(rows):
+        for k in range(depth):
+            offset = kernels.wgmma_smem_offset(kmajor, row, k)
+            assert offset == kernels.tma_smem_offset(kmajor, row, k)
+            read[offset] = (row, k)
+    assert sorted(read) == list(range(0, 2 * rows * depth, 2))
