@@ -108,19 +108,21 @@ Phases, each printing one line with its numbers:
    after, its symmetry set-up, block builds and block solves timed apart
    from the Engine's log, one line a block (dim, type, ELL K against the
    mean entries a row, build s, Lanczos steps, solve s), and every block
-   matvec one ell_spmv launch: the 14-site half-filled U=4 chain with
-   UseTranslationSymmetry=1 (14 momentum blocks of about 841 330, 12 of
-   them complex128) against phase 5's E0, its transformed eigenvector's
-   residual on phase 5's Hamiltonian; the 14-site open (4, 4) chain with
+   matvec one ell_spmv launch: the 12-site half-filled U=4 chain with
+   UseTranslationSymmetry=1 (12 momentum blocks, most of them complex128)
+   against its E0 without symmetry, its transformed eigenvector's
+   residual on that Hamiltonian (phase 15 runs the 14-site chain's 14
+   blocks, in float32); the 14-site open (4, 4) chain with
    UseReflectionSymmetry=1 (two float64 parity blocks) and the 12-site
    (3, 3) 2-leg ladder with UseTranslationSymmetry=2 against their E0s
    without symmetry; the 22-site Kitaev ring with UseTranslationSymmetry=1,
    which takes the projected path on the card (12 momentum sectors of the
    full 2^22 space, factor_matmul on the 2048^2 halves), each k's E0 and
    bench.py's sym_* fields, against the factored solve's E0 with its
-   purity; then ell_spmv on the largest momentum block and the larger
-   parity block at R = 1 and 14, and factor_matmul on the 22-site Kitaev
-   half, each against its plain version and beside cuSPARSE or cuBLAS.
+   purity; then ell_spmv on the larger parity block at R = 1 and 14
+   (phase 15 times the 14-site chain's largest complex128 momentum block),
+   and factor_matmul on the 22-site Kitaev half, each against its plain
+   version and beside cuSPARSE or cuBLAS.
 12. the estimators and their command lines (``estimator_phase``), each
    case through its CLI's run() on the card with the launch counts set to
    0 before and read after: ed --ftlm on the 14-site half-filled U=4 chain
@@ -145,7 +147,7 @@ Phases, each printing one line with its numbers:
    read after: consistency --tinf on phase 5's 14-site chain and phase
    9's 24-site Heisenberg ring (E0 against those phases', the T=inf
    energy against its closed form) and on the 16-site ring in the dense
-   branch on the card; spin_orbital_main 7 1 and 4 against their CPU
+   branch on the card; spin_orbital_main 6 1 and 4 against their CPU
    runs; the Ainur form of phase 5's input through lanczos -f; the
    6-site Hubbard chain's sector files written on the card and on the
    CPU; the native host runtime (native/lanczos_native.cpp, built with
@@ -182,6 +184,28 @@ Phases, each printing one line with its numbers:
    perm_gather in float32 and complex64 (the 14-site one-spin up form,
    the 8-site FeAs term, the path's cross terms) and from a bf16 source
    into float32 and float64 sums.
+15. float32 and complex64 on the paths the JAX package runs below float64
+   on its chip (``float32_paths_phase``), each run with the launch counts,
+   by form, set to 0 before and read after, its wall time and peak device
+   memory beside its float64 counterpart's: lanczos --dtype float32 -g c
+   on phase 8's 14-site DOS fleet at U=4 (#CFEnergy= the refined E0 to
+   1e-10) and at U=0 (the one-particle levels); phase 8's 12-site
+   TSPCenter fleet in float32 (ell_spmv f32 at R = 23); both U=4 fleets'
+   densities printed against phase 8's and against the float64 recurrence
+   from the run's own start rows beside the 2e-3 bar, their first 5
+   coefficients against that recurrence's beside the 1e-5 bar; --kpm on
+   the 14-site chain against phase 12c's moments, --ftlm-dos 2.0 at R =
+   16 against the same block in float64, the batched FTLM recurrence on
+   the 14-site form at R = 16 in both types, sqomega against phase 12f's;
+   the 14-site chain's 14 momentum blocks in float32 (12 complex64, each
+   refined against its float64 block) against phase 5's E0 and
+   Hamiltonian, the 14-site open chain's parity blocks and the 22-site
+   Kitaev ring by projection against phase 11's E0s, each k's; then the
+   float32 batched factor_matmul at pitch 3003 (R = 14) and 3432 (R = 16),
+   ell_spmv f32 at R = 23, c128 and c64 on the largest momentum block and
+   f32 on the larger parity block at R = 1 and 14, and the f32 factor_matmul on
+   the Kitaev half, each against its plain version, its bound and one
+   library call.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
@@ -191,7 +215,7 @@ each kernel and form of a path, with the launches that path counted:
 ground state, spectral, the flat models' forms of phase 9, the factored
 forms' and gather apply's of phase 10, the symmetry blocks' and projected
 translation's of phase 11, the estimators' of phase 12, phase 13's and,
-by form, phase 14's),
+by form, phase 14's and phase 15's),
 the card's name and power limit, and the result object.
 """
 
@@ -514,7 +538,7 @@ def spectral_density(coll, omegas, delta):
 
 def recurrence_both_ways(lz, K, ham, v0s, steps):
     """tridiagonalize_plain_batched from the rows of `v0s`, in the turns
-    plain, kernel, kernel, plain, and then 20 steps with every apply done
+    plain and kernel, and then 20 steps with every apply done
     both ways on the same block: (results through the kernels, results
     through the plain versions, wall seconds by path, worst difference of
     one apply of max |y|).  A plain turn must launch no kernel, a kernel
@@ -522,7 +546,7 @@ def recurrence_both_ways(lz, K, ham, v0s, steps):
     the operator has an ELL part, of ell_spmv."""
     results, walls = {}, {"kernel": [], "plain": []}
     both = CheckedOperator(ham)
-    for label in ("plain", "kernel", "kernel", "plain", "both"):
+    for label in ("plain", "kernel", "both"):
         op = {"kernel": ham, "plain": PlainForm(ham), "both": both}[label]
         count = steps if label != "both" else min(steps, 20)
         before = dict(K.LAUNCHES)
@@ -697,27 +721,28 @@ def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
             share_of_nonzero_bound=nonzero_bound_ms / ms)
 
 
-def batched_factor_cases(results, gen, dev, sms, rows, szd, szu):
+def batched_factor_cases(results, gen, dev, sms, rows, szd, szu,
+                         dtype=torch.float64):
     """factor_matmul's batched forms on random blocks of `rows` states of
-    a (szd, szu) sector, float64, against the plain version and the
-    library: the up product with the batch folded into its rows and the
-    dn product over the transposed views, one launch each (an odd szu
-    takes the 8-byte copies)."""
+    a (szd, szu) sector, float64 or float32, against the plain version and
+    the library: the up product with the batch folded into its rows and
+    the dn product over the transposed views, one launch each (a szu that
+    is not a multiple of 16 bytes takes the one-element copies).  A
+    batch's dn product must equal its members' one by one bit for bit."""
     from lanczosplusplus_tpu_torch.ops import kernels as K
-    wide = szu % 2 == 0
-    copies = "16-byte copies" if wide else "8-byte copies: odd pitch"
-    xb = torch.randn(rows, szd, szu, generator=gen, device=dev,
-                     dtype=torch.float64)
-    yb = torch.randn(rows, szd, szu, generator=gen, device=dev,
-                     dtype=torch.float64)
-    a_up = torch.randn(szu, szu, generator=gen, device=dev,
-                       dtype=torch.float64)
-    a_dn = torch.randn(szd, szd, generator=gen, device=dev,
-                       dtype=torch.float64)
+    size = torch.empty(0, dtype=dtype).element_size()
+    wide = szu * size % 16 == 0
+    tag, tol = DTYPE_TAGS[dtype], TOL_F64 if size == 8 else TOL_F32
+    copies = "16-byte copies" if wide else \
+        f"{size}-byte copies: pitch {szu}"
+    xb = torch.randn(rows, szd, szu, generator=gen, device=dev, dtype=dtype)
+    yb = torch.randn(rows, szd, szu, generator=gen, device=dev, dtype=dtype)
+    a_up = torch.randn(szu, szu, generator=gen, device=dev, dtype=dtype)
+    a_dn = torch.randn(szd, szd, generator=gen, device=dev, dtype=dtype)
     xf, yf = xb.view(rows * szd, szu), yb.view(rows * szd, szu)
     plan = K.factor_matmul_plan(
         xf.data_ptr(), xf.stride(), a_up.data_ptr(), a_up.stride(),
-        yf.data_ptr(), yf.stride(), rows * szd, szu, sms)
+        yf.data_ptr(), yf.stride(), rows * szd, szu, sms, elem_size=size)
     check(plan.tile == 128 and plan.x_vec16 == plan.a_vec16 == wide,
           f"up form of the batch: plan {plan}")
     got = K.factor_matmul(xf, a_up)
@@ -725,9 +750,9 @@ def batched_factor_cases(results, gen, dev, sms, rows, szd, szu):
     torch.cuda.synchronize()
     out = torch.empty_like(xf)
     record(results, "factor_matmul",
-           f"f64 batched up form ({rows}*{szd})x{szu}.{szu}x{szu}^T, "
+           f"{tag} batched up form ({rows}*{szd})x{szu}.{szu}x{szu}^T, "
            f"batch folded into the rows (128-tile, {copies})",
-           got, ref, TOL_F64,
+           got, ref, tol,
            (lambda: K.factor_matmul(xf, a_up, out=out),
             lambda: K.factor_matmul_ref(xf, a_up),
             lambda: torch.matmul(xf, a_up.T, out=out)),
@@ -736,19 +761,24 @@ def batched_factor_cases(results, gen, dev, sms, rows, szd, szu):
     xt, yt = xb.transpose(1, 2), yb.transpose(1, 2)
     plan = K.factor_matmul_plan(
         xt.data_ptr(), xt.stride(), a_dn.data_ptr(), a_dn.stride(),
-        yt.data_ptr(), yt.stride(), szu, szd, sms, rows)
+        yt.data_ptr(), yt.stride(), szu, szd, sms, rows, elem_size=size)
     check(plan.tile == 128 and not plan.x_kmajor
           and plan.x_vec16 == wide and plan.a_vec16,
           f"dn form of the batch: plan {plan}")
     got = yb.clone()
     K.factor_matmul(xt, a_dn, out=got.transpose(1, 2), accumulate=True)
     ref = yb + torch.matmul(a_dn, xb)
+    for b in ((0, rows - 1) if size == 4 else ()):
+        one = yb[b].clone()
+        K.factor_matmul(xt[b], a_dn, out=one.T, accumulate=True)
+        check(torch.equal(one, got[b]),
+              f"{tag} batched dn form: member {b} differs from its own call")
     torch.cuda.synchronize()
     y1 = yb.clone()
     record(results, "factor_matmul",
-           f"f64 batched dn form R={rows}: Y[b]+=A.X[b], {szd}^2 factor "
+           f"{tag} batched dn form R={rows}: Y[b]+=A.X[b], {szd}^2 factor "
            f"on ({szu}x{szd})^T views, one launch (128-tile, X {copies})",
-           got, ref, TOL_F64,
+           got, ref, tol,
            (lambda: K.factor_matmul(xt, a_dn, out=y1.transpose(1, 2),
                                     accumulate=True),
             lambda: y1.transpose(1, 2).add_(
@@ -1363,15 +1393,17 @@ def factored_phase(dev, gen, results, refs):
 
 
 @contextlib.contextmanager
-def counted_applies(owner, attr):
+def counted_applies(owner, attr, batched=False):
     """Counts, while the block runs, the calls of owner.attr whose first
-    argument lies on the card: yields a dict whose "applies" is that
-    count."""
+    argument lies on the card (with `batched`, a 2-D block of states
+    there): yields a dict whose "applies" is that count.  A batched apply
+    of a form with dense one-spin factors is one launch of each
+    factor_matmul form, of one with an ELL part one ell_spmv launch."""
     fn = getattr(owner, attr)
     seen = {"applies": 0}
 
     def wrapped(self, x, *args, **kwargs):
-        if x.is_cuda:
+        if x.is_cuda and (x.dim() == 2 or not batched):
             seen["applies"] += 1
         return fn(self, x, *args, **kwargs)
     setattr(owner, attr, wrapped)
@@ -1386,17 +1418,32 @@ SECTOR_LINE = re.compile(
     r"([0-9.]+) entries a row, steps (\d+), E0 (\S+)")
 
 
+def eigenvector_residual(ham, v, e0) -> float:
+    """||H v - e0 v|| in the form's precision for a real form `ham` and a
+    real or complex state `v` (a complex one applied as its two real
+    planes)."""
+    v = v.to(torch.complex128 if v.is_complex() else ham.dtype)
+    parts = (v,) if not v.is_complex() else (v.real.contiguous(),
+                                             v.imag.contiguous())
+    hv = [ham.matvec(p) for p in parts]
+    hv = hv[0] if len(hv) == 1 else torch.complex(*hv)
+    return torch.linalg.vector_norm(hv - e0 * v).item()
+
+
 def symmetry_phase(dev, gen, results, refs, ell_case):
     """Phase 11: the symmetry sectors on the card, each run through the
     port's CLI with the launch counts set to 0 before and read after:
-    the 14-site half-filled U=4 chain's 14 momentum blocks against phase
-    5's E0 and Hamiltonian (`refs`), the 14-site open (4, 4) chain's two
+    the 12-site half-filled U=4 chain's 12 momentum blocks against its E0
+    and Hamiltonian without symmetry, the 14-site open (4, 4) chain's two
     parity blocks and the 12-site (3, 3) ladder's momentum blocks of both
     directions against their flat E0s, the 22-site Kitaev ring by
-    projection against its factored E0; then ell_spmv on the largest
-    momentum and parity blocks (`ell_case`, phase 3's) and factor_matmul
-    on the Kitaev half.  Returns {run label: (kind, launches)}, kind
-    "flat", "translation blocks", "reflection blocks" or "projected"."""
+    projection against its factored E0; then ell_spmv on the larger
+    parity block (`ell_case`, phase 3's) and factor_matmul on the Kitaev
+    half.  Each symmetric run's E0, wall, peak memory and
+    blocks (or sectors) go to `refs` under "phase 11 <label>", what phase
+    15 holds its float32 runs against.  Returns {run label: (kind,
+    launches)}, kind "flat", "translation blocks", "reflection blocks" or
+    "projected"."""
     from lanczosplusplus_tpu_torch import Config
     from lanczosplusplus_tpu_torch.cli import lanczos_main
     from lanczosplusplus_tpu_torch.core import sparse
@@ -1444,14 +1491,17 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
             r"symmetry sector (\d+) solve done in ([0-9.]+)s", err))
         blocks = [(int(m[0]), int(m[1]), m[2], int(m[3]), float(m[4]),
                    int(m[5]), float(m[6])) for m in SECTOR_LINE.findall(err)]
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        # what phase 15 holds its float32 run against
+        refs[f"phase 11 {label}"] = dict(e0=eng.ground_energy, wall=wall,
+                                         peak=peak, blocks=blocks)
         say(f"phase 11 {label} via CLI on cuda: dim {eng.basis.size}, "
             f"{len(blocks)} blocks, min sector {eng.solve_sector}, E0 "
             f"{eng.ground_energy!r}, time to E0 {wall:.3f} s = symmetry "
             f"setup {setup:.3f} + block builds {sum(builds.values()):.3f} + "
             f"block solves {sum(solves.values()):.3f} s + the rest, "
             f"{seen['applies']} block matvecs, launches {counts}, peak "
-            f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
-            f" GB")
+            f"device memory {peak:.2f} GB")
         for s, dim, dtype, width, mean, steps, e0 in blocks:
             say(f"  sector {s}: dim {dim}, {dtype}, ELL K {width} against "
                 f"{mean:.2f} entries a row (padding share "
@@ -1471,26 +1521,22 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
         made = [(s, sym.block_hamiltonian(s)) for s in range(sym.sectors())]
         return eng, [(s, b) for s, b in made if b is not None]
 
-    # a. the 14-site half-filled U=4 chain: 14 momentum blocks
-    label = "14-site U=4 chain, translation"
-    eng, kept = blocks_run(label, "translation blocks", hubbard_chain_text(
-        14, 4, extra="UseTranslationSymmetry=1\n"), refs["e0_u4"])
-    check(len(kept) == 14, f"{label}: {len(kept)} blocks")
+    # a. the 12-site half-filled U=4 chain: 12 momentum blocks (phase 15
+    # holds the 14-site chain's 14 blocks, in float32)
+    label = "12-site U=4 chain, translation"
+    text = hubbard_chain_text(12, 4)
+    flat = flat_e0(label, text)
+    eng, kept = blocks_run(label, "translation blocks",
+                           text + "UseTranslationSymmetry=1\n",
+                           flat.ground_energy)
+    check(len(kept) == 12, f"{label}: {len(kept)} blocks")
     v = eng.eigenvector(0)
-    ham = refs["ham_u4"]
-    parts = (v,) if not v.is_complex() else (v.real.contiguous(),
-                                             v.imag.contiguous())
-    hv = [ham.matvec(p) for p in parts]
-    hv = hv[0] if len(hv) == 1 else torch.complex(*hv)
-    resid = torch.linalg.vector_norm(hv - eng.ground_energy * v).item()
+    resid = eigenvector_residual(flat.hamiltonian, v, eng.ground_energy)
     say(f"  the transformed eigenvector ({v.dtype}, norm "
-        f"{torch.linalg.vector_norm(v).item():.15f}) on phase 5's "
+        f"{torch.linalg.vector_norm(v).item():.15f}) on the flat "
         f"Hamiltonian: ||Hv - E0 v|| = {resid:.3e}")
     check(resid <= 1e-8, f"{label}: residual {resid:.3e}")
-    momentum = max(((s, b) for s, b in kept if b.dtype == torch.complex128),
-                   key=lambda sb: sb[1].dim)
-    momentum_entries = eng.symmetry.block_entries[momentum[0]]
-    del eng, v, hv, kept, parts
+    del eng, v, kept, flat
     torch.cuda.empty_cache()
 
     # b. the 14-site open (4, 4) chain: two parity blocks
@@ -1527,6 +1573,8 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     ref = flat_e0("22-site Kitaev ring, factored", factored(text))
     form = ref._cached_hamiltonian(ref.parts)
     # phase 14 builds it again with bf16 factors
+    # phase 15 times the float32 product on this half
+    refs["22-site Kitaev half"] = form.hl
     refs["22-site Kitaev ring"] = (ref.ground_energy, form, ref.model,
                                    ref.basis)
     K.reset_launches()
@@ -1558,6 +1606,9 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
         f"included), launches {counts}; {json.dumps(sym)}")
     for (k, steps, e0), sec in zip(per_k, solves):
         say(f"  k={k}: steps {steps}, solve {sec:.3f} s, E0 {e0!r}")
+    refs[f"phase 11 {label}"] = dict(e0=eng.ground_energy, wall=wall,
+                                     per_k=per_k, solves=solves,
+                                     build=build_s)
     say(f"  min-k E0 {eng.ground_energy!r} against the factored solve's "
         f"{ref.ground_energy!r}: rel err {err_e0:.3e}")
     check(len(per_k) == 12 and eng.basis.size == 1 << 22,
@@ -1590,17 +1641,15 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     del eng, ref, form, hl, x2, y0, y1, got, want
     torch.cuda.empty_cache()
 
-    # e. ell_spmv on the largest momentum block and the larger parity block
-    for tag, name, (_, blk), entries in (
-            ("c128", "14-site momentum block", momentum, momentum_entries),
-            ("f64", "14-site parity block", parity, parity_entries)):
-        width = blk.ell.cols.shape[1]
-        for rows in (1, 14):
-            ell_case(f"{tag} {name} R={rows}, dim {blk.dim}, K {width} "
-                     f"against {entries / blk.dim:.2f} entries a row",
-                     blk.diag, blk.ell.cols, blk.ell.vals,
-                     (blk.dim,) if rows == 1 else (rows, blk.dim),
-                     TOL_ELL_F64, entries=entries)
+    # e. ell_spmv on the larger parity block
+    _, blk = parity
+    width = blk.ell.cols.shape[1]
+    for rows in (1, 14):
+        ell_case(f"f64 14-site parity block R={rows}, dim {blk.dim}, K "
+                 f"{width} against {parity_entries / blk.dim:.2f} entries "
+                 f"a row", blk.diag, blk.ell.cols, blk.ell.vals,
+                 (blk.dim,) if rows == 1 else (rows, blk.dim), TOL_ELL_F64,
+                 entries=parity_entries)
     say(f"symmetry paths' kernel launches: {runs}")
     return runs
 
@@ -1772,6 +1821,8 @@ def estimator_phase(dev, gen, results, refs, ell_case):
     grid = kpmdos[:, 0]
     gs = eng.eigenvector(0)
     dens = np.zeros_like(grid)
+    # what phase 15 holds its float32 run against
+    refs["kpm"] = dict(dos=kpmdos, wall=wall, loops=loop_s, moments=[])
     op_c = LabeledOperator("c")
     for type_, cf in enumerate(coll.items):
         op = op_c if type_ else op_c.transpose_conjugate()
@@ -1803,6 +1854,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
         check(k_lanczos <= 1e-8, f"12c moments vs Lanczos {k_lanczos:.3e}")
         dens += got.density((grid if type_ == 0 else -grid)
                             + eng.ground_energy)
+        refs["kpm"]["moments"].append((got.a, got.b, got.moments))
     dos_err = np.abs(kpmdos[:, 1] - dens).max() / np.abs(dens).max()
     say(f"  .kpmdos against the density of these moments: max rel diff "
         f"{dos_err:.3e} (tolerance 1e-8, the file's 10 digits)")
@@ -1997,6 +2049,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
                                    "-d", "0.1"], ("ell_spmv",))
     agree("sqomega 10-site Heisenberg ring S(q, omega)", sq[1], sq_cpu[1],
           1e-8)
+    refs["sqomega"] = sq[1]
     feas = feas_ring_text(4, 2, 2)
     (cf1, _, _, _, _), (cf1_cpu, _, _, _, _), counts = both(
         "dynamics1 4-site FeAs", dynamics1_main, feas, ["-r", "1"],
@@ -2098,7 +2151,7 @@ def cli_phase(dev, refs, ell_case):
     T=inf against L (M^2 - L) / (4 L (L - 1)) with M = N_up - N_dn), both
     past the dense branch; 13c the 16-site ring in the dense branch on the
     card (Lanczos against the dense eigenvalue, the dense mean against its
-    closed form) and ell_spmv on its ELL; 13d spin_orbital_main 7 1 and 4
+    closed form) and ell_spmv on its ELL; 13d spin_orbital_main 6 1 and 4
     on the card against their --device cpu runs, and ell_spmv on the
     7-site chain's ELL; 13e the Ainur form of phase 5's input through
     lanczos -f (its parsed labels against the legacy form's, E0 against
@@ -2215,7 +2268,11 @@ def cli_phase(dev, refs, ell_case):
               f"spin_orbital {args}: printed {out.getvalue()!r}")
         return energies, time.perf_counter() - t
 
-    for args, dim in ((["7", "1"], 16384), (["4"], 6561)):
+    # 6 sites, not 7, against the CPU: the 7-site chain's --device cpu run
+    # (a dense eigvalsh at dim 16 384 on the host) took 50-70 s, and with it
+    # the whole run came to 1232 s of its 1200 s limit on a loaded host;
+    # the card's ELL case below keeps the 7-site chain
+    for args, dim in ((["6", "1"], 4096), (["4"], 6561)):
         label = f"13d spin_orbital {' '.join(args)}"
         K.reset_launches()
         card, wall = spin_orbital(args, dev)
@@ -2923,7 +2980,599 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
     return runs
 
 
+def float32_paths_phase(dev, gen, results, refs, ell_case):
+    """Phase 15: float32 and complex64 on the paths the JAX package runs
+    below float64 on its chip (``--dtype float32``), each run with the
+    launch counts set to 0 before and read after, by form, its wall time
+    and peak device memory beside its float64 counterpart's (`refs`, from
+    phases 5, 8, 11 and 12, or run here from the same block): 15a lanczos
+    --dtype float32 -g c on phase 8's 14-site chain (ComputeDensityOfStates
+    =1, two batched float32 recurrences of 14 rows x 100 steps) at U=4
+    against phase 8's ``#CFEnergy=`` (1e-10), and at U=0 against the
+    one-particle levels; 15b phase 8's 12-site SuperHubbardExtended
+    TSPCenter fleet in float32 (the float32 ell_spmv at R = 23); each U=4
+    fleet's margins (``fleet_margins``) printed beside their bars; 15c
+    --kpm on the 14-site chain (512
+    moments) against phase 12c's moments and .kpmdos, --ftlm-dos 2.0 at R
+    = 16 in float32 and float64 from the same card-drawn block, the FTLM
+    recurrence (engine/ftlm.ftlm, R = 16, 80 steps: the (16*3432)x3432
+    float32 GEMMs) on the 14-site form in float32 and float64 from the
+    same block, and sqomega on phase 12f's 10-site ring; 15d the 14-site
+    half-filled U=4 chain's 14 momentum blocks in float32 (12 of them
+    complex64, each refined against its float64 block) against phase 5's
+    E0 and Hamiltonian, the 14-site open (4, 4) chain's parity blocks and
+    the 22-site Kitaev ring by projection in float32 against phase 11's
+    E0s, each k's; then each kernel form at the shapes these paths gave
+    it, alone against its plain version, its bound and one library call.
+    Returns {run label: launches by kernel and form}."""
+    from lanczosplusplus_tpu_torch.cli import lanczos_main, sqomega_main
+    from lanczosplusplus_tpu_torch.core import sparse
+    from lanczosplusplus_tpu_torch.engine import ftlm as F
+    from lanczosplusplus_tpu_torch.engine import kpm as KPM
+    from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
+    from lanczosplusplus_tpu_torch.engine.spectral import (
+        ContinuedFractionCollection)
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.ops.refine import narrowed
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+    from lanczosplusplus_tpu_torch.symmetry import projected
+    f32, f64 = torch.float32, torch.float64
+    runs, batched = {}, {}
+    e0 = refs["e0_u4"]
+    omegas = np.linspace(-10.0, 10.0, 401)
+    # The bars a float32 run is measured against; each margin is printed
+    # beside its bar, met or not.  A fleet's densities (each against its
+    # own maximum) and first coefficients are printed against their bars
+    # and fail no run: the float64 recurrence from the float32 run's own
+    # start rows (`float64_witness`) splits their distance from the
+    # float64 fleet into the arithmetic's share and the start rows' share.
+    density_bar, coef_bar, e0_bar = 2e-3, 1e-5, TOL_E0
+
+    def bar(value, limit):
+        return f"bar {limit:g} {'met' if value <= limit else 'not met'}"
+
+    def launched(label, run, counter=None):
+        """Runs run() with the launch counts set to 0 before and read
+        after, by form, into runs[label]; where `counter` is given (an
+        owner and attribute), the batched applies it counts go to
+        batched[label].  Returns (what run() returns, wall s, peak GB)."""
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (counted_applies(*counter, batched=True) if counter else
+              contextlib.nullcontext({"applies": 0})) as seen:
+            got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[label] = dict(K.FORM_LAUNCHES)
+        batched[label] = seen["applies"]
+        return got, wall, torch.cuda.max_memory_allocated(dev) / 1e9
+
+    def beside(label, wall, peak, ref_wall, ref_peak, where):
+        """One line: the run's wall and peak memory beside its float64
+        counterpart's (None: not measured in this run)."""
+        def gb(x):
+            return "not measured" if x is None else f"{x:.2f} GB"
+        say(f"  {label}: wall {wall:.3f} s against "
+            + ("not measured" if ref_wall is None else f"{ref_wall:.3f} s")
+            + f" in float64 ({where}); peak device memory {gb(peak)} "
+              f"against {gb(ref_peak)}; launches by form {runs[label]}")
+
+    def density_diff(colls, ref_colls, delta):
+        """Worst difference of -Im G(w + i delta)/pi over the collections,
+        of each reference collection's own maximum."""
+        worst = 0.0
+        for c, r in zip(colls, ref_colls):
+            got, want = (spectral_density(x, omegas, delta) for x in (c, r))
+            worst = max(worst, np.abs(got - want).max() / np.abs(want).max())
+        return worst
+
+    def coefficient_diff(colls, ref_colls, lead=5):
+        """Worst difference of the first `lead` alphas and betas of each
+        fraction, of the reference's maximum of them."""
+        worst = 0.0
+        for c, r in zip(colls, ref_colls):
+            for cf, rf in zip(c.items, r.items):
+                for a, b in ((cf.alphas, rf.alphas), (cf.betas, rf.betas)):
+                    worst = max(worst, np.abs(a[:lead] - b[:lead]).max()
+                                / np.abs(b[:lead]).max())
+        return worst
+
+    def float64_witness(eng, text):
+        """The fleet of `eng`, a float32 Engine after its -g run on
+        `text`, made again with each batched recurrence in float64: the
+        sector's float64 form from the float32 run's own start rows,
+        widened and renormalised.  Collections in the .comb files' order,
+        with the run's E0, weights and signs."""
+        n = eng.geometry.number_of_sites()
+        pairs, _ = lanczos_main._spectral_pairs(parse_input(text), n)
+        norb = lanczos_main.max_orbitals(eng.model, n)
+        plain = lz.tridiagonalize_plain_batched
+
+        def wide_recurrence(ham, v0s, steps):
+            rows = v0s.to(torch.complex128 if v0s.is_complex() else f64)
+            rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+            return plain(ham, rows, steps)
+
+        eng._cached_dense_hamiltonian = (
+            lambda parts: eng._build_hamiltonian(eng._cached_basis(parts)))
+        lz.tridiagonalize_plain_batched = wide_recurrence
+        try:
+            fleets = [eng.spectral_functions_batched("c", pairs,
+                                                     orbs=(o1, o2))
+                      for o1 in range(norb) for o2 in range(o1, norb)]
+        finally:
+            lz.tridiagonalize_plain_batched = plain
+            del eng._cached_dense_hamiltonian
+        colls = []
+        for counter in range(len(pairs)):
+            colls.append(ContinuedFractionCollection())
+            for fleet in fleets:
+                colls[-1].items += fleet[counter][0].items
+        return colls
+
+    def ground_state_split(eng):
+        """(|<v64|v32>|, and of v32's part orthogonal to v64 its norm and
+        its Rayleigh quotient on the float64 form less E0): the float32
+        run's ground state v32 against the float64 solve of its sector
+        (the float64 phases' own solve).  A part of norm well above the
+        float32 solve's error with a Rayleigh quotient at E0 is a second
+        ground state: the level is degenerate and the two runs hold
+        different vectors of it."""
+        ham64 = eng._build_hamiltonian(eng.basis)
+        e64, v64 = lz.lowest_states(ham64, num_states=1,
+                                    seed=eng.config.seed,
+                                    max_steps=eng.config.lanczos_steps)
+        v64 = v64[0]
+        v32 = eng.eigenvector(0).to(v64.dtype)
+        v32 = v32 / torch.linalg.vector_norm(v32)
+        overlap = torch.vdot(v64, v32)
+        w = v32 - overlap * v64
+        norm = torch.linalg.vector_norm(w).item()
+        rq = (torch.vdot(w, ham64.matvec(w)).real.item() / norm ** 2
+              - float(e64[0])) if norm > 0 else 0.0
+        return abs(overlap.item()), norm, rq
+
+    def fleet_margins(label, combs, ref_combs, eng, text):
+        """Prints the float32 fleet's densities against the float64
+        fleet's at delta 0.1 and 1 beside the density bar, split by the
+        float64 witness, its first 5 coefficients against the witness's
+        beside the coefficient bar, and the run's ground state against
+        the float64 one (``ground_state_split``)."""
+        t = time.perf_counter()
+        witness = float64_witness(eng, text)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(len(witness) == len(combs)
+              and all(len(w.items) == len(c.items)
+                      for w, c in zip(witness, combs)),
+              f"{label}: the witness's fractions do not pair with the run's")
+        d = {(pair, delta): density_diff(a, b, delta)
+             for pair, (a, b) in (("float64", (combs, ref_combs)),
+                                  ("arithmetic", (combs, witness)),
+                                  ("start rows", (witness, ref_combs)))
+             for delta in (0.1, 1.0)}
+        coef = coefficient_diff(combs, witness)
+        say(f"  {label}: -Im G(w + i delta)/pi on {len(omegas)} points, "
+            f"max diff of each density's own maximum, against the float64 "
+            f"fleet: {d['float64', 0.1]:.3e} at delta 0.1 "
+            f"({bar(d['float64', 0.1], density_bar)}), "
+            f"{d['float64', 1.0]:.3e} at delta 1 "
+            f"({bar(d['float64', 1.0], density_bar)}); the float64 "
+            f"recurrence from the run's own start rows against the run "
+            f"(the arithmetic) {d['arithmetic', 0.1]:.3e} / "
+            f"{d['arithmetic', 1.0]:.3e} and against the float64 fleet "
+            f"(the start rows) {d['start rows', 0.1]:.3e} / "
+            f"{d['start rows', 1.0]:.3e} at delta 0.1 / 1; first 5 (alpha, "
+            f"beta) of all {sum(len(c.items) for c in combs)} fractions "
+            f"against that recurrence's: max diff {coef:.3e} of their "
+            f"maximum ({bar(coef, coef_bar)}); the float64 recurrence "
+            f"{wall:.3f} s")
+        overlap, norm, rq = ground_state_split(eng)
+        say(f"  {label}: the run's float32 ground state against the float64 "
+            f"solve of its sector: |<v64|v32>| = {overlap!r}; the part "
+            f"orthogonal to v64 has norm {norm:.3e} and Rayleigh quotient "
+            f"E0 + {rq:.3e} on the float64 form")
+
+    def cf_energies(colls):
+        return [cf.e0 for c in colls for cf in c.items]
+
+    # -- 15a: lanczos --dtype float32 -g c, the 14-site DOS fleet ----------
+    nsite, steps8 = 14, 100
+    dos_text = "ComputeDensityOfStates=1\n" f"SpectralSteps={steps8}\n"
+    flat_form = (sparse.Hamiltonian, "matmat_t")
+    label = "15a 14-site U=4 DOS"
+    (eng, _, err, combs, _), wall, peak = launched(
+        label, lambda: run_cli(lanczos_main, hubbard_chain_text(nsite, 4)
+                               + dos_text, ["--dtype", "float32"]),
+        flat_form)
+    ref = refs["dos_u4"]
+    rec = phase_seconds(err, "batched recurrence")
+    forms = runs[label]
+    check(len(combs) == nsite and len(rec) == 2 and batched[label]
+          == 2 * steps8, f"{label}: {len(combs)} .comb files, {len(rec)} "
+                         f"recurrences, {batched[label]} batched applies")
+    check(forms.get("factor_matmul f32", 0) >= 2 * batched[label]
+          and forms.get("factor_matmul f64", 0) > 0
+          and not any(k.startswith("ell_spmv") for k in forms),
+          f"{label}: launches {forms}")
+    e0_err = max(abs(x - e0) for x in cf_energies(combs)) / abs(e0)
+    sums = max(abs(sum(cf.weight for cf in c.items) - 1.0) for c in combs)
+    say(f"phase 15a 14-site U=4 lanczos --dtype float32 -g c "
+        f"(ComputeDensityOfStates=1) via CLI on cuda: {len(combs)} .comb "
+        f"files, #CFEnergy= against phase 5's E0 max rel {e0_err:.3e} "
+        f"(bar {e0_bar:g}); sum rules max |w_add + w_rem - 1| {sums:.3e}; "
+        f"batched recurrences {rec} s = "
+        f"{[round(1e3 * t / steps8, 3) for t in rec]} ms per batched step "
+        f"of {nsite} rows against phase 8's "
+        f"{[round(1e3 * t / steps8, 3) for t in ref['rec']]}")
+    beside(label, wall, peak, ref["wall"], ref["peak"], "phase 8")
+    check(e0_err <= e0_bar, f"{label}: #CFEnergy= off by {e0_err:.3e}")
+    check(eng.eigenvector(0).dtype == f32,
+          f"{label}: ground state {eng.eigenvector(0).dtype}")
+    for parts in ((nsite // 2 + 1, nsite // 2), (nsite // 2 - 1, nsite // 2)):
+        form = eng._cached_dense_hamiltonian(parts)
+        check(form.dtype == f32, f"{label}: sector form {form.dtype}")
+    fleet_margins(label, combs, ref["combs"], eng,
+                  hubbard_chain_text(nsite, 4) + dos_text)
+    del eng, combs, form
+    torch.cuda.empty_cache()
+
+    label = "15a 14-site U=0 DOS"
+    (eng, _, err, combs, _), wall, peak = launched(
+        label, lambda: run_cli(lanczos_main, hubbard_chain_text(nsite, 0)
+                               + dos_text, ["--dtype", "float32"]),
+        flat_form)
+    levels = np.linalg.eigvalsh(Geometry(parse_input(
+        hubbard_chain_text(nsite, 0))).coupling_matrix(0))
+    near_bar = 1e-4
+    worst = 0.0
+    for coll in combs:
+        for cf, want in zip(coll.items, (levels[nsite // 2:],
+                                         levels[:nsite // 2])):
+            poles, weights = cf.poles_and_weights()
+            near = np.abs(poles[:, None] - want[None, :]) <= near_bar
+            for k, level in enumerate(want):
+                g = (np.abs(want - level) <= 1e-9).sum()
+                worst = max(worst, abs(weights[near[:, k]].sum()
+                                       - g / nsite))
+            worst = max(worst, np.abs(weights[~near.any(axis=1)]).sum())
+    e0_free = float(2.0 * np.sort(levels)[:nsite // 2].sum())
+    e0_err = abs(eng.ground_energy - e0_free) / abs(e0_free)
+    say(f"phase 15a 14-site U=0 lanczos --dtype float32 -g c via CLI on "
+        f"cuda: E0 {eng.ground_energy!r} against the free-fermion "
+        f"{e0_free!r} (rel {e0_err:.3e}); poles of all {2 * nsite} "
+        f"fractions within {near_bar:g} of the hopping matrix's levels, "
+        f"weights g/{nsite}: worst deviation {worst:.3e} (bar 1e-4)")
+    beside(label, wall, peak, refs["dos_u0"]["wall"], refs["dos_u0"]["peak"],
+           "phase 8")
+    check(e0_err <= e0_bar, f"{label}: E0 off by {e0_err:.3e}")
+    check(worst <= 1e-4, f"{label}: pole weights off by {worst:.3e}")
+    check(batched[label] == 2 * steps8, f"{label}: {batched[label]} batched"
+                                        f" applies")
+    del eng, combs
+    torch.cuda.empty_cache()
+
+    # -- 15b: the 12-site SuperHubbardExtended TSPCenter fleet -------------
+    steps_she, ref = 20, refs["tsp_she"]
+    label = "15b 12-site SuperHubbardExtended TSPCenter fleet"
+    she_text = (super_hubbard_text(12) + "TSPCenter=0\n"
+                f"SpectralSteps={steps_she}\n")
+    (eng, _, err, combs, _), wall, peak = launched(
+        label, lambda: run_cli(lanczos_main, she_text,
+                               ["-g", "c", "--dtype", "float32"]), flat_form)
+    rows = [int(r) for r in re.findall(r"batched recurrence sector .* "
+                                       r"rows=(\d+) steps=\d+ done", err)]
+    forms = runs[label]
+    check(len(combs) == 12 and rows == [23, 23]
+          and batched[label] == 2 * steps_she
+          and forms.get("ell_spmv f32", 0) >= batched[label],
+          f"{label}: {len(combs)} files, rows {rows}, batched applies "
+          f"{batched[label]}, launches {forms}")
+    e0_err = max(abs(x - refs["e0_she"]) for x in cf_energies(combs)) / abs(
+        refs["e0_she"])
+    say(f"phase {label} via CLI -g c --dtype float32: rows per sector "
+        f"{rows}, #CFEnergy= against phase 6's E0 max rel {e0_err:.3e}; "
+        f"batched recurrences {phase_seconds(err, 'batched recurrence')} s "
+        f"against {ref['rec']} s")
+    beside(label, wall, peak, ref["wall"], ref["peak"], "phase 8")
+    check(e0_err <= e0_bar, f"{label}: #CFEnergy= off by {e0_err:.3e}")
+    fleet_margins(label, combs, ref["combs"], eng, she_text)
+    fleet = eng._cached_dense_hamiltonian((7, 6))
+    check(fleet.dtype == f32, f"{label}: fleet form {fleet.dtype}")
+    fleet_ell = (fleet.diag, fleet.ell.cols, fleet.ell.vals, fleet.dim)
+    del eng, combs, fleet
+    torch.cuda.empty_cache()
+
+    # -- 15c: the estimators in float32 ------------------------------------
+    ref = refs["kpm"]
+    moments = 512
+    label = "15c 14-site lanczos -g c --kpm"
+    (eng, _, err, files, _), wall, peak = launched(
+        label, lambda: run_tool(
+            lanczos_main, hubbard_chain_text(14, 4) + "TSPSites 2 0 0\n"
+            f"KPMMoments={moments}\n",
+            ["-g", "c", "--kpm", "-p", "17", "--dtype", "float32"], dev))
+    kpmdos = np.loadtxt(files["input.inp0.kpmdos"].splitlines())
+    np.testing.assert_array_equal(kpmdos[:, 0], ref["dos"][:, 0])
+    dos_err = np.abs(kpmdos[:, 1] - ref["dos"][:, 1]).max() / np.abs(
+        ref["dos"][:, 1]).max()
+    loops = phase_seconds(err, "kpm moments")
+    gs = eng.eigenvector(0)
+    op_c = LabeledOperator("c")
+    mom_err = 0.0
+    for type_, (a, b, mu64) in enumerate(ref["moments"]):
+        op = op_c if type_ else op_c.transpose_conjugate()
+        parts, basis = eng._get_needed_basis(eng.parts, op, 0, 0)
+        phi = torch.zeros(basis.size, dtype=f32, device=dev)
+        eng.acc_modified_state(phi, op, basis, gs, eng.basis, 0, 0, 0, 1.0)
+        ham = eng._cached_hamiltonian(parts)
+        check(ham.dtype == f32, f"{label}: sector form {ham.dtype}")
+        got = KPM.chebyshev_moments(ham, phi, moments, (b - a, b + a))
+        mom_err = max(mom_err, np.abs(got.moments - mu64).max() / mu64[0])
+    say(f"phase {label} --dtype float32 via CLI on cuda: .kpmdos "
+        f"against phase 12c's max diff {dos_err:.3e} of its maximum (bar "
+        f"{density_bar:g}); the {moments} moments of the float32 state on "
+        f"the float32 forms, phase 12c's bounds, against phase 12c's "
+        f"float64 moments: max |dmu_k| / mu_0 {mom_err:.3e} (bar 1e-3); "
+        f"moment loops {loops} s against {ref['loops']} s")
+    beside(label, wall, peak, ref["wall"], None, "phase 12c")
+    check(dos_err <= density_bar, f"{label}: .kpmdos off by {dos_err:.3e}")
+    check(mom_err <= 1e-3, f"{label}: moments off by {mom_err:.3e}")
+    check(runs[label].get("factor_matmul f32", 0) > 0
+          and "factor_matmul f64" in runs[label], f"{label}: launches "
+                                                  f"{runs[label]}")
+    del eng, gs, phi, ham
+    torch.cuda.empty_cache()
+
+    # --ftlm-dos 2.0 at R = 16, both types from the same card-drawn block;
+    # 16 stored float64 source runs of 10 steps take 15.1 GB, under half of
+    # what the card has free once the allocator's cache is emptied
+    rows_e, steps_e = 16, 10
+    text_e = hubbard_chain_text(14, 4) + (
+        "TSPSites 2 0 0\nSpectralSteps=40\n"
+        f"FTLMVectors={rows_e}\nFTLMSteps={steps_e}\nFTLMDelta=0.1\n")
+    got = {}
+    for dtype in ("float64", "float32"):
+        torch.cuda.empty_cache()
+        label = f"15c 14-site lanczos -g c --ftlm-dos {dtype}"
+        (_, _, err, files, _), wall, peak = launched(
+            label, lambda: run_tool(
+                lanczos_main, text_e,
+                ["-g", "c", "--ftlm-dos", "2.0", "-p", "17", "--dtype",
+                 dtype], dev))
+        got[dtype] = (np.loadtxt(files["input.inp0.ftlmdos"].splitlines()),
+                      wall, peak, phase_seconds(err, "ftlm source runs"))
+    (d64, wall64, peak64, src64), (d32, wall32, peak32, src32) = (
+        got["float64"], got["float32"])
+    ftlm_err = np.abs(d32[:, 1] - d64[:, 1]).max() / np.abs(d64[:, 1]).max()
+    say(f"phase 15c 14-site lanczos -g c --ftlm-dos 2.0 (R {rows_e}, "
+        f"{steps_e} steps, delta 0.1) via CLI on cuda: float32 against "
+        f"float64 from the same block, max diff {ftlm_err:.3e} of the "
+        f"maximum (bar {density_bar:g}); source runs {src32} s against "
+        f"{src64} s")
+    beside(label, wall32, peak32, wall64, peak64, "this phase")
+    check(ftlm_err <= density_bar, f"--ftlm-dos float32 off by "
+                                   f"{ftlm_err:.3e}")
+    check(runs[label].get("factor_matmul f32", 0) > 0,
+          f"{label}: launches {runs[label]}")
+
+    # the batched FTLM recurrence on the 14-site form, R = 16, 80 steps
+    rows_f, steps_f = 16, 80
+    betas = np.asarray([0.1, 0.5, 1.0, 2.0, 5.0, 20.0])
+    ham64 = refs["ham_u4"]
+    block = lz.random_start_block(ham64.dim, rows_f, 982451653, f32, dev)
+    res, recs = {}, {}
+    for ham in (ham64, narrowed(ham64)):
+        tag = DTYPE_TAGS[ham.dtype]
+        label = f"15c 14-site ftlm R=16 {tag}"
+        recs[tag] = []
+        with timed_calls(F, "_ftlm_recurrence", recs[tag]):
+            res[tag], wall, peak = launched(
+                label, lambda: F.ftlm(ham, betas, steps=steps_f,
+                                      start_vectors=block.to(ham.dtype)))
+        recs[tag].append((wall, peak))
+    e_err = np.abs(res["f32"].energy - res["f64"].energy).max() / np.abs(
+        res["f64"].energy).max()
+    lz_err = np.abs(res["f32"].log_z - res["f64"].log_z).max() / np.abs(
+        res["f64"].log_z).max()
+    est_err = abs(res["f32"].e0_estimate - e0) / abs(e0)
+    say(f"phase 15c 14-site ftlm (R {rows_f}, {steps_f} steps, betas "
+        f"{betas.tolist()}) on the float32 form against the float64 form from "
+        f"the same card-drawn block: energies max rel {e_err:.3e}, ln Z "
+        f"{lz_err:.3e} (bar 1e-4), e0_estimate {res['f32'].e0_estimate!r} "
+        f"against phase 5's E0 (rel {est_err:.3e}); batched recurrence "
+        f"{recs['f32'][0]:.3f} s = {1e3 * recs['f32'][0] / steps_f:.3f} ms "
+        f"a step against {recs['f64'][0]:.3f} s = "
+        f"{1e3 * recs['f64'][0] / steps_f:.3f} ms in float64")
+    beside(label, *recs["f32"][1], *recs["f64"][1], "this phase")
+    check(e_err <= 1e-4 and lz_err <= 1e-4, f"ftlm float32: energies "
+                                            f"{e_err:.3e}, ln Z {lz_err:.3e}")
+    check(runs[label] == {"factor_matmul f32": 2 * steps_f},
+          f"{label}: launches {runs[label]}")
+    del block, res
+    torch.cuda.empty_cache()
+
+    label = "15c sqomega 10-site Heisenberg ring"
+    (sq, _, _, _, _), wall, peak = launched(
+        label, lambda: run_tool(sqomega_main, heisenberg_ring_text(10),
+                                ["-b", "-1", "-e", "5", "-s", "0.05", "-d",
+                                 "0.1", "--dtype", "float32"], dev))
+    sq_err = np.abs(sq[1] - refs["sqomega"]).max() / np.abs(
+        refs["sqomega"]).max()
+    say(f"phase {label} --dtype float32 via CLI on cuda: S(q, omega) "
+        f"against phase 12f's float64 run max diff {sq_err:.3e} of its "
+        f"maximum (bar {density_bar:g}); wall {wall:.3f} s, launches "
+        f"{runs[label]}")
+    check(sq_err <= density_bar, f"{label}: off by {sq_err:.3e}")
+    check(runs[label].get("ell_spmv f32", 0) > 0, f"{label}: launches "
+                                                  f"{runs[label]}")
+
+    # -- 15d: the symmetry sectors in float32 -------------------------------
+    label = "15d 14-site U=4 chain, translation"
+    with counted_applies(sparse.Hamiltonian, "matmat_t") as seen:
+        (eng, _, err, _, _), wall, peak = launched(
+            label, lambda: run_cli(lanczos_main, hubbard_chain_text(
+                14, 4, extra="UseTranslationSymmetry=1\n"),
+                ["--dtype", "float32"]))
+    blocks = [(int(m[0]), int(m[1]), m[2], int(m[3]), float(m[4]),
+               int(m[5]), float(m[6])) for m in SECTOR_LINE.findall(err)]
+    setup, = phase_seconds(err, "symmetry setup")
+    builds = phase_seconds(err, "block build")
+    solves = phase_seconds(err, "solve")
+    kinds = [b[2] for b in blocks]
+    e0_err = abs(eng.ground_energy - e0) / abs(e0)
+    below = min(b[6] for b in blocks) - e0
+    v = eng.eigenvector(0)
+    resid = eigenvector_residual(refs["ham_u4"], v, eng.ground_energy)
+    forms = runs[label]
+    say(f"phase {label} --dtype float32 via CLI on cuda: dim "
+        f"{eng.basis.size}, {len(blocks)} blocks ({kinds.count('complex64')} "
+        f"complex64, {kinds.count('float32')} float32), min sector "
+        f"{eng.solve_sector}, E0 {eng.ground_energy!r} against phase 5's "
+        f"(rel {e0_err:.3e}, bar {e0_bar:g}); every block's refined E0 at "
+        f"or above it (lowest - E0 = {below:.3e}); time to E0 {wall:.3f} s "
+        f"= symmetry setup {setup:.3f} + block builds {sum(builds):.3f} "
+        f"+ block solves and refinements {sum(solves):.3f} s + the rest, "
+        f"{seen['applies']} block matvecs; the transformed eigenvector "
+        f"({v.dtype}) on phase 5's Hamiltonian: ||Hv - E0 v|| = "
+        f"{resid:.3e} (bar 1e-4)")
+    for s, dim, dtype, width, mean, steps, e0_s in blocks:
+        say(f"  sector {s}: dim {dim}, {dtype}, ELL K {width}, steps "
+            f"{steps}, refined E0 {e0_s!r}")
+    beside(label, wall, peak, None, None,
+           "phase 11 runs the 12-site chain's blocks in its place")
+    check(len(blocks) == 14 and kinds.count("complex64") == 12
+          and kinds.count("float32") == 2, f"{label}: blocks {kinds}")
+    check(e0_err <= e0_bar and below >= -e0_bar * abs(e0),
+          f"{label}: E0 off by {e0_err:.3e}, a block {below:.3e} below")
+    check(resid <= 1e-4, f"{label}: residual {resid:.3e}")
+    check(forms.get("ell_spmv c64", 0) > 0 and forms.get("ell_spmv f32", 0)
+          > 0 and forms.get("ell_spmv c128", 0) > 0,
+          f"{label}: launches {forms}")
+    check(v.dtype in (f32, torch.complex64), f"{label}: state {v.dtype}")
+    sym = eng.symmetry
+    kept = [(s, sym.block_hamiltonian(s, f32)) for s in range(sym.sectors())]
+    momentum = max(((s, b) for s, b in kept if b is not None
+                    and b.dtype == torch.complex64), key=lambda sb: sb[1].dim)
+    momentum_entries = sym.block_entries[momentum[0]]
+    # the complex128 block it was narrowed from, assembled again: the twin
+    # the refinement applied
+    momentum_wide = sym.block_pair(momentum[0], f32)[1]
+    del eng, v, sym, kept
+    torch.cuda.empty_cache()
+
+    label = "15d 14-site open (4, 4) chain, reflection"
+    ref = refs["phase 11 14-site open (4, 4) chain, reflection"]
+    (eng, _, err, _, _), wall, peak = launched(
+        label, lambda: run_cli(lanczos_main, hubbard_chain_text(
+            14, 4, 4, 4, periodic=0, extra="UseReflectionSymmetry=1\n"),
+            ["--dtype", "float32"]))
+    kinds = [m[2] for m in SECTOR_LINE.findall(err)]
+    e0_err = abs(eng.ground_energy - ref["e0"]) / abs(ref["e0"])
+    say(f"phase {label} --dtype float32 via CLI on cuda: blocks "
+        f"{kinds}, E0 {eng.ground_energy!r} against phase 11's "
+        f"{ref['e0']!r} (rel {e0_err:.3e}, bar {e0_bar:g})")
+    beside(label, wall, peak, ref["wall"], ref["peak"], "phase 11")
+    check(kinds == ["float32", "float32"], f"{label}: blocks {kinds}")
+    check(e0_err <= e0_bar, f"{label}: E0 off by {e0_err:.3e}")
+    sym = eng.symmetry
+    parity = max(((s, sym.block_hamiltonian(s, f32))
+                  for s in range(sym.sectors())), key=lambda sb: sb[1].dim)
+    parity_entries = sym.block_entries[parity[0]]
+    del eng, sym
+
+    label = "15d 22-site Kitaev ring, projected translation"
+    ref = refs["phase 11 22-site Kitaev ring, projected translation"]
+    with counted_applies(projected.RotationProjectedHamiltonian,
+                         "matvec") as seen:
+        (eng, _, err, _, _), wall, peak = launched(
+            label, lambda: run_cli(lanczos_main, kitaev_ring_text(22)
+                                   + "UseTranslationSymmetry=1\n",
+                                   ["--dtype", "float32"]))
+    per_k = [(int(k), int(steps), float(e)) for k, steps, e in re.findall(
+        r"momentum sector k=(\d+): steps (\d+), E0 (\S+)", err)]
+    k_err = max(abs(e - e_ref) / abs(e_ref) for (k, _, e), (k_ref, _, e_ref)
+                in zip(per_k, ref["per_k"]))
+    e0_err = abs(eng.ground_energy - ref["e0"]) / abs(ref["e0"])
+    forms = runs[label]
+    say(f"phase {label} --dtype float32 via CLI on cuda: "
+        f"{len(per_k)} sectors, min k {eng.solve_sector}, E0 "
+        f"{eng.ground_energy!r} against phase 11's {ref['e0']!r} (rel "
+        f"{e0_err:.3e}); each k's refined E0 against phase 11's: max rel "
+        f"{k_err:.3e} (bar {e0_bar:g}); purity {eng.projected_purity!r}; "
+        f"{seen['applies']} projected matvecs, sector solves and "
+        f"refinements {sum(phase_seconds(err, 'solve')):.3f} s against "
+        f"{sum(ref['solves']):.3f} s")
+    for (k, steps, e), (_, steps64, e64) in zip(per_k, ref["per_k"]):
+        say(f"  k={k}: steps {steps} (float64 {steps64}), refined E0 {e!r} "
+            f"(float64 {e64!r})")
+    beside(label, wall, peak, ref["wall"], None, "phase 11")
+    check([k for k, _, _ in per_k] == [k for k, _, _ in ref["per_k"]],
+          f"{label}: sectors {per_k}")
+    check(k_err <= e0_bar and e0_err <= e0_bar,
+          f"{label}: E0 off by {e0_err:.3e}, a k by {k_err:.3e}")
+    check(eng.projected_purity >= 1 - 1e-5,
+          f"{label}: purity {eng.projected_purity!r}")
+    # four GEMMs a projected matvec: the float32 solves and correction
+    # solves, the float64 refinement's residuals
+    check(forms.get("factor_matmul f32", 0) + forms.get("factor_matmul f64", 0)
+          == 4 * seen["applies"] and forms.get("factor_matmul f64", 0) > 0,
+          f"{label}: launches {forms}, {seen['applies']} projected matvecs")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- each kernel form at the shapes these paths gave it -----------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the fleet's 14 rows of the N_up = 8 sector (3003 x 3432, pitch 3003:
+    # 4-byte copies) and the FTLM recurrence's 16 of the 3432^2 sector
+    batched_factor_cases(results, gen, dev, sms, 14, 3432, 3003, dtype=f32)
+    batched_factor_cases(results, gen, dev, sms, 16, 3432, 3432, dtype=f32)
+    diag, cols, vals, dim = fleet_ell
+    ell_case(f"f32 J-ELL of the 12-site N_up = 7 sector, R=23, dim {dim}",
+             diag, cols, vals, (23, dim), TOL_F32)
+    for tag, name, blk, entries, tol in (
+            ("c128", "14-site momentum block", momentum_wide,
+             momentum_entries, TOL_ELL_F64),
+            ("c64", "14-site momentum block", momentum[1], momentum_entries,
+             TOL_F32),
+            ("f32", "14-site parity block", parity[1], parity_entries,
+             TOL_F32)):
+        width = blk.ell.cols.shape[1]
+        for rows in (1, 14):
+            ell_case(f"{tag} {name} R={rows}, dim {blk.dim}, K {width} "
+                     f"against {entries / blk.dim:.2f} entries a row",
+                     blk.diag, blk.ell.cols, blk.ell.vals,
+                     (blk.dim,) if rows == 1 else (rows, blk.dim),
+                     tol, entries=entries)
+    hl = refs["22-site Kitaev half"].float()
+    half = hl.shape[0]
+    x2 = torch.randn(half, half, generator=gen, device=dev, dtype=f32)
+    y0 = torch.randn(half, half, generator=gen, device=dev, dtype=f32)
+    got = y0.clone()
+    K.factor_matmul(x2.T, hl, out=got.T, accumulate=True)
+    want = y0 + hl @ x2
+    torch.cuda.synchronize()
+    y1 = y0.clone()
+    record(results, "factor_matmul",
+           f"f32 22-site Kitaev left half: Y+=H_L.X, {half}^3 (transposed "
+           f"views)", got, want, TOL_F32,
+           (lambda: K.factor_matmul(x2.T, hl, out=y1.T, accumulate=True),
+            lambda: y1.T.add_(K.factor_matmul_ref(x2.T, hl)),
+            lambda: y1.addmm_(hl, x2)),
+           1e3 * 2 * half ** 3 / PEAK_FLOPS, "operations")
+    del momentum, momentum_wide, parity, fleet_ell, hl, x2, y0, y1, got, want
+    torch.cuda.empty_cache()
+    say(f"phase 15 kernel launches by run and form: {runs}; batched "
+        f"applies {batched}")
+    return runs, batched
+
+
 def main() -> None:
+    started = time.perf_counter()
     # -- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3029,6 +3678,7 @@ def main() -> None:
               f"{what} holds no {opcode} instruction")
 
     # -- 3. kernels against their plain versions ---------------------------
+    say(f"phase 3 starts at {time.perf_counter() - started:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say("phase 3 kernels: torch.backends.cuda.matmul.allow_tf32 = False")
@@ -3233,9 +3883,10 @@ def main() -> None:
         xl = x if x.dim() == 1 else x.T.contiguous()
         lib_err = rel_err((csr @ xl) if x.dim() == 1 else (csr @ xl).T,
                           ref)[1]
-        check(lib_err <= 1e-12 if diag.dtype != torch.float32 else
-              lib_err <= TOL_F32, f"ell_spmv {case}: the CSR form differs "
-                                  f"by {lib_err:.3e}")
+        check(lib_err <= TOL_F32 if diag.dtype in (torch.float32,
+                                                    torch.complex64)
+              else lib_err <= 1e-12, f"ell_spmv {case}: the CSR form "
+                                     f"differs by {lib_err:.3e}")
         # per row: K indices and K values and diag read once; per batch
         # member x read and y written
         size = x.element_size()
@@ -3257,6 +3908,7 @@ def main() -> None:
     del ell_cases, she_ham, fleet_ham, jc, jv
 
     # -- 4-6. the main path through the kernels ---------------------------
+    say(f"phase 4 starts at {time.perf_counter() - started:.1f} s")
     K.reset_launches()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3339,6 +3991,7 @@ def main() -> None:
           "the dense one-spin factors' path launched perm_gather")
 
     # -- 7. the same solves with the plain versions ------------------------
+    say(f"phase 7 starts at {time.perf_counter() - started:.1f} s")
     for label, eng, v0 in (("14-site U=4", eng_u4, v0_u4),
                            ("12-site SuperHubbardExtended", eng_she,
                             v0_she)):
@@ -3365,6 +4018,7 @@ def main() -> None:
         f"{mv_plain_ms:.4f} ms")
 
     # -- 8. the spectral slice through the CLI ---------------------------
+    say(f"phase 8 starts at {time.perf_counter() - started:.1f} s")
     from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
     del eng_u4, ham14, plain, x
     torch.cuda.empty_cache()
@@ -3404,6 +4058,8 @@ def main() -> None:
                          "perm_gather": 0},
               f"U={u} DOS launches {counts}, predicted factor_matmul "
               f"{expect}, ell_spmv 0")
+        # what phase 15 holds its float32 fleets against
+        refs[f"dos_u{u}"] = dict(combs=combs, wall=wall, peak=peak, rec=rec)
         return engine, combs
 
     # U = 0: every fraction's poles are one-particle levels
@@ -3462,7 +4118,7 @@ def main() -> None:
             f"{[round(1e3 * t / steps8, 3) for t in walls['kernel']]} ms per "
             f"step, plain versions "
             f"{[round(1e3 * t / steps8, 3) for t in walls['plain']]} ms per "
-            f"step (turns plain, kernel, kernel, plain); kernel against "
+            f"step (turns plain, kernel); kernel against "
             f"plain: one apply, worst of 20 steps, {apply_err:.3e} of max "
             f"|y|; first 20 (alpha, beta) max diff {coef_err:.3e} of their "
             f"maximum, -Im G(w + 0.1i)/pi on {len(omegas)} points max diff "
@@ -3513,10 +4169,15 @@ def main() -> None:
     # SuperHubbardExtended chain, 23 rows in each of two sectors
     steps_she = 20
     K.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
     eng8, out8, err8, combs, wall = run_cli(
         lanczos_main, she_text + f"TSPCenter=0\nSpectralSteps={steps_she}\n",
         ["-g", "c"])
     counts = dict(K.LAUNCHES)
+    refs["tsp_she"] = dict(
+        combs=combs, wall=wall,
+        peak=torch.cuda.max_memory_allocated(dev) / 1e9,
+        rec=phase_seconds(err8, "batched recurrence"))
     for name in counts:
         spectral_launches[name] += counts[name]
     rec = phase_seconds(err8, "batched recurrence")
@@ -3578,7 +4239,7 @@ def main() -> None:
             f"{[round(1e3 * t / steps_she, 3) for t in walls['kernel']]} ms "
             f"per step, plain versions "
             f"{[round(1e3 * t / steps_she, 3) for t in walls['plain']]} ms "
-            f"per step (turns plain, kernel, kernel, plain); kernel against "
+            f"per step (turns plain, kernel); kernel against "
             f"plain: one apply, worst of {steps_she} steps, {apply_err:.3e} "
             f"of max |y|; first 10 (alpha, beta) max diff {coef_err:.3e} of "
             f"their maximum, -Im G/pi max diff of its maximum "
@@ -3620,6 +4281,7 @@ def main() -> None:
               f"{name} was not launched on the spectral path")
 
     # -- 9. the flat models at full width -------------------------------
+    say(f"phase 9 starts at {time.perf_counter() - started:.1f} s")
     del eng_she, cpu_engine
     torch.cuda.empty_cache()
     flat_launches = {}   # run label -> launches of that run
@@ -3812,27 +4474,44 @@ def main() -> None:
     say(f"flat models' kernel launches: {flat_launches}")
 
     # -- 10. the factored forms and the one-spin gather apply -----------
+    say(f"phase 10 starts at {time.perf_counter() - started:.1f} s")
     factored_runs, cross_cases = factored_phase(dev, gen, results, refs)
     say(f"factored forms' kernel launches: "
         f"{ {label: run['counts'] for label, run in factored_runs.items()} }")
 
     # -- 11. the symmetry sectors ----------------------------------------
+    say(f"phase 11 starts at {time.perf_counter() - started:.1f} s")
     sym_runs = symmetry_phase(dev, gen, results, refs, ell_case)
 
     # -- 12. the estimators and their command lines ----------------------
+    say(f"phase 12 starts at {time.perf_counter() - started:.1f} s")
     est_runs = estimator_phase(dev, gen, results, refs, ell_case)
 
     # -- 13. the last command lines and input forms, the native runtime --
+    say(f"phase 13 starts at {time.perf_counter() - started:.1f} s")
     cli_runs, native_line = cli_phase(dev, refs, ell_case)
 
     # -- 14. float32 solves, their refinement, the bf16 forms ------------
+    say(f"phase 14 starts at {time.perf_counter() - started:.1f} s")
     low_runs = lowprec_phase(dev, gen, results, refs, ell_case)
-    del refs
     low_forms = {}
     for counts in low_runs.values():
         for form, n in counts.items():
             low_forms[form] = low_forms.get(form, 0) + n
     say(f"phase 14 kernel launches by form: {low_forms}")
+
+    # -- 15. float32 and complex64 on the fleets, estimators, symmetry ---
+    say(f"phase 15 starts at {time.perf_counter() - started:.1f} s")
+    f32_runs, f32_batched = float32_paths_phase(dev, gen, results, refs,
+                                                ell_case)
+    del refs
+    f32_forms = {}
+    for counts in f32_runs.values():
+        for form, n in counts.items():
+            f32_forms[form] = f32_forms.get(form, 0) + n
+    say(f"phase 15 kernel launches by form: {f32_forms}")
+    fleets = (f32_batched["15a 14-site U=4 DOS"]
+              + f32_batched["15a 14-site U=0 DOS"])
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
@@ -3976,7 +4655,39 @@ def main() -> None:
          low_forms.get("perm_gather bf16_f32", 0)),
         ("perm_gather (bf16 source, float64 sums)", "bf16cross in float64",
          "bf16->f64 13-site Rashba half-cut largest PermCrossTerm",
-         low_forms.get("perm_gather bf16_f64", 0)))
+         low_forms.get("perm_gather bf16_f64", 0)),
+        # float32 and complex64 on the fleets, the estimators and the
+        # symmetry sectors (phase 15): a batched apply of the 14-site
+        # fleet is one launch of each factor_matmul form, of the 12-site
+        # fleet one ell_spmv launch
+        ("factor_matmul (float32 fleets, batched up form)",
+         "float32 spectral fleets (15a)", "f32 batched up form (14*3432)",
+         fleets),
+        ("factor_matmul (float32 fleets, batched dn form)",
+         "float32 spectral fleets (15a)", "f32 batched dn form R=14", fleets),
+        ("factor_matmul (float32 FTLM, batched up form R=16)",
+         "float32 FTLM recurrence (15c)", "f32 batched up form (16*3432)",
+         f32_runs["15c 14-site ftlm R=16 f32"]["factor_matmul f32"] // 2),
+        ("factor_matmul (float32 FTLM, batched dn form R=16)",
+         "float32 FTLM recurrence (15c)", "f32 batched dn form R=16",
+         f32_runs["15c 14-site ftlm R=16 f32"]["factor_matmul f32"] // 2),
+        ("ell_spmv (float32 fleet, batched R=23)",
+         "float32 TSPCenter fleet (15b)",
+         "f32 J-ELL of the 12-site N_up = 7 sector, R=23",
+         f32_batched["15b 12-site SuperHubbardExtended TSPCenter fleet"]),
+        ("ell_spmv (complex64 momentum blocks)",
+         "float32 symmetry: translation blocks (15d)",
+         "c64 14-site momentum block R=1",
+         f32_runs["15d 14-site U=4 chain, translation"]["ell_spmv c64"]),
+        ("ell_spmv (float32 parity blocks)",
+         "float32 symmetry: reflection blocks (15d)",
+         "f32 14-site parity block R=1",
+         f32_runs["15d 14-site open (4, 4) chain, reflection"][
+             "ell_spmv f32"]),
+        ("factor_matmul (float32 projected Kitaev)",
+         "float32 projection (15d)", "f32 22-site Kitaev left half",
+         f32_runs["15d 22-site Kitaev ring, projected translation"][
+             "factor_matmul f32"]))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -4008,6 +4719,8 @@ def main() -> None:
                                       for counts in cli_runs.values()),
                 launches_phase_14=sum(n for form, n in low_forms.items()
                                       if form.split(" ")[0] == kernel),
+                launches_phase_15={form: n for form, n in f32_forms.items()
+                                   if form.split(" ")[0] == kernel},
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(
@@ -4015,6 +4728,7 @@ def main() -> None:
                        "column's tables read once for them")
         if name == "perm_gather":
             kernels_line[-1].update(cross_term_cases=cross)
+    say(f"phases 1-15 done at {time.perf_counter() - started:.1f} s")
     print(json.dumps({"native": native_line}))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

@@ -5,7 +5,7 @@ continued fraction of |phi> = sum_site e^{ik site}
 Counterpart of ``lanczosplusplus_tpu/cli/dynamics1_main.py``:
 
   python -m lanczosplusplus_tpu_torch.cli.dynamics1_main -f input.inp
-         [-r m] [--orbs a,b] [--device cuda|cpu]
+         [-r m] [--orbs a,b] [--device cuda|cpu] [--dtype float64|float32]
 
 It prints ``Energy=`` and the fraction in the .comb layout.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from lanczosplusplus_tpu_torch.cli import add_dtype_option, real_dtype
 from lanczosplusplus_tpu_torch.config import Config
 from lanczosplusplus_tpu_torch.engine import Engine
 from lanczosplusplus_tpu_torch.engine.dynamics import dynamics1_spectral
@@ -35,12 +36,14 @@ def run(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; no card "
                         "is an error, not a CPU run)")
+    add_dtype_option(p)
     args = p.parse_args(argv)
     inp = read_input(args.input)
     validate_input(inp)
     model = build_model(inp, Geometry(inp))
     engine = Engine(model, inp,
-                    config=Config.from_input(inp, device=args.device))
+                    config=Config.from_input(inp, device=args.device,
+                                            real_dtype=real_dtype(args)))
     print(f"Energy={engine.ground_energy:.8g}")
     orbs = tuple(int(x) for x in args.orbs.split(","))
     cf = dynamics1_spectral(engine, args.m_for_k, orbs=orbs)

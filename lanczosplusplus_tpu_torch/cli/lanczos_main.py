@@ -20,10 +20,12 @@ back to the site basis.  ``--kpm`` and ``--ftlm-dos BETA`` add, for every
 diagonal pair of ``-g``, the local density of states by the kernel
 polynomial method (``<input><counter>.kpmdos``) and by the FTLM
 double-Krylov estimator at inverse temperature BETA
-(``<input><counter>.ftlmdos``).  ``--dtype float32`` solves the ground
-state in float32 (complex64 with useComplex), the JAX CLI's precision on
-its chip, where x64 is off; ``Energy=`` prints the energy refined to the
-float64 bar, as the JAX CLI does.
+(``<input><counter>.ftlmdos``).  ``--dtype float32`` runs the ground
+state, the symmetry sectors, ``-g``, ``-c``, ``--kpm`` and ``--ftlm-dos``
+in float32 (complex64 with useComplex or in a momentum sector), the JAX
+CLI's precision on its chip, where x64 is off; ``Energy=`` and the
+fractions' ``#CFEnergy=`` print the energy refined to the float64 bar, as
+the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from lanczosplusplus_tpu_torch import __version__
+from lanczosplusplus_tpu_torch.cli import add_dtype_option, real_dtype
 from lanczosplusplus_tpu_torch.config import Config
 from lanczosplusplus_tpu_torch.engine import Engine
 from lanczosplusplus_tpu_torch.engine.rdm import ReducedDensityMatrix
@@ -53,10 +56,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda; no card "
                         "is an error, not a CPU run)")
-    p.add_argument("--dtype", choices=("float64", "float32"),
-                   default="float64",
-                   help="the solve's real type (default float64); float32 "
-                        "energies are refined to the float64 bar")
+    add_dtype_option(p)
     p.add_argument("-g", dest="gf", action="append", default=[],
                    help="spectral-function operator (c, sz, splus, ...)")
     p.add_argument("-c", dest="cicj", action="append", default=[],
@@ -210,7 +210,7 @@ def run(argv=None):
     inp = read_input(args.input)
     validate_input(inp)
     config = Config.from_input(inp, device=args.device,
-                               real_dtype=getattr(torch, args.dtype))
+                               real_dtype=real_dtype(args))
     geometry = Geometry(inp)
     model = build_model(inp, geometry)
     engine = Engine(model, inp, config=config)

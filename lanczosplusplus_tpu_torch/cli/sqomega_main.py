@@ -6,7 +6,7 @@ in-process, on the card unless ``--device cpu`` is given):
 
   python -m lanczosplusplus_tpu_torch.cli.sqomega_main -f input.inp
          -b OMEGA0 -e OMEGA1 -s STEP -d DELTA [-g op] [--spin s]
-         [--dos | --beta BETA]
+         [--dos | --beta BETA] [--dtype float64|float32]
 
 It prints one line an omega: the intensity -Im S(q, omega)/pi of every
 momentum (T = 0, from the ground state's continued fractions), N(i,
@@ -22,6 +22,7 @@ import argparse
 import numpy as np
 
 from lanczosplusplus_tpu_torch import postproc
+from lanczosplusplus_tpu_torch.cli import add_dtype_option, real_dtype
 from lanczosplusplus_tpu_torch.config import Config
 from lanczosplusplus_tpu_torch.engine import Engine
 from lanczosplusplus_tpu_torch.geometry import Geometry
@@ -42,6 +43,7 @@ def run(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; no card "
                         "is an error, not a CPU run)")
+    add_dtype_option(p)
     p.add_argument("--dos", action="store_true",
                    help="N(i, omega) per site instead of S(q, omega)")
     p.add_argument("--beta", type=float, default=None,
@@ -55,7 +57,8 @@ def run(argv=None):
     validate_input(inp)
     model = build_model(inp, Geometry(inp))
     engine = Engine(model, inp,
-                    config=Config.from_input(inp, device=args.device))
+                    config=Config.from_input(inp, device=args.device,
+                                            real_dtype=real_dtype(args)))
     omegas = np.arange(args.wbegin, args.wend + 1e-12, args.wstep)
     if args.beta is not None:
         qs, sqw = engine.ftlm_sq_omega(

@@ -16,7 +16,14 @@ Counterpart of ``lanczosplusplus_tpu/engine/dynamics.py``:
 
 States, the operator scatters and the Lanczos runs are on the engine's
 device; the sector Hamiltonians built here have their one-spin factors
-densified on CUDA, as the Engine builds its own.
+densified on CUDA, as the Engine builds its own.  Under an engine of
+``real_dtype`` float32 the Lanczos runs take the form's float32
+(complex64) copy, built in float64 (``ops/refine.narrowed``), as the JAX
+package runs them in its chip's precision: the continued fraction of
+``dynamics1`` recurs in complex64 from the phase-summed state, and the
+second sector's ground state of ``qpz`` is solved in float32 with its
+energy refined against the float64 form.  The operator sums stay in
+complex128, as the JAX package's host sums do.
 """
 
 from __future__ import annotations
@@ -27,17 +34,20 @@ import torch
 from lanczosplusplus_tpu_torch.engine.engine import apply_operator_map
 from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
 from lanczosplusplus_tpu_torch.engine.spectral import ContinuedFraction
+from lanczosplusplus_tpu_torch.ops.refine import solve_pair
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
 
 
 def _sector_hamiltonian(engine, basis, dtype: torch.dtype):
-    """A sector's flat Hamiltonian on the engine's device, its one-spin
-    factors densified on CUDA."""
+    """(the form the runs apply, its float64 form): a sector's flat
+    Hamiltonian on the engine's device, built in `dtype` (float64 or
+    complex128), its one-spin factors densified on CUDA, and under an
+    engine of ``real_dtype`` float32 its narrowed copy."""
     device = engine.config.device
     ham = engine.model.hamiltonian(basis, dtype=dtype, device=device)
     if device.type == "cuda":
         ham = ham.densify_factors()
-    return ham
+    return solve_pair(ham, engine.config.real_dtype)
 
 
 def dynamics1_spectral(engine, m_for_k: int, orbs=(0, 1),
@@ -58,7 +68,7 @@ def dynamics1_spectral(engine, m_for_k: int, orbs=(0, 1),
     if weight < 1e-20:
         return ContinuedFraction(np.zeros(0), np.zeros(0),
                                  engine.ground_energy, 0.0, 1)
-    ham = _sector_hamiltonian(engine, engine.basis, torch.complex128)
+    ham, _ = _sector_hamiltonian(engine, engine.basis, torch.complex128)
     res = lz.tridiagonalize(ham, phi / np.sqrt(weight), max_steps)
     # bosonic, diagonal, type 0 (reference dynamics1.cpp:92-96)
     return ContinuedFraction(alphas=res.alphas, betas=res.betas,
@@ -75,10 +85,12 @@ def quasiparticle_weight_z(engine, spin: int = 0, ratio: bool = False):
     if new_parts is None:
         return []
     basis2 = model.create_basis(new_parts)
-    ham2 = _sector_hamiltonian(engine, basis2, torch.float64)
+    ham2, ham2_64 = _sector_hamiltonian(engine, basis2, torch.float64)
     _, vecs2 = lz.lowest_states(ham2, num_states=1,
                                 seed=engine.config.seed,
-                                max_steps=engine.config.lanczos_steps)
+                                max_steps=engine.config.lanczos_steps,
+                                refine=ham2_64)
+    del ham2_64
     gs2 = vecs2[0].to(torch.complex128)
     gs1 = engine.eigenvector(0).to(torch.complex128)
 

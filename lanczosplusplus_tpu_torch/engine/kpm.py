@@ -108,7 +108,8 @@ def chebyshev_moments(ham, phi, num_moments: int,
     """Kernel-free moments mu_k = <phi|T_k(Ht)|phi>, k < num_moments.
 
     phi (array or tensor) may be (dim,) or (dim, R); it runs on the
-    Hamiltonian's device, and the moments are summed over the block
+    Hamiltonian's device in the form's type (float32 for a float32 form),
+    and the moments are summed on the host in float64 over the block
     columns (the stochastic-trace / multi-operator accumulation).  Moments
     past the |T_k| <= 1 bound raise: the bounds do not enclose the
     spectrum."""
@@ -117,7 +118,7 @@ def chebyshev_moments(ham, phi, num_moments: int,
     emin, emax = bounds
     a = 0.5 * (emax - emin)
     b = 0.5 * (emax + emin)
-    phi = torch.as_tensor(phi, device=ham.device)
+    phi = torch.as_tensor(phi, device=ham.device).to(ham.dtype)
     phi2 = phi[None, :] if phi.ndim == 1 else phi.T   # batch-major (R, dim)
     num_pairs = (num_moments + 1) // 2
     pairs = _moment_recurrence(ham, phi2.contiguous(), a, b, num_pairs)

@@ -78,7 +78,14 @@ def _map_tables(ham, fn, keep_cast: bool, keep_dense: bool):
         EllPart, Hamiltonian, SpinFactorizedPart)
     from lanczosplusplus_tpu_torch.models.kitaev_factored import (
         FactoredKitaevHamiltonian)
+    from lanczosplusplus_tpu_torch.symmetry.projected import (
+        RotationProjectedHamiltonian)
 
+    if isinstance(ham, RotationProjectedHamiltonian):
+        # the inner form and the projector's weights change type together
+        return RotationProjectedHamiltonian(
+            _map_tables(ham.inner, fn, keep_cast, keep_dense),
+            fn(ham.weights).tolist())
     if isinstance(ham, PermutedHamiltonian):
         return dataclasses.replace(
             ham, inner=_map_tables(ham.inner, fn, keep_cast, keep_dense),
@@ -142,6 +149,15 @@ def narrowed(ham):
     Engine builds every form in float64 and solves this copy, so the
     refinement applies the model's own float64 coefficients."""
     return _map_tables(ham, _narrow, keep_cast=True, keep_dense=True)
+
+
+def solve_pair(ham64, real_dtype: torch.dtype):
+    """(the form a solve in `real_dtype` applies, the float64 form its
+    energies are refined against) for a form built in float64 (complex128):
+    `ham64` twice under float64, else its ``narrowed`` copy and `ham64`."""
+    if real_dtype == torch.float64:
+        return ham64, ham64
+    return narrowed(ham64), ham64
 
 
 def matvec_f64(ham, v: torch.Tensor, twin=None) -> torch.Tensor:

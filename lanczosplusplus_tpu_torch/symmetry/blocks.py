@@ -28,7 +28,7 @@ are read is built on the CPU (its tables are only read back); each block
 becomes a ``Hamiltonian`` with a padded ELL on the device the symmetry is
 given, which the solver applies through ``ell_spmv``: float64 for a real
 block, complex128 (its diagonal too) for a momentum block with complex
-entries.
+entries, and a float32 (complex64) block as that block's narrowed copy.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from lanczosplusplus_tpu_torch.config import numpy_dtype
+from lanczosplusplus_tpu_torch.config import numpy_dtype, real_dtype_of
 from lanczosplusplus_tpu_torch.core import bits
 from lanczosplusplus_tpu_torch.core.bits import WORD
 from lanczosplusplus_tpu_torch.core.blockkron import (BlockKronHamiltonian,
@@ -46,6 +46,7 @@ from lanczosplusplus_tpu_torch.core.sparse import (Hamiltonian, coo_to_ell,
                                                    hamiltonian_from_numpy)
 from lanczosplusplus_tpu_torch.models.kitaev_factored import (
     FactoredKitaevHamiltonian)
+from lanczosplusplus_tpu_torch.ops.refine import solve_pair
 
 
 def _host(t) -> np.ndarray:
@@ -488,14 +489,40 @@ class _OrbitBlockSymmetry:
 
     def block_hamiltonian(self, s, dtype=None):
         """Sector s's block as a ``Hamiltonian`` on the symmetry's device
-        (None for an empty sector): `dtype` (default the symmetry's) where
-        the block is real, its complex counterpart where it is not."""
-        dtype = dtype or self._dtype
+        (None for an empty sector), cached by sector and precision: in
+        `dtype`'s precision (default the symmetry's), real where the block
+        is real and complex where it is not.  A float32 or complex64 block
+        is the float64 one narrowed (``block_pair``)."""
+        key = (s, real_dtype_of(dtype or self._dtype))
+        if key in self._sector_cache:
+            return self._sector_cache[key]
+        return self.block_pair(s, dtype)[0]
+
+    def block_pair(self, s, dtype=None):
+        """(sector s's block in `dtype`'s precision, the float64 or
+        complex128 block it was narrowed from), or (None, None) for an
+        empty sector (``ops/refine.solve_pair``).  Every block is
+        assembled in float64 (complex128 for a momentum block with complex
+        entries), and a float32 one is that block's copy (JAX
+        ``block_hamiltonian(s, dtype=np.float32)`` casts the same float64
+        entries), so the wide block is the twin a float32 solve refines
+        its energies against.  Only the block in `dtype`'s precision is
+        cached: the wide one of a float32 block is assembled anew (or
+        taken from the float64 cache), and is the caller's to drop."""
+        if self._sector_rows[s].shape[0] == 0:
+            return None, None
+        real = real_dtype_of(dtype or self._dtype)
+        wide = self._sector_cache.get((s, torch.float64))
+        if wide is None:
+            wide = self._assemble(s)
+        if (s, real) not in self._sector_cache:
+            self._sector_cache[(s, real)] = solve_pair(wide, real)[0]
+        return self._sector_cache[(s, real)], wide
+
+    def _assemble(self, s):
+        """Sector s's block in float64, or complex128 where its entries
+        are complex; its nonzero ELL entries go to ``block_entries``."""
         rows = self._sector_rows[s]
-        if rows.shape[0] == 0:
-            return None
-        if s in self._sector_cache:
-            return self._sector_cache[s]
         w, norm2 = self._w_table(s)
         nb = rows.shape[0]
         kidx = np.full(self._reps.shape[0], -1, dtype=np.int64)
@@ -522,13 +549,11 @@ class _OrbitBlockSymmetry:
         m.eliminate_zeros()
         imag_max = float(np.max(np.abs(m.data.imag))) if m.nnz else 0.0
         if imag_max < 1e-10:
-            block, entries = _csr_to_ell_ham(m.real.tocsr(), dtype,
+            block, entries = _csr_to_ell_ham(m.real.tocsr(), torch.float64,
                                              self.device)
         else:
-            cdtype = torch.complex128 if dtype == torch.float64 \
-                else torch.complex64
-            block, entries = _csr_to_ell_ham(m, cdtype, self.device)
-        self._sector_cache[s] = block
+            block, entries = _csr_to_ell_ham(m, torch.complex128,
+                                             self.device)
         self.block_entries[s] = entries
         return block
 

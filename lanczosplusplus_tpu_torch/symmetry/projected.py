@@ -28,6 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lanczosplusplus_tpu_torch.config import real_dtype_of
+from lanczosplusplus_tpu_torch.ops.refine import f64_twin
+
 
 def rotation_weights(nsite: int, k: int) -> np.ndarray:
     """Real momentum-projector weights over the translation group: the
@@ -41,11 +44,17 @@ def rotation_weights(nsite: int, k: int) -> np.ndarray:
 class RotationProjectedHamiltonian:
     """H restricted to momentum sector k of a cyclic bit-rotation
     translation group: matvec(x) = P_k (H x), with P_k applied as weighted
-    reshape-transposes on the state's device."""
+    reshape-transposes on the state's device.  The weights are held in
+    the inner form's real type (JAX casts them to float32 for a float32
+    form), a host tensor that ``ops/refine`` narrows and widens with the
+    inner form's tables."""
 
-    def __init__(self, inner, weights: np.ndarray):
+    def __init__(self, inner, weights):
         self.inner = inner               # the full-space Hamiltonian
-        self.weights = [float(w) for w in weights]   # (L,) real weights
+        # (L,) real weights
+        self.weights = torch.as_tensor(
+            np.asarray(weights, dtype=np.float64)).to(
+            real_dtype_of(inner.dtype))
 
     @property
     def dim(self) -> int:
@@ -60,10 +69,10 @@ class RotationProjectedHamiltonian:
         return self.inner.device
 
     def project(self, v: torch.Tensor) -> torch.Tensor:
-        acc = v * self.weights[0]
-        for g in range(1, len(self.weights)):
-            acc.add_(v.view(1 << g, -1).t().reshape(-1),
-                     alpha=self.weights[g])
+        w = self.weights.tolist()
+        acc = v * w[0]
+        for g in range(1, len(w)):
+            acc.add_(v.view(1 << g, -1).t().reshape(-1), alpha=w[g])
         return acc
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,18 +93,18 @@ class ProjectedTranslationSolver:
     `solve_sector(k, ...)` returns (evals, vecs, info) with the vectors
     already in the site basis, on the Hamiltonian's device.  `purity(k,
     v)` = ||P_k v||^2 / ||v||^2: 1.0 for a clean sector vector (the
-    honesty probe for the projected run)."""
+    honesty probe for the projected run).  `twin` is the float64 form
+    `ham` was narrowed from (by default the form's ``f64_twin``: the
+    form itself in float64), which a sector's energies are refined
+    against."""
 
-    def __init__(self, ham, nsite: int):
+    def __init__(self, ham, nsite: int, twin=None):
         if ham.dim != (1 << nsite):
             raise ValueError(
                 f"projected translation needs the full 2^L space "
                 f"(dim {ham.dim} != 2^{nsite})")
-        if ham.dtype not in (torch.float64, torch.complex128):
-            raise NotImplementedError(
-                f"projected translation runs in float64 only; {ham.dtype} "
-                f"waits for ROADMAP Queue 1 item 11b")
         self.ham = ham
+        self.twin = f64_twin(ham) if twin is None else twin
         self.nsite = nsite
         self._ks = translation_sectors(nsite)
 
@@ -105,9 +114,11 @@ class ProjectedTranslationSolver:
     def momentum(self, s: int) -> int:
         return self._ks[s]
 
-    def projected(self, s: int) -> RotationProjectedHamiltonian:
+    def projected(self, s: int, form=None) -> RotationProjectedHamiltonian:
+        """Sector s's projection of `form` (default the solved form)."""
         return RotationProjectedHamiltonian(
-            self.ham, rotation_weights(self.nsite, self._ks[s]))
+            self.ham if form is None else form,
+            rotation_weights(self.nsite, self._ks[s]))
 
     def start_vector(self, s: int, seed: int = 7239443) -> torch.Tensor:
         """The seeded random start (``random_start_vector``) projected
@@ -125,15 +136,15 @@ class ProjectedTranslationSolver:
     def solve_sector(self, s: int, num_states: int = 1,
                      max_steps: int = 200, seed: int = 7239443, **kw):
         """(evals, vecs, info) for momentum sector s, no dense fallback.
-        The JAX package then refines the energies of a state stored below
-        float64; the port projects float64 and complex128 states only
-        (ROADMAP Queue 1 item 11b), whose energies it keeps as they
-        are."""
+        A sector's energies below float64 are refined against the
+        sector's projection of the float64 form (``twin``); JAX refines
+        them against the unprojected H: the vectors lie in the sector, so
+        the Rayleigh quotients agree."""
         from lanczosplusplus_tpu_torch.solver import lanczos as lz
         return lz.lowest_states(
             self.projected(s), num_states=num_states, max_steps=max_steps,
             v0=self.start_vector(s, seed), return_info=True,
-            dense_fallback_dim=0, **kw)
+            refine=self.projected(s, self.twin), dense_fallback_dim=0, **kw)
 
     def purity(self, s: int, v: torch.Tensor) -> float:
         pv = self.projected(s).project(v)

@@ -1436,3 +1436,147 @@ def test_ltlm_on_card_reckons_and_chunks(cuda, monkeypatch):
                               num_vectors=3, steps=40))
     np.testing.assert_allclose(outs[1]["energy"], outs[0]["energy"],
                                rtol=1e-12)
+
+
+# -- float32 and complex64 on the fleets, estimators and symmetry paths ----
+
+@pytest.mark.parametrize("layout", ["up", "dn"])
+def test_factor_matmul_f32_batched_pitch_3003_bit_equal(cuda, layout):
+    """The float32 fleet's batched products at pitch 3003 (one-element
+    copies, the 14-site N_up = 8 sector's up factor): 14 states of 64 x
+    3003 in one launch, each member equal bit for bit to its own 2-D call,
+    a batch of one to the unbatched call, and the whole to the plain
+    version to 1e-5 of max |y|."""
+    g = torch.Generator(device=cuda).manual_seed(3003)
+    rows, szd, szu = 14, 64, 3003
+    xb = torch.randn(rows, szd, szu, generator=g, device=cuda)
+    yb = torch.randn(rows, szd, szu, generator=g, device=cuda)
+    if layout == "up":
+        a = torch.randn(szu, szu, generator=g, device=cuda)
+        x, y0 = xb.view(rows * szd, szu), yb.view(rows * szd, szu)
+        got = kernels.factor_matmul(x, a, out=y0.clone(), accumulate=True)
+        members = [kernels.factor_matmul(xb[b], a, out=yb[b].clone(),
+                                         accumulate=True)
+                   for b in range(rows)]
+        assert torch.equal(got.view(rows, szd, szu), torch.stack(members))
+        ref = y0 + kernels.factor_matmul_ref(x, a)
+        one = kernels.factor_matmul(xb[:1], a)
+        assert torch.equal(one[0], kernels.factor_matmul(xb[0], a))
+    else:
+        a = torch.randn(szd, szd, generator=g, device=cuda)
+        xt = xb.transpose(1, 2)
+        got = yb.clone()
+        kernels.factor_matmul(xt, a, out=got.transpose(1, 2),
+                              accumulate=True)
+        for b in range(rows):
+            one = yb[b].clone()
+            kernels.factor_matmul(xt[b], a, out=one.T, accumulate=True)
+            assert torch.equal(one, got[b])
+        ref = yb + torch.matmul(a, xb)
+        single = yb[:1].clone()
+        kernels.factor_matmul(xt[:1], a, out=single.transpose(1, 2),
+                              accumulate=True)
+        assert torch.equal(single[0], got[0])
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+
+
+def _f32_ell_case(diag, cols, vals, rows, gen, tol):
+    """ell_spmv on a block of `rows` states: one launch, the plain version
+    to `tol` of max |y|, every member and a batch of one equal to their 1-D
+    calls bit for bit."""
+    x = torch.randn(rows, diag.shape[0], generator=gen, device=diag.device,
+                    dtype=diag.dtype)
+    kernels.reset_launches()
+    got = kernels.ell_spmv(diag, cols, vals, x)
+    assert kernels.FORM_LAUNCHES == {
+        f"ell_spmv {kernels._SUFFIX[diag.dtype]}": 1}
+    assert _rel(got, kernels.ell_spmv_ref(diag, cols, vals, x)) <= tol
+    for b in range(rows):
+        assert torch.equal(got[b], kernels.ell_spmv(diag, cols, vals, x[b]))
+    assert torch.equal(kernels.ell_spmv(diag, cols, vals, x[:1])[0],
+                       kernels.ell_spmv(diag, cols, vals, x[0]))
+
+
+def test_ell_spmv_f32_fleet_at_r23(cuda):
+    """The float32 TSPCenter fleet's shape: a SuperHubbardExtended J-ELL
+    (the 6-site chain's N_up = 4 sector, narrowed from float64) at R =
+    23."""
+    from lanczosplusplus_tpu_torch.ops.refine import narrowed
+    inp = parse_input(SUPER6)
+    model = build_model(inp, Geometry(inp))
+    ham = narrowed(model.hamiltonian(model.create_basis((4, 3)),
+                                     device=cuda))
+    assert ham.dtype == torch.float32 and ham.ell is not None
+    _f32_ell_case(ham.diag, ham.ell.cols, ham.ell.vals, 23,
+                  torch.Generator(device=cuda).manual_seed(23), 1e-5)
+
+
+@pytest.mark.parametrize("label, dtype", [
+    ("UseTranslationSymmetry=1\n", torch.complex64),
+    ("UseReflectionSymmetry=1\n", torch.float32)],
+    ids=["momentum_c64", "parity_f32"])
+def test_ell_spmv_on_float32_symmetry_blocks_at_r14(cuda, label, dtype):
+    """The largest complex64 momentum block and float32 parity block of
+    the 10-site (3, 3) chain, each the float64 block narrowed
+    (block_pair), at R = 14."""
+    periodic = int(dtype.is_complex)
+    sym = _symmetry_of(hubbard_chain_text(10, 4, 3, 3, periodic=periodic),
+                       label, cuda)
+    pairs = [sym.block_pair(s, torch.float32) for s in range(sym.sectors())]
+    blk, wide = max(((b, w) for b, w in pairs
+                     if b is not None and b.dtype == dtype),
+                    key=lambda bw: bw[0].dim)
+    assert blk.diag.dtype == dtype and blk.ell.cols is wide.ell.cols
+    _f32_ell_case(blk.diag, blk.ell.cols, blk.ell.vals, 14,
+                  torch.Generator(device=cuda).manual_seed(14), 1e-5)
+
+
+def test_float32_paths_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """--dtype float32 on the card against the same on the CPU: the 8-site
+    chain's DOS fleet (the float32 batched GEMMs; densities at delta 0.1
+    to 1e-4 of their maximum, #CFEnergy= to 1e-10), its complex64 momentum
+    blocks (complex64 ell_spmv; refined E0 to 1e-10) and the 8-site Kitaev
+    ring by projection (float32 GEMMs; E0 to 1e-10)."""
+    from lanczosplusplus_tpu_torch.cli import lanczos_main
+    from lanczosplusplus_tpu_torch.engine.spectral import read_collection
+    monkeypatch.chdir(tmp_path)
+    text = hubbard_chain_text(8, 4) + "ComputeDensityOfStates=1\n"
+    omegas = np.linspace(-8, 8, 161)
+    curves, energies = {}, {}
+    for device in ("cpu", "cuda"):
+        where = tmp_path / device
+        where.mkdir()
+        monkeypatch.chdir(where)
+        (where / "in.inp").write_text(text)
+        kernels.reset_launches()
+        eng = lanczos_main.run(["-f", "in.inp", "--device", device,
+                                "--dtype", "float32", "-g", "c"])
+        if device == "cuda":
+            assert kernels.FORM_LAUNCHES.get("factor_matmul f32", 0) > 0
+        colls = [read_collection(str(where / f"in.inp{i}.comb"))
+                 for i in range(8)]
+        curves[device] = np.stack([-c.evaluate(omegas, 0.1).imag
+                                   for c in colls])
+        energies[device] = [cf.e0 for c in colls for cf in c.items]
+        assert eng.eigenvector(0).dtype == torch.float32
+    assert _rel(torch.as_tensor(curves["cuda"]),
+                torch.as_tensor(curves["cpu"])) <= 1e-4
+    assert max(abs(a - b) for a, b in zip(energies["cuda"],
+                                          energies["cpu"])) <= 1e-9
+    for projected in (False, True):
+        text = (kitaev_text(8, 1.1, 0.7, 0.9, periodic=1).replace(
+            "SolverOptions=none", "SolverOptions=projected") if projected
+            else hubbard_chain_text(8, 4, 2, 3)) + "UseTranslationSymmetry=1\n"
+        e0 = {}
+        for device in ("cpu", cuda):
+            inp = parse_input(text)
+            kernels.reset_launches()
+            eng = Engine(build_model(inp, Geometry(inp)), inp,
+                         config=Config.from_input(inp, device=device,
+                                                  real_dtype=torch.float32))
+            e0[str(device)] = eng.ground_energy
+            if device == cuda:
+                form = "factor_matmul f32" if projected else "ell_spmv c64"
+                assert kernels.FORM_LAUNCHES.get(form, 0) > 0
+        assert abs(e0["cuda"] - e0["cpu"]) <= 1e-10 * abs(e0["cpu"])

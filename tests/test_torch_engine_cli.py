@@ -207,25 +207,6 @@ def test_unported_inputs_raise(tmp_path, monkeypatch, capsys, edit):
     assert abs(printed[0] - E0_INPUT0) <= 1e-12
 
 
-@pytest.mark.parametrize("args", [["--dtype", "float32", "-g", "c"],
-                                  ["--dtype", "float32", "--kpm", "-g", "c"]],
-                         ids=["spectral", "kpm"])
-def test_float32_paths_not_carried_raise_naming_item_11b(tmp_path,
-                                                         monkeypatch, args):
-    """float32 reaches the ground state and the static observables; the
-    spectral functions, the estimators and the symmetry sectors run in
-    float64 only and say so, naming ROADMAP Queue 1 item 11b, rather than
-    running float64 silently."""
-    monkeypatch.chdir(tmp_path)
-    path = _write(tmp_path, hubbard_chain_text(6) + "TSPSites 2 0 0\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        lanczos_main.run(["-f", path, "--device", "cpu", *args])
-    inp = parse_input(hubbard_chain_text(6) + "UseTranslationSymmetry=1\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        Engine(build_model(inp, Geometry(inp)), inp,
-               config=Config(device="cpu", real_dtype=torch.float32))
-
-
 def test_float32_cli_prints_the_refined_energy(tmp_path, monkeypatch,
                                                capsys):
     """lanczos --dtype float32: the state in float32, Energy= the energy

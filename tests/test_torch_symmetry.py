@@ -247,6 +247,9 @@ class _Empty:
     def block_hamiltonian(self, s):
         return None
 
+    def block_pair(self, s, dtype=None):
+        return None, None
+
 
 def test_no_non_empty_sector_raises(monkeypatch):
     """ROADMAP Queue 3 item 2: with no non-empty sector the JAX Engine
