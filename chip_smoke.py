@@ -24,8 +24,11 @@ Phases, each printing one line with its numbers:
    each) and a block of 23 of the 12-site N_up = 7 sector (924 x 792
    each, the TSPCenter fleet's): the up product with the batch folded
    into its rows and the dn product over the transposed views in one
-   launch, and a ragged batch of 3; ell_spmv on the 12-site
-   SuperHubbardExtended J-ELL for one vector and for a block of 14, on
+   launch, and a ragged batch of 3; ell_spmv (through the sliced form
+   of each matrix, made outside the timed region, its bytes and seconds
+   printed and its plain version held against the padded one's) on the
+   12-site SuperHubbardExtended J-ELL for one vector and for a block of
+   14, on
    the N_up = 7 sector's J-ELL for the fleet's block of 23, and on a
    random ELL with dim 1 000 003, K 7, for one vector and a block of 14,
    and on a random one with K 17, just past the rows a thread keeps in
@@ -35,7 +38,9 @@ Phases, each printing one line with its numbers:
    TestSuite input100's 220^2, with a real and with a complex factor.
    A batch of one must give the unbatched result bit for bit.  Each case
    is timed beside its bound (the least time the card could take:
-   operations over 67 TFLOP/s or bytes over 3.35 TB/s) and beside one
+   operations over 67 TFLOP/s or bytes over 3.35 TB/s; for ell_spmv the
+   bytes of its nonzero entries and vectors, the padded form's bytes kept
+   beside them) and beside one
    library call for the same function (in the turns library, kernel,
    kernel, library), which the port itself never calls: torch.matmul /
    addmm_ for factor_matmul, and for ell_spmv (and perm_gather, phase 10)
@@ -492,8 +497,11 @@ def plain_kernels():
         else:
             out.copy_(y)
         return out
+
+    def ell_spmv(diag, cols, vals, x, sliced=None):
+        return K.ell_spmv_ref(diag, cols, vals, x)
     K.factor_matmul, K.ell_spmv, K.perm_gather = (
-        factor_matmul, K.ell_spmv_ref, K.perm_gather_ref)
+        factor_matmul, ell_spmv, K.perm_gather_ref)
     try:
         yield
     finally:
@@ -674,13 +682,15 @@ GATHER_TAGS = {"dd": "f64", "ff": "f32", "NS_4CplxIdEES2_": "c128",
 
 
 def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
-           nonzero_bound_ms=None):
+           padded_bound_ms=None, **extra):
     """Hold a kernel's result against its plain version's, time the kernel,
     its plain version and (where there is one) the library call in the
     turns library, kernel, kernel, library, print one line and append the
     case to results[kernel].  `times`: kernel, plain and (or None) library
-    callables.  `nonzero_bound_ms`, where given, is a padded matrix's
-    bytes bound over its nonzero entries alone, kept beside `bound_ms`."""
+    callables.  `padded_bound_ms`, where given, is the bytes bound of a
+    sparse matrix's padded form, kept beside `bound_ms`, the bound over its
+    nonzero entries alone (which the record also carries as
+    ``nonzero_bound_ms``); `extra` items join the record."""
     abs_err, rel = rel_err(got, ref)
     check(rel <= tol, f"{kernel} {case}: rel err {rel:.3e} > {tol:g}")
     run, plain, library = times
@@ -700,25 +710,26 @@ def record(results, kernel, case, got, ref, tol, times, bound_ms, bound_by,
     say(f"  {kernel} {case}: max rel err {rel:.3e} (tol {tol:g}), max "
         f"abs err {abs_err:.3e}, kernel {ms:.4f} ms (turns "
         f"{turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f}), bound "
-        f"{bound_ms:.4f} ms by {bound_by} (share {bound_ms / ms:.3f}), "
-        f"library "
+        f"{bound_ms:.4f} ms by {bound_by} (share {bound_ms / ms:.3f})"
+        + ("" if padded_bound_ms is None else
+           f" over the nonzero entries, {padded_bound_ms:.4f} ms over the "
+           f"padded form (share {padded_bound_ms / ms:.3f})")
+        + ", library "
         + ("none" if library_ms is None else
            f"{library_ms:.4f} ms (turns {turns['library'][0]:.4f}, "
            f"{turns['library'][1]:.4f})")
         + f", plain {plain_ms:.4f} ms, kernel from an idle card "
-          f"{from_idle_ms:.4f} ms"
-        + ("" if nonzero_bound_ms is None else
-           f", bound over the nonzero entries alone {nonzero_bound_ms:.4f}"
-           f" ms (share {nonzero_bound_ms / ms:.3f})"))
+          f"{from_idle_ms:.4f} ms")
     results[kernel].append(dict(
         case=case, max_abs_err=abs_err, max_rel_err=rel, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         share_of_bound=bound_ms / ms, library_ms=library_ms,
-        from_idle_ms=from_idle_ms))
-    if nonzero_bound_ms is not None:
+        from_idle_ms=from_idle_ms, **extra))
+    if padded_bound_ms is not None:
         results[kernel][-1].update(
-            nonzero_bound_ms=nonzero_bound_ms,
-            share_of_nonzero_bound=nonzero_bound_ms / ms)
+            nonzero_bound_ms=bound_ms, share_of_nonzero_bound=bound_ms / ms,
+            padded_bound_ms=padded_bound_ms,
+            share_of_padded_bound=padded_bound_ms / ms)
 
 
 def batched_factor_cases(results, gen, dev, sms, rows, szd, szu,
@@ -3647,17 +3658,17 @@ def main() -> None:
                      f"{'k' if ak else 'row'}-major, dynamic smem "
                      f"{lib_c.lpp_factor_matmul_f64_smem_bytes(bits)} B")
         else:
-            # value type: d or f, inside Cplx<...> for the complex ones
-            kind = re.search(r"(ell_spmv)_kernelI"
-                             r"(?:\w*?4CplxI(\w)E)?(\w)(?:Li(\d+)E)?",
-                             r["name"])
-            cplx, plain, entries = kind.group(2, 3, 4)
-            tag = {"d": "c128", "f": "c64"}[cplx] if cplx else \
-                {"d": "f64", "f": "f32"}[plain]
-            label = (f"{kind.group(1)} {tag}"
-                     + (f", {entries} entries at a time" if entries else "")
-                     + f", static smem {r['static_smem_bytes']} B")
-            built.add(f"{kind.group(1)} {tag}")
+            # value type d or f, inside Cplx<...> for the complex ones (the
+            # complex128 kernel is a template of the entries alone), then
+            # the entries a lane takes at a time
+            args = r["name"].split("ell_spmv_kernelI", 1)[1]
+            cplx = re.search(r"4CplxI(\w)E", args)
+            tag = ({"d": "c128", "f": "c64"}[cplx.group(1)] if cplx else
+                   {"d": "f64", "f": "f32"}[args[0]])
+            entries = re.search(r"Li(\d+)E", args).group(1)
+            label = (f"ell_spmv {tag}, {entries} entries at a time, static "
+                     f"smem {r['static_smem_bytes']} B")
+            built.add(f"ell_spmv {tag}")
         say(f"  {label}: {r['registers']} registers, spill stores "
             f"{r['spill_store_bytes']} B, loads {r['spill_load_bytes']} B")
         check(r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0,
@@ -3850,30 +3861,50 @@ def main() -> None:
 
     def ell_case(case, diag, cols, vals, shape, tol, entries=None):
         """ell_spmv against its plain version on one (diag, cols, vals)
-        and a random x of `shape`, timed beside its bytes bound; where the
-        count of nonzero `entries` is given, also beside the bound of the
-        bytes y = Hx needs, the padding's index and value unread."""
+        and a random x of `shape`, through the sliced form the kernel
+        reads (made here, outside the timed region, its bytes and seconds
+        recorded; its own plain version held against the padded one),
+        timed beside the bytes bound of y = Hx over the nonzero entries
+        and the padded form's; `entries`, where given, is the count of
+        nonzero entries the caller counted on the host."""
         x = torch.randn(shape, generator=gen, device=dev, dtype=diag.dtype)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sliced = K.slice_ell(cols, vals)
+        torch.cuda.synchronize()
+        slice_s = time.perf_counter() - t
+        check(entries is None or entries == sliced.nnz,
+              f"ell_spmv {case}: {sliced.nnz} nonzero entries sliced, "
+              f"{entries} counted")
+
+        def member_by_member(fn):
+            # a block's gather intermediate is batch x entries values:
+            # member by member where that would not fit beside the matrix
+            if x.dim() == 2 and x.numel() * max(
+                    cols.shape[1], sliced.cols.numel() // max(
+                        diag.shape[0], 1)) * x.element_size() > 8e9:
+                return torch.stack([fn(row) for row in x])
+            return fn(x)
 
         def plain():
-            # a block's gather intermediate is batch x dim x K values:
-            # member by member where that would not fit beside the matrix
-            if x.dim() == 2 and x.numel() * cols.shape[1] \
-                    * x.element_size() > 8e9:
-                return torch.stack([K.ell_spmv_ref(diag, cols, vals, row)
-                                    for row in x])
-            return K.ell_spmv_ref(diag, cols, vals, x)
-        got = K.ell_spmv(diag, cols, vals, x)
+            return member_by_member(
+                lambda v: K.ell_spmv_ref(diag, cols, vals, v))
+        got = K.ell_spmv(diag, cols, vals, x, sliced=sliced)
         ref = plain()
+        sliced_err = rel_err(member_by_member(
+            lambda v: K.ell_spmv_sliced_ref(diag, sliced, v)), ref)[1]
         torch.cuda.synchronize()
+        check(sliced_err <= tol, f"ell_spmv {case}: the sliced plain "
+                                 f"version differs by {sliced_err:.3e}")
         if len(shape) == 2:
-            check(torch.equal(K.ell_spmv(diag, cols, vals, x[:1])[0],
-                              K.ell_spmv(diag, cols, vals, x[0])),
-                  "ell_spmv: a batch of one differs from the 1-D call")
+            check(torch.equal(
+                K.ell_spmv(diag, cols, vals, x[:1], sliced=sliced)[0],
+                K.ell_spmv(diag, cols, vals, x[0], sliced=sliced)),
+                "ell_spmv: a batch of one differs from the 1-D call")
             # an even member, an odd one and the last
             for b in (2, 3, shape[0] - 1):
-                check(torch.equal(got[b],
-                                  K.ell_spmv(diag, cols, vals, x[b])),
+                check(torch.equal(got[b], K.ell_spmv(diag, cols, vals, x[b],
+                                                     sliced=sliced)),
                       f"ell_spmv: row {b} of the batch differs from its 1-D "
                       f"call")
         # the library's form: one CSR matrix, diagonal folded in, applied
@@ -3887,19 +3918,29 @@ def main() -> None:
                                                     torch.complex64)
               else lib_err <= 1e-12, f"ell_spmv {case}: the CSR form "
                                      f"differs by {lib_err:.3e}")
-        # per row: K indices and K values and diag read once; per batch
-        # member x read and y written
+        # per nonzero entry its index and value, per row diag read once,
+        # per batch member x read and y written; the padded form reads K
+        # entries a row
         size = x.element_size()
-        vec_bytes = size + 2 * size * (shape[0] if len(shape) == 2 else 1)
-        row_bytes = cols.shape[1] * (4 + size) + vec_bytes
+        vec_bytes = diag.shape[0] * (size + 2 * size * (
+            shape[0] if len(shape) == 2 else 1))
+        say(f"  ell_spmv {case}: sliced form {sliced.nbytes} bytes "
+            f"({sliced.cols.numel()} slots for {sliced.nnz} nonzero "
+            f"entries, widest slice {sliced.width}, typical "
+            f"{sliced.typical_width}), made in {slice_s:.3f} s; the sliced "
+            f"plain version against the padded one "
+            f"{sliced_err:.3e}")
         record(results, "ell_spmv", case, got, ref, tol,
-               (lambda: K.ell_spmv(diag, cols, vals, x), plain,
-                lambda: csr @ xl),
-               1e3 * row_bytes * diag.shape[0] / PEAK_BYTES, "bytes",
-               None if entries is None else 1e3 * (
-                   entries * (4 + size) + vec_bytes * diag.shape[0])
-               / PEAK_BYTES)
-        del csr, xl
+               (lambda: K.ell_spmv(diag, cols, vals, x, sliced=sliced),
+                plain, lambda: csr @ xl),
+               1e3 * (sliced.nnz * (4 + size) + vec_bytes) / PEAK_BYTES,
+               "bytes",
+               padded_bound_ms=1e3 * (cols.numel() * (4 + size) + vec_bytes)
+               / PEAK_BYTES,
+               nnz=sliced.nnz, slots=sliced.cols.numel(),
+               sliced_bytes=sliced.nbytes, slice_s=slice_s,
+               sliced_plain_rel_err=sliced_err)
+        del csr, xl, sliced
 
     for case in ell_cases:
         ell_case(*case)
@@ -3983,10 +4024,14 @@ def main() -> None:
     refs["e0_she"] = eng_she.ground_energy
 
     launches = dict(K.LAUNCHES)
-    say(f"main path kernel launches: {launches}")
+    say(f"main path kernel launches: {launches}; sliced forms made "
+        f"{dict(K.SLICINGS)}")
     for name in ("factor_matmul", "ell_spmv"):
         check(launches[name] > 0, f"{name} was not launched on the main "
                                   f"path")
+    # one ELL on the path (the SuperHubbardExtended J-ELL), sliced once
+    check(K.SLICINGS == {"ell_spmv": 1},
+          f"sliced forms made on the main path: {K.SLICINGS}")
     check(launches["perm_gather"] == 0,
           "the dense one-spin factors' path launched perm_gather")
 
@@ -4319,6 +4364,7 @@ def main() -> None:
         wall = time.perf_counter() - t
         counts = dict(K.LAUNCHES)
         flat_launches[label] = counts
+        slicings = K.SLICINGS.get("ell_spmv", 0)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         ham, info = engine.hamiltonian, engine.solve_info
         dim, basis_s = ham.dim, host_s["create_basis"]
@@ -4340,8 +4386,11 @@ def main() -> None:
             f"{sum(build_s):.3f} + solve {solve_s:.3f} s"
             + (f" ({1e3 * solve_s / matvecs:.3f} ms a step)" if matvecs
                else " (dense branch)")
-            + f", launches {counts}, peak device memory {peak:.2f} GB")
+            + f", launches {counts}, sliced forms made {slicings}, peak "
+              f"device memory {peak:.2f} GB")
         check(info.converged, f"{label} unconverged")
+        check(slicings == (1 if ells * matvecs else 0),
+              f"{label}: {slicings} sliced forms made")
         refs[label] = engine.ground_energy
         check(counts == {"factor_matmul": gemms * matvecs,
                          "ell_spmv": ells * matvecs, "perm_gather": 0},
@@ -4702,7 +4751,8 @@ def main() -> None:
             **{key: path_case[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "share_of_bound", "case",
-                "nonzero_bound_ms", "share_of_nonzero_bound")
+                "nonzero_bound_ms", "share_of_nonzero_bound",
+                "padded_bound_ms", "sliced_bytes", "slice_s")
                 if key in path_case}))
         if name == kernel:  # every case of the kernel, once
             kernels_line[-1].update(

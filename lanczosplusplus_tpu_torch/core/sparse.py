@@ -12,7 +12,8 @@ HubbardHelper.h:75-103).
 
 Layout.  ED Hamiltonians have bounded row sparsity, so the generic part
 is ELL: padded (dim, K) ``cols``/``vals`` with padding pointing at its
-own row with value 0.  Terms acting on one spin species are Kronecker
+own row with value 0 (the kernel reads a sliced form of it without the
+padding, ``EllPart.sliced``).  Terms acting on one spin species are Kronecker
 products I (x) A_up and A_dn (x) I, applied to the state viewed as the
 (size_down, size_up) matrix X: either as gathers of the one-spin ELL
 maps through the hand-written ``perm_gather`` kernel (the CPU form, and
@@ -135,9 +136,25 @@ def one_spin_ell(words: np.ndarray, rank_fn, bonds, dtype) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class EllPart:
-    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]]."""
+    """Generic ELL block: y[i] += sum_k vals[i, k] * x[cols[i, k]].  The
+    padded (cols, vals) are what the model code and host consumers read;
+    the ``ell_spmv`` kernel reads the block's sliced form, made once, at
+    the first apply on the card (``sliced``)."""
     cols: torch.Tensor  # (dim, K) int32, contiguous
     vals: torch.Tensor  # (dim, K), contiguous
+    _sliced: kernels.SlicedEll | None = dataclasses.field(
+        init=False, default=None, repr=False, compare=False)
+
+    def sliced(self) -> kernels.SlicedEll:
+        """The sliced form of (cols, vals) (``kernels.slice_ell``), made at
+        the first call and kept; each making counts in
+        ``kernels.SLICINGS["ell_spmv"]``."""
+        if self._sliced is None:
+            object.__setattr__(self, "_sliced",
+                               kernels.slice_ell(self.cols, self.vals))
+            kernels.SLICINGS["ell_spmv"] = (
+                kernels.SLICINGS.get("ell_spmv", 0) + 1)
+        return self._sliced
 
 
 def _dense_from_ell(cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -271,11 +288,14 @@ class Hamiltonian:
     def matmat_t(self, xk: torch.Tensor) -> torch.Tensor:
         """Batch-major SpMM: H applied to every row of the contiguous
         block xk (R, dim) (or to one (dim,) state).  The diagonal and the
-        generic ELL part are one batched ``ell_spmv`` launch, each dense
-        one-spin factor one ``factor_matmul`` launch over the whole
-        block; batched recurrences keep their states in this layout."""
+        generic ELL part are one batched ``ell_spmv`` launch (on the card
+        from the part's sliced form), each dense one-spin factor one
+        ``factor_matmul`` launch over the whole block; batched recurrences
+        keep their states in this layout."""
         if self.ell is not None:
-            y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals, xk)
+            sliced = self.ell.sliced() if xk.is_cuda else None
+            y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals, xk,
+                                 sliced=sliced)
         else:
             y = self.diag * xk
         if self.factorized is not None:

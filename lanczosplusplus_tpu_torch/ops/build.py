@@ -54,11 +54,11 @@ SIGNATURES = {
                                    _L, _L, _I, _I, _I, _I, _I, _I, _P),
     "lpp_factor_matmul_bf16_f64": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
                                    _L, _L, _I, _I, _I, _I, _I, _I, _P),
-    # diag, cols, vals, x, y, dim, K, batch, stream
-    "lpp_ell_spmv_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "lpp_ell_spmv_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "lpp_ell_spmv_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "lpp_ell_spmv_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # diag, perm, offsets, widths, cols, vals (the sliced form), x, y,
+    # dim, slices, width (the sliced form's typical width), batch, stream
+    **{f"lpp_ell_spmv_{suffix}": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _P)
+       for suffix in ("f64", "f32", "c128", "c64")},
     # x, xsb, xs0, xs1, y, ysb, ys0, ys1, rs, ra, cs, ca, nb, rows, cols,
     # batch, stream (a null table: the identity, amplitude 1); bf16_: a
     # bfloat16 x with amplitudes and y of the suffix's type

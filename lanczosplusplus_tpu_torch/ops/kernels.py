@@ -12,7 +12,9 @@ kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
   ``wgmma`` fed by TMA (``csrc/factor_matmul.cu``);
 - ``ell_spmv``: ``y[b] = diag * x[b] + sum_k vals[:, k] * x[b, cols[:, k]]``
   over a padded ELL matrix and one vector or a batch-major block of them,
-  real or complex (``csrc/ell_spmv.cu``);
+  real or complex, read on the card from the matrix's sliced form
+  (``slice_ell``: the padding dropped, rows in slices of 32, one warp
+  each; ``csrc/ell_spmv.cu``);
 - ``perm_gather``: ``Y[b, r, c] += sum_n a[n, r] beta[n, c]
   X[b, rs[n, r], cs[n, c]]``, the partial permutations of the
   block-Kronecker forms and the one-spin hop maps in gather form, real or
@@ -34,7 +36,8 @@ the form being the launcher's type suffix (``f64``, ``f32``, ``c128``,
 through the kernels; ``LAUNCHES[name]`` reads the sum over a kernel's
 forms.  ``REPACKS["factor_matmul bf16"]`` counts the bf16 operands the
 wrapper copied into a padded layout TMA can address before a launch (no
-path's operand needs one).
+path's operand needs one), ``SLICINGS["ell_spmv"]`` the sliced forms the
+path made (``core/sparse.EllPart.sliced``: once per ELL on the card).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 
 FORM_LAUNCHES: dict[str, int] = {}
 REPACKS: dict[str, int] = {}
+SLICINGS: dict[str, int] = {}
 
 
 class _KernelLaunches(Mapping):
@@ -82,11 +86,18 @@ BIG_TILE, SMALL_TILE = 128, 64
 # 64 k in bytes (csrc/factor_matmul.cu GBM, GBK, GBOX); its tiles are 256
 # columns wide
 WGMMA_TILE_M, WGMMA_STAGE_K, WGMMA_BOX = 128, 64, 64 * 64 * 2
+# the sliced ELL: rows a slice, one warp with a lane a row
+# (csrc/ell_spmv.cu C), and the window of rows within which rows are
+# sorted by their count of entries
+SLICE_ROWS, SLICE_WINDOW = 32, 256
+# padded entries a step of slice_ell's scatter takes at most
+_SLICE_CHUNK = 1 << 24
 
 
 def reset_launches() -> None:
     FORM_LAUNCHES.clear()
     REPACKS.clear()
+    SLICINGS.clear()
 
 
 def _launched(name: str, form: str) -> None:
@@ -110,6 +121,104 @@ def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     """Plain version of ``ell_spmv``, for one (dim,) vector or a
     batch-major (batch, dim) block."""
     return diag * x + (vals * x[..., cols]).sum(-1)
+
+
+class SlicedEll(NamedTuple):
+    """The sliced form (SELL-C-sigma, C = ``SLICE_ROWS``) of a padded
+    (dim, K) ELL matrix, which the ``ell_spmv`` kernel reads
+    (``slice_ell``).  Sorted position p = C s + i is lane i of slice s and
+    holds row ``perm[p]``; entry j of that row lies at slot
+    ``offsets[s] + C j + i`` of `cols` and `vals`, for j below the row's
+    count of entries; the slice's other slots, up to its width, are
+    padding: the row's own index, value 0."""
+    cols: torch.Tensor     # (slots,) int32
+    vals: torch.Tensor     # (slots,)
+    offsets: torch.Tensor  # (slices,) int64: a slice's first slot
+    widths: torch.Tensor   # (slices,) int32: its slots a lane
+    perm: torch.Tensor     # (dim,) int32: the row at each sorted position
+    width: int             # the widest slice's width
+    # the narrowest width of slices that hold 9 in 10 of the slots: the
+    # kernel keeps a row of a slice no wider than its unroll in registers
+    # across a batch, and takes the smallest unroll (4, 8, 16) that does
+    # so for these
+    typical_width: int
+    nnz: int               # the entries kept: the matrix's nonzeros
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.cols, self.vals, self.offsets, self.widths, self.perm))
+
+
+def slice_ell(cols: torch.Tensor, vals: torch.Tensor) -> SlicedEll:
+    """The sliced form of the padded ELL (cols, vals) on their device.
+    Every entry whose value is exactly 0 is dropped (the padding, which
+    adds nothing to a sum); each row keeps the others in their k order
+    (a flattened ELL's padding may sit between two parts' entries).  Rows
+    are sorted, stably, by their count of entries, the longest first,
+    within windows of ``SLICE_WINDOW`` rows, and cut into slices of
+    ``SLICE_ROWS``, each as wide as its longest row and stored
+    column-major (``SlicedEll``)."""
+    dim, k = cols.shape
+    dev = cols.device
+    c = SLICE_ROWS
+    counts = (vals != 0).sum(1)
+    window = torch.arange(dim, device=dev) // SLICE_WINDOW
+    order = torch.argsort(window * (k + 1) + (k - counts), stable=True)
+    slices = -(-dim // c)
+    lane_counts = counts.new_zeros(slices * c)
+    lane_counts[:dim] = counts[order]
+    widths = lane_counts.view(slices, c).amax(1)
+    sizes = widths * c
+    offsets = torch.cumsum(sizes, 0) - sizes
+    lane_rows = torch.zeros(slices * c, dtype=torch.int32, device=dev)
+    lane_rows[:dim] = order.to(torch.int32)
+    s_cols = lane_rows.view(slices, c).repeat_interleave(widths, 0).view(-1)
+    s_vals = vals.new_zeros(s_cols.shape)
+    # the slot of each row's first entry
+    position = torch.empty_like(order)
+    position[order] = torch.arange(dim, device=dev)
+    first_slot = offsets[position // c] + position % c
+    step = max(1, _SLICE_CHUNK // max(k, 1))
+    for a in range(0, dim, step):
+        part = vals[a:a + step]
+        r, j = (part != 0).nonzero(as_tuple=True)
+        n = counts[a:a + step]
+        q = torch.arange(r.numel(), device=dev) - (torch.cumsum(n, 0) - n)[r]
+        slot = first_slot[a + r] + c * q
+        s_cols[slot] = cols[a:a + step][r, j]
+        s_vals[slot] = part[r, j]
+    return SlicedEll(s_cols, s_vals, offsets, widths.to(torch.int32),
+                     order.to(torch.int32),
+                     int(widths.max()) if slices else 0,
+                     _typical_width(widths), int(counts.sum()))
+
+
+def _typical_width(widths: torch.Tensor) -> int:
+    """The narrowest w such that slices no wider than w hold at least 9
+    in 10 of the slots (0 for no slots)."""
+    w, n = torch.unique(widths, return_counts=True)
+    slots = torch.cumsum(w * n, 0)
+    if slots.numel() == 0 or int(slots[-1]) == 0:
+        return 0
+    return int(w[torch.searchsorted(slots, 0.9 * slots[-1])])
+
+
+def ell_spmv_sliced_ref(diag: torch.Tensor, sliced: SlicedEll,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ell_spmv`` on the sliced form, for one (dim,)
+    vector or a batch-major (batch, dim) block: each slot's product summed
+    into its lane's row in slot order, the diagonal term added."""
+    c = SLICE_ROWS
+    slices = sliced.widths.numel()
+    lane = torch.arange(slices * c, device=x.device).view(slices, c)
+    lane = lane.repeat_interleave(sliced.widths.long(), 0).view(-1)
+    acc = x.new_zeros((*x.shape[:-1], slices * c))
+    acc.index_add_(-1, lane, sliced.vals * x[..., sliced.cols.long()])
+    y = diag * x
+    rows = sliced.perm.long()
+    y[..., rows] = y[..., rows] + acc[..., :diag.shape[0]]
+    return y
 
 
 def _check_cuda_operands(name: str, *tensors: torch.Tensor,
@@ -535,15 +644,19 @@ def _factor_matmul_planes(x: torch.Tensor, a: torch.Tensor,
 
 
 def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, sliced: SlicedEll | None = None) -> torch.Tensor:
     """``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]``, for one vector
     x: (dim,) or, in a single launch, for every row of a batch-major
     block x: (batch, dim); y has x's shape.
 
     cols: (dim, K) int32 with every entry in [0, dim) (padding points at
     its own row with value 0), vals: (dim, K), diag: (dim,); cols, vals,
-    diag and x contiguous.  The CUDA kernel takes float64, float32,
-    complex128 or complex64 operands, all of the one dtype.
+    diag and x contiguous.  On the CPU the plain version computes it from
+    (cols, vals).  The CUDA kernel reads `sliced`, the matrix's sliced
+    form (``slice_ell(cols, vals)``, made once per matrix: the Hamiltonian
+    keeps it, ``EllPart.sliced``), and raises without one; it takes
+    float64, float32, complex128 or complex64 operands, all of the one
+    dtype.
     """
     if cols.dim() != 2 or vals.shape != cols.shape:
         raise ValueError(f"ell_spmv: cols {tuple(cols.shape)} and vals "
@@ -571,7 +684,17 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     _check_cuda_operands("ell_spmv", diag, vals, x)
     if cols.device != x.device:
         raise ValueError(f"ell_spmv: cols on {cols.device}, x on {x.device}")
+    if sliced is None:
+        raise ValueError("ell_spmv: the CUDA kernel reads the matrix's "
+                         "sliced form (slice_ell), and none was given")
+    _check_cuda_operands("ell_spmv", x, sliced.vals)
+    if any(t.device != x.device for t in sliced[:5]):
+        raise ValueError(f"ell_spmv: a sliced form off {x.device}")
+    if sliced.perm.shape != (dim,):
+        raise ValueError(f"ell_spmv: a sliced form of {sliced.perm.numel()} "
+                         f"rows for a matrix of {dim}")
     batch = x.shape[0] if x.dim() == 2 else 1
+    slices = sliced.widths.numel()
     if max(dim, k, batch) > _INT_MAX:
         raise ValueError("ell_spmv: dim, K or batch out of int32 range")
     y = torch.empty_like(x)
@@ -581,8 +704,11 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     form = _SUFFIX[x.dtype]
     fn = getattr(load_library(), f"lpp_ell_spmv_{form}")
     with torch.cuda.device(x.device):
-        err = fn(diag.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), dim, k, batch, _stream(x))
+        err = fn(diag.data_ptr(), sliced.perm.data_ptr(),
+                 sliced.offsets.data_ptr(), sliced.widths.data_ptr(),
+                 sliced.cols.data_ptr(), sliced.vals.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), dim, slices,
+                 sliced.typical_width, batch, _stream(x))
     _launched("ell_spmv", form)
     if err != 0:
         raise RuntimeError(f"ell_spmv: kernel launch failed, cudaError {err}")

@@ -155,30 +155,44 @@ ELL_DTYPES = [(torch.float64, 1e-13), (torch.float32, 1e-5),
               (torch.complex128, 1e-13), (torch.complex64, 1e-5)]
 
 
+def _random_ell(g, dim, k, dtype, device):
+    """A padded (dim, K) ELL with a random half of its entries padding
+    (its own row, value 0) and every fifth row padding throughout."""
+    diag = torch.randn(dim, generator=g, device=device, dtype=dtype)
+    cols = torch.randint(0, dim, (dim, k), generator=g, device=device,
+                         dtype=torch.int32)
+    vals = torch.randn(dim, k, generator=g, device=device, dtype=dtype)
+    pad = torch.rand(dim, k, generator=g, device=device) < 0.5
+    pad[::5] = True
+    own = torch.arange(dim, device=device, dtype=torch.int32)[:, None]
+    cols = torch.where(pad, own.expand(dim, k), cols).contiguous()
+    vals = torch.where(pad, torch.zeros_like(vals), vals).contiguous()
+    return diag, cols, vals
+
+
 @pytest.mark.parametrize("dtype,tol", ELL_DTYPES)
 @pytest.mark.parametrize("dim,k", [(5003, 7), (1000, 1), (257, 12), (1, 3),
                                    (2003, 48)])
 @pytest.mark.parametrize("layout", ["k_major", "contiguous"])
 def test_ell_spmv_kernel(cuda, dtype, tol, dim, k, layout):
+    """The sliced kernel against the plain version on the padded arrays;
+    a K-major view of those arrays (one that is not contiguous too, as
+    with dim or K of 1) is refused before the launch, as it always was,
+    though the kernel reads only the sliced form."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    diag = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
-    cols = torch.randint(0, dim, (dim, k), generator=g, device=cuda,
-                         dtype=torch.int32)
-    vals = torch.randn(dim, k, generator=g, device=cuda, dtype=dtype)
+    diag, cols, vals = _random_ell(g, dim, k, dtype, cuda)
     x = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
     ref = kernels.ell_spmv_ref(diag, cols, vals, x)
+    sliced = kernels.slice_ell(cols, vals)
     before = kernels.LAUNCHES["ell_spmv"]
     if layout == "k_major":
         cols, vals = cols.T.contiguous().T, vals.T.contiguous().T
     if not cols.is_contiguous():
-        # the port keeps the contiguous layout alone: a K-major view (one
-        # that is not contiguous too, as with dim or K of 1) is refused
-        # before the launch
         with pytest.raises(ValueError, match="contiguous"):
-            kernels.ell_spmv(diag, cols, vals, x)
+            kernels.ell_spmv(diag, cols, vals, x, sliced=sliced)
         assert kernels.LAUNCHES["ell_spmv"] == before
         return
-    got = kernels.ell_spmv(diag, cols, vals, x)
+    got = kernels.ell_spmv(diag, cols, vals, x, sliced=sliced)
     assert kernels.LAUNCHES["ell_spmv"] == before + 1
     assert _rel(got, ref) <= tol
     torch.cuda.synchronize()
@@ -191,25 +205,57 @@ def test_ell_spmv_kernel(cuda, dtype, tol, dim, k, layout):
                                    (334, 9)])
 @pytest.mark.parametrize("rows", [1, 3, 14])
 def test_ell_spmv_batched_kernel(cuda, dtype, tol, dim, k, rows):
-    """One launch for a batch-major block, real and complex, rows that
-    stay in registers (K <= 16, or 8 in complex128) and rows that go chunk
-    by chunk (the flat models: K = 48 on a 24-site Heisenberg ring, 96 on
-    a 12-site Rashba ring); every member equals its own single launch bit
-    for bit."""
+    """One launch for a batch-major block, real and complex, slices that
+    stay in registers (at most 16 entries a row, or 8 in complex128) and
+    slices that go chunk by chunk (the flat models: K = 48 on a 24-site
+    Heisenberg ring, 96 on a 12-site Rashba ring); every member equals
+    its own single launch bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(dim + k + rows)
-    diag = torch.randn(dim, generator=g, device=cuda, dtype=dtype)
-    cols = torch.randint(0, dim, (dim, k), generator=g, device=cuda,
-                         dtype=torch.int32)
-    vals = torch.randn(dim, k, generator=g, device=cuda, dtype=dtype)
+    diag, cols, vals = _random_ell(g, dim, k, dtype, cuda)
+    sliced = kernels.slice_ell(cols, vals)
     x = torch.randn(rows, dim, generator=g, device=cuda, dtype=dtype)
     before = kernels.LAUNCHES["ell_spmv"]
-    got = kernels.ell_spmv(diag, cols, vals, x)
+    got = kernels.ell_spmv(diag, cols, vals, x, sliced=sliced)
     assert kernels.LAUNCHES["ell_spmv"] == before + 1
     assert got.shape == x.shape
     assert _rel(got, kernels.ell_spmv_ref(diag, cols, vals, x)) <= tol
+    assert _rel(got, kernels.ell_spmv_sliced_ref(diag, sliced, x)) <= tol
     for b in {0, rows - 1}:
-        assert torch.equal(got[b], kernels.ell_spmv(diag, cols, vals, x[b]))
+        assert torch.equal(got[b], kernels.ell_spmv(diag, cols, vals, x[b],
+                                                    sliced=sliced))
     torch.cuda.synchronize()
+
+
+def test_ell_spmv_without_sliced_form_raises(cuda):
+    """On the card the kernel reads the sliced form alone: a call without
+    one is refused before any launch, never computed another way."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    diag, cols, vals = _random_ell(g, 100, 4, torch.float64, cuda)
+    before = dict(kernels.FORM_LAUNCHES)
+    with pytest.raises(ValueError, match="sliced form"):
+        kernels.ell_spmv(diag, cols, vals, diag)
+    other = kernels.slice_ell(cols[:50], vals[:50])
+    with pytest.raises(ValueError, match="rows"):
+        kernels.ell_spmv(diag, cols, vals, diag, sliced=other)
+    assert kernels.FORM_LAUNCHES == before
+
+
+def test_ell_part_slices_once(cuda):
+    """A Hamiltonian's ELL part makes its sliced form at its first apply
+    on the card and keeps it: one making however many applies."""
+    inp = parse_input(SUPER6)
+    model = build_model(inp, Geometry(inp))
+    ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
+                            device=cuda)
+    kernels.reset_launches()
+    x = torch.randn(3, ham.dim, device=cuda, dtype=ham.dtype)
+    for _ in range(3):
+        ham.matmat_t(x)
+        ham.matvec(x[0])
+    assert kernels.SLICINGS == {"ell_spmv": 1}
+    assert kernels.LAUNCHES["ell_spmv"] == 6
+    assert ham.ell.sliced() is ham.ell.sliced()
+    assert ham.ell.sliced().nnz == int((ham.ell.vals != 0).sum())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
@@ -1142,7 +1188,8 @@ def test_ell_spmv_on_symmetry_blocks(cuda, label, dtype):
     for shape in ((blk.dim,), (3, blk.dim)):
         x = torch.randn(shape, generator=gen, device=cuda, dtype=dtype)
         kernels.reset_launches()
-        got = kernels.ell_spmv(blk.diag, blk.ell.cols, blk.ell.vals, x)
+        got = kernels.ell_spmv(blk.diag, blk.ell.cols, blk.ell.vals, x,
+                               sliced=blk.ell.sliced())
         assert kernels.LAUNCHES["ell_spmv"] == 1
         ref = kernels.ell_spmv_ref(blk.diag, blk.ell.cols, blk.ell.vals, x)
         assert _rel(got, ref) <= 1e-13
@@ -1487,15 +1534,18 @@ def _f32_ell_case(diag, cols, vals, rows, gen, tol):
     calls bit for bit."""
     x = torch.randn(rows, diag.shape[0], generator=gen, device=diag.device,
                     dtype=diag.dtype)
+    sliced = kernels.slice_ell(cols, vals)
     kernels.reset_launches()
-    got = kernels.ell_spmv(diag, cols, vals, x)
+    got = kernels.ell_spmv(diag, cols, vals, x, sliced=sliced)
     assert kernels.FORM_LAUNCHES == {
         f"ell_spmv {kernels._SUFFIX[diag.dtype]}": 1}
     assert _rel(got, kernels.ell_spmv_ref(diag, cols, vals, x)) <= tol
     for b in range(rows):
-        assert torch.equal(got[b], kernels.ell_spmv(diag, cols, vals, x[b]))
-    assert torch.equal(kernels.ell_spmv(diag, cols, vals, x[:1])[0],
-                       kernels.ell_spmv(diag, cols, vals, x[0]))
+        assert torch.equal(got[b], kernels.ell_spmv(diag, cols, vals, x[b],
+                                                    sliced=sliced))
+    assert torch.equal(
+        kernels.ell_spmv(diag, cols, vals, x[:1], sliced=sliced)[0],
+        kernels.ell_spmv(diag, cols, vals, x[0], sliced=sliced))
 
 
 def test_ell_spmv_f32_fleet_at_r23(cuda):
