@@ -212,6 +212,29 @@ Phases, each printing one line with its numbers:
    the Kitaev half, each against its plain version, its bound and one
    library call.
 
+16. distribution (``distributed_phase``, ``parallel/``), each run with the
+   launch counts, by form, set to 0 before and read after: 16a world 1 on
+   NCCL in this process (a one-rank group from a file store): the dry run
+   of every path (``parallel.dryrun``), phase 5's 14-site U=4 sector
+   solved in the Kronecker and halo-Kronecker forms against phase 5's E0
+   (1e-12; bit-equal or not is printed), distributed_ftlm at R = 16 and 80
+   steps against the single-process ftlm from the same block (1e-8), and
+   ell_spmv with a longer source (the gathered state) on the 12-site
+   SuperHubbardExtended flat form's row shards, one rank's of one and of
+   4, against its plain version, its bound and cuSPARSE; 16b 4 gloo ranks
+   spawned on the one card (their CUDA tensors passed to gloo as they
+   are), which check that gloo's all_gather and all_to_all_single return
+   every type of state exactly at the 12-site sector's size, run the dry
+   run and, on DIST_SECTORS (phase 6's sector, an 11-site
+   sector with 5 up and 3 down whose flat dimension and size_down pad, a
+   14-site t-J ring in factored form), every form's matvec (1e-12 of max
+   |y|) and solve (E0 1e-10) against this process's, the estimators
+   against this process's from the same blocks, and a scatter plan; their
+   times are of 4 processes sharing one card, not a speed.  The
+   single-device references a run is held against (the dry run's among
+   them) and the timing of a kernel alone go uncounted
+   (``kernels.uncounted``).
+
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
 prints no result.  The last lines are a JSON object with the native host
@@ -220,7 +243,7 @@ each kernel and form of a path, with the launches that path counted:
 ground state, spectral, the flat models' forms of phase 9, the factored
 forms' and gather apply's of phase 10, the symmetry blocks' and projected
 translation's of phase 11, the estimators' of phase 12, phase 13's and,
-by form, phase 14's and phase 15's),
+by form, phase 14's, phase 15's and phase 16's),
 the card's name and power limit, and the result object.
 """
 
@@ -498,8 +521,8 @@ def plain_kernels():
             out.copy_(y)
         return out
 
-    def ell_spmv(diag, cols, vals, x, sliced=None):
-        return K.ell_spmv_ref(diag, cols, vals, x)
+    def ell_spmv(diag, cols, vals, x, sliced=None, src=None):
+        return K.ell_spmv_ref(diag, cols, vals, x, src)
     K.factor_matmul, K.ell_spmv, K.perm_gather = (
         factor_matmul, ell_spmv, K.perm_gather_ref)
     try:
@@ -3582,6 +3605,555 @@ def float32_paths_phase(dev, gen, results, refs, ell_case):
     return runs, batched
 
 
+# -- 16. distribution --------------------------------------------------------
+
+# phase 16's sectors for the 4-rank gloo world on the card: label, text,
+# parts.  The 11-site SuperHubbardExtended sector (5 up, 3 down: dim
+# 462 * 165 = 76 230) pads both the flat dimension and size_down at 4
+# ranks; the t-J ring is the block-factored form's sector.
+DIST_RANKS = 4
+DIST_WORLD_SECONDS = 420
+DIST_SEED = 271828
+# rows a rank of the 12-site sector (dim 853 776) at 4 ranks: the size at
+# which phase 16b probes gloo's collectives on CUDA tensors
+DIST_PROBE_ROWS = 853776 // DIST_RANKS
+
+
+def super_hubbard_sector_text(nsite: int, nup: int, ndown: int) -> str:
+    """``super_hubbard_text``'s chain with nup and ndown electrons."""
+    return super_hubbard_text(nsite).replace(
+        f"TargetElectronsUp={nsite // 2}\n", f"TargetElectronsUp={nup}\n"
+    ).replace(f"TargetElectronsDown={nsite // 2}\n",
+              f"TargetElectronsDown={ndown}\n")
+
+
+DIST_SECTORS = (
+    ("12-site SuperHubbardExtended", super_hubbard_text(12), (6, 6)),
+    ("11-site SuperHubbardExtended 5/3",
+     super_hubbard_sector_text(11, 5, 3), (5, 3)),
+    ("14-site t-J ring 6/6, factored", tj_ring_text(14, 6, 6), (6, 6)))
+# sectors whose estimators phase 16 runs, and the one its scatter plan maps
+DIST_ESTIMATOR_SECTORS = ("11-site SuperHubbardExtended 5/3",
+                          "14-site t-J ring 6/6, factored")
+DIST_BETAS = (0.5, 2.0)
+
+
+def dist_build(text: str, parts, dev):
+    """(model, basis, the sector Hamiltonian on `dev`, or for a t-J sector
+    its factored form)."""
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.models.tj_factored import \
+        build_factored_tj
+
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(parts)
+    if "TjMultiOrb" in text:
+        return model, basis, build_factored_tj(model, basis,
+                                               dtype=torch.float64,
+                                               device=dev)
+    return model, basis, model.hamiltonian(basis, dtype=torch.float64,
+                                           device=dev)
+
+
+def dist_forms(ham, mesh):
+    """(form label, sharded form, halo fraction or None) of every
+    distributed form that takes `ham`."""
+    from lanczosplusplus_tpu_torch.parallel import mesh as pmesh
+    from lanczosplusplus_tpu_torch.parallel.blockkron_dist import \
+        shard_blockkron
+    from lanczosplusplus_tpu_torch.parallel.halo import (HaloPlan,
+                                                         KronHaloPlan)
+    from lanczosplusplus_tpu_torch.parallel.kron import \
+        shard_kron_hamiltonian
+
+    if hasattr(ham, "inner"):
+        return [("block-Kronecker", shard_blockkron(ham.inner, mesh), None)]
+    plan = HaloPlan(ham, mesh.size)
+    kplan = KronHaloPlan(ham, mesh.size)
+    return [("flat ELL", pmesh.shard_hamiltonian(ham, mesh), None),
+            ("Kronecker", shard_kron_hamiltonian(ham, mesh)[0], None),
+            ("halo", plan.hamiltonian(mesh), plan.halo_fraction),
+            ("halo-Kronecker", kplan.hamiltonian(mesh), kplan.halo_fraction)]
+
+
+def dist_inputs(ham, dev):
+    """The state every matvec of phase 16 applies H to (block order for a
+    factored form), drawn from DIST_SEED on the card."""
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    return torch.randn(ham.dim, generator=gen, dtype=torch.float64,
+                       device=dev)
+
+
+def dist_estimators(ham, dev, mesh=None, bounds=None):
+    """The estimators of phase 16 on `ham`, sharded over `mesh` or, with
+    none, on the one card, from the same start blocks: FTLM energies (R 8,
+    40 steps), the first coefficients of a spectral fleet of 3 rows, KPM
+    moments (64, R 4, `bounds` given), the FTLM dynamics' first pole
+    moments (R 2, 20 steps, a diagonal operator)."""
+    from lanczosplusplus_tpu_torch.engine.ftlm import ftlm
+    from lanczosplusplus_tpu_torch.engine.ftlm_dynamic import ftlm_dynamic
+    from lanczosplusplus_tpu_torch.engine.kpm import kpm_dos
+    from lanczosplusplus_tpu_torch.parallel import mesh as pmesh
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED + 1)
+    v0s = torch.randn(3, ham.dim, generator=gen, dtype=torch.float64,
+                      device=dev)
+    v0s /= torch.linalg.vector_norm(v0s, dim=1, keepdim=True)
+    vd = torch.randn(ham.dim, 2, generator=gen, dtype=torch.float64,
+                     device=dev)
+    vd /= torch.linalg.vector_norm(vd, dim=0)
+    op = torch.linspace(-1.0, 1.0, ham.dim, dtype=torch.float64, device=dev)
+
+    def apply(x):
+        return op * x
+    out = {}
+    if mesh is None:
+        out["ftlm"] = ftlm(ham, DIST_BETAS, num_vectors=8, steps=40,
+                           seed=DIST_SEED).energy
+        rows = lz.tridiagonalize_plain_batched(
+            ham.inner if hasattr(ham, "inner") else ham,
+            ham.to_inner(v0s) if hasattr(ham, "inner") else v0s, 40)
+        out["kpm"] = kpm_dos(ham, num_moments=64, num_vectors=4,
+                             seed=DIST_SEED, bounds=bounds).moments
+        dyn = ftlm_dynamic(ham, ham, apply, steps=20, start_vectors=vd)
+    else:
+        out["ftlm"] = pmesh.distributed_ftlm(ham, mesh, DIST_BETAS,
+                                             num_vectors=8, steps=40,
+                                             seed=DIST_SEED).energy
+        rows = pmesh.distributed_spectral_fleet(ham, mesh, v0s, steps=40)
+        out["kpm"] = pmesh.distributed_kpm_dos(ham, mesh, num_moments=64,
+                                               num_vectors=4, seed=DIST_SEED,
+                                               bounds=bounds).moments
+        dyn = pmesh.distributed_ftlm_dynamic(ham, ham, apply, mesh,
+                                             steps=20, start_vectors=vd)
+    out["fleet"] = np.stack([np.concatenate([r.alphas[:10], r.betas[:10]])
+                             for r in rows])
+    om, wt = dyn.poles(1.0)
+    out["dynamic"] = np.asarray([(wt * om ** k).sum() for k in range(3)])
+    return out
+
+
+def dist_probe(mesh, rows: int) -> dict:
+    """Whether gloo takes, on CUDA tensors, the two collectives the mesh
+    makes (``Mesh.all_gather``, ``Mesh.all_to_all``: gloo's all_gather and
+    all_to_all_single, a complex tensor as its real view), in each type a
+    state may have, at 8 x `rows` entries a rank: 'exact' where every rank's
+    slab came back bit for bit, else what went wrong."""
+    out = {}
+    for dt in (torch.float64, torch.float32, torch.complex128,
+               torch.complex64):
+        def block(rank):
+            v = torch.arange(8 * rows, device=mesh.device, dtype=torch.float64)
+            v = (rank + 1) * torch.sin(v).reshape(8, rows)
+            return torch.complex(v, -v).to(dt) if dt.is_complex else v.to(dt)
+        for name, fn, want in (
+                ("all_gather", lambda: mesh.all_gather(block(mesh.rank)),
+                 torch.stack([block(r) for r in range(mesh.size)])),
+                ("all_to_all_single",
+                 lambda: mesh.all_to_all(block(mesh.rank).reshape(
+                     mesh.size, -1, rows)),
+                 torch.stack([block(r).reshape(mesh.size, -1, rows)[mesh.rank]
+                              for r in range(mesh.size)]))):
+            key = f"{name} {str(dt).split('.')[1]}"
+            try:
+                got = fn()
+                torch.cuda.synchronize()
+                out[key] = ("exact" if torch.equal(got, want) else
+                            "wrong values")
+            except Exception as exc:   # noqa: BLE001  the refusal is the result
+                out[key] = f"refused: {str(exc).splitlines()[0][:100]}"
+    return out
+
+
+def dist_rank(rank: int, size: int, store: str, outdir: str,
+              bounds: dict) -> None:
+    """One rank of phase 16's gloo world on the card (spawned; the kernel
+    library is built already, so it only loads it)."""
+    import datetime
+
+    import torch.distributed as dist
+    from lanczosplusplus_tpu_torch.engine.engine import apply_operator_map
+    from lanczosplusplus_tpu_torch.engine.operators import LabeledOperator
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.parallel import mesh as pmesh
+    from lanczosplusplus_tpu_torch.parallel.dryrun import dryrun
+    from lanczosplusplus_tpu_torch.parallel.scatter_plan import \
+        distributed_apply_operator_map
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        started = time.perf_counter()
+        mesh = pmesh.make_mesh()
+        dev = mesh.device
+        out = dict(rank=rank, backend=str(dist.get_backend()),
+                   transport=mesh.transport, device=str(dev),
+                   probe=dist_probe(mesh, DIST_PROBE_ROWS), walls={}, halo={}, e0={}, y={},
+                   est={}, sector_launches={})
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out["dryrun"] = dryrun(mesh)
+        out["walls"]["dryrun"] = time.perf_counter() - t
+        out["sector_launches"]["dry run"] = dict(K.FORM_LAUNCHES)
+        for label, text, parts in DIST_SECTORS:
+            t = time.perf_counter()
+            model, basis, ham = dist_build(text, parts, dev)
+            out["walls"][f"{label} build"] = time.perf_counter() - t
+            x = dist_inputs(ham, dev)
+            before = dict(K.FORM_LAUNCHES)
+            for form, sham, fraction in dist_forms(ham, mesh):
+                key = f"{label}, {form}"
+                y = mesh.gather_rows(sham.matvec(mesh.local_rows(x,
+                                                                 sham.dim)))
+                if rank == 0:
+                    out["y"][key] = y[:ham.dim].cpu()
+                out["halo"][key] = fraction
+                t = time.perf_counter()
+                evals, _ = pmesh.sharded_selective_solve(
+                    sham, mesh, ham.dim, seed=SEED, max_steps=200)
+                torch.cuda.synchronize()
+                out["walls"][f"{key} solve"] = time.perf_counter() - t
+                out["e0"][key] = float(evals[0])
+                if form == "flat ELL" and label == DIST_SECTORS[0][0]:
+                    # the shard-local ell_spmv with the gathered state as
+                    # its source, timed while the other ranks time theirs;
+                    # its launches are not the path's
+                    xl = mesh.local_rows(x, sham.dim)
+                    src = mesh.gather_rows(xl)
+                    sliced = sham.ell.sliced()
+                    with K.uncounted():
+                        out["shard_ell_ms"] = median_ms(
+                            lambda: K.ell_spmv(sham.diag, sham.ell.cols,
+                                               sham.ell.vals, xl,
+                                               sliced=sliced, src=src), 20)
+                    out["shard_ell_nnz"] = sliced.nnz
+                del sham
+            if label in DIST_ESTIMATOR_SECTORS:
+                t = time.perf_counter()
+                out["est"][label] = dist_estimators(ham, dev, mesh,
+                                                    bounds[label])
+                out["walls"][f"{label} estimators"] = \
+                    time.perf_counter() - t
+            if label == DIST_SECTORS[0][0]:
+                dst = model.create_basis((parts[0] - 1, parts[1]))
+                tgt, amp, dst_dim = model.operator_map(
+                    LabeledOperator("c"), 0, 0, 0, basis, dst)
+                t = time.perf_counter()
+                z = distributed_apply_operator_map(tgt, amp, dst_dim, x, mesh)
+                out["walls"]["scatter plan"] = time.perf_counter() - t
+                with K.uncounted():
+                    ref = apply_operator_map(tgt, amp, dst_dim, x)
+                out["scatter_err"] = rel_err(z, ref)[1]
+            out["sector_launches"][label] = {
+                k: n - before.get(k, 0) for k, n in K.FORM_LAUNCHES.items()
+                if n - before.get(k, 0)}
+            del ham
+        out["launches"] = dict(K.FORM_LAUNCHES)
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["walls"]["rank"] = time.perf_counter() - started
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_ell_case(results, case, sham, x, src, offset):
+    """ell_spmv of a row shard with a longer source against its plain
+    version, timed beside its nonzero-bytes bound and one library call:
+    the shard's rows as one (rows, len(src)) CSR matrix, its diagonal
+    folded into the columns of its own rows (from `offset` in src), by
+    ``csr @ src`` (cuSPARSE)."""
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+
+    diag, cols, vals = sham.diag, sham.ell.cols, sham.ell.vals
+    sliced = sham.ell.sliced()
+    got = K.ell_spmv(diag, cols, vals, x, sliced=sliced, src=src)
+    ref = K.ell_spmv_ref(diag, cols, vals, x, src=src)
+    sliced_err = rel_err(K.ell_spmv_sliced_ref(diag, sliced, x, src=src),
+                         ref)[1]
+    check(sliced_err <= TOL_ELL_F64, f"{case}: the sliced plain version "
+                                     f"differs by {sliced_err:.3e}")
+    rows, k = cols.shape
+    r = torch.arange(rows, device=cols.device)
+    csr = coo_to_csr(torch.cat([r, r.repeat_interleave(k)]),
+                     torch.cat([r + offset, cols.reshape(-1).long()]),
+                     torch.cat([diag, vals.reshape(-1)]),
+                     (rows, src.shape[-1]))
+    lib_err = rel_err(csr @ src, ref)[1]
+    check(lib_err <= 1e-12, f"{case}: the CSR form differs by {lib_err:.3e}")
+    # per nonzero entry its index and value, per row diag, x and y, and
+    # every entry of the source a row gathers, once
+    used = torch.unique(sliced.cols[sliced.vals != 0]).numel()
+    size = x.element_size()
+    nbytes = sliced.nnz * (4 + size) + rows * 3 * size + used * size
+    record(results, "ell_spmv", case, got, ref, TOL_ELL_F64,
+           (lambda: K.ell_spmv(diag, cols, vals, x, sliced=sliced, src=src),
+            lambda: K.ell_spmv_ref(diag, cols, vals, x, src=src),
+            lambda: csr @ src),
+           1e3 * nbytes / PEAK_BYTES, "bytes",
+           padded_bound_ms=1e3 * (cols.numel() * (4 + size) + rows * 3 * size
+                                  + used * size) / PEAK_BYTES,
+           nnz=sliced.nnz, slots=sliced.cols.numel(),
+           sliced_bytes=sliced.nbytes, source_entries=src.shape[-1],
+           source_entries_read=used)
+
+
+def distributed_phase(dev, results, refs) -> dict:
+    """16. distribution (``parallel/``): 16a world 1 on NCCL in this
+    process (a one-rank group from a file store, device_id cuda:0): the
+    dry run of every path, the 14-site U=4 chain (phase 5's sector) solved
+    in the Kronecker and the halo-Kronecker forms against phase 5's E0
+    (1e-12), distributed_ftlm at R = 16 and 80 steps against the
+    single-process ftlm from the same block (1e-8), and ell_spmv with a
+    longer source on the 12-site SuperHubbardExtended flat form's row
+    shards, one rank's of one and of 4, against its plain version; 16b 4
+    gloo ranks spawned on the one card (gloo with CUDA tensors as they
+    are), which check that gloo's all_gather and all_to_all_single give
+    every type of state back exactly, run the dry run and, on
+    DIST_SECTORS, every form's matvec (against this process's, 1e-12 of
+    max |y|) and solve (E0 against this process's, 1e-10), the estimators
+    on DIST_ESTIMATOR_SECTORS against this process's from the same blocks,
+    and a scatter plan (c_up at site 0 of the 12-site sector, 1e-12).
+    Each run's launches, by kernel and form, are counted, its references'
+    and the timings' left out.  Returns the
+    launches of the phase by form and by run."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from lanczosplusplus_tpu_torch.engine.ftlm import ftlm
+    from lanczosplusplus_tpu_torch.engine.kpm import spectral_bounds
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+    from lanczosplusplus_tpu_torch.parallel import mesh as pmesh
+    from lanczosplusplus_tpu_torch.parallel.dryrun import dryrun
+    from lanczosplusplus_tpu_torch.parallel.halo import halo_lowest_states
+    from lanczosplusplus_tpu_torch.solver import lanczos as lz
+
+    started = time.perf_counter()
+    runs = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # -- 16a: world 1 on NCCL, in this process -----------------------
+        dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = pmesh.make_mesh()
+            check(mesh.transport == "nccl", f"transport {mesh.transport}")
+            K.reset_launches()
+            t = time.perf_counter()
+            errs = dryrun(mesh)
+            say(f"phase 16a world 1, backend {dist.get_backend()}, transport "
+                f"{mesh.transport}: dry run of every path in "
+                f"{time.perf_counter() - t:.3f} s, worst deviation from the "
+                f"single-device port {max(errs.values()):.3e} "
+                f"({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})")
+            runs["16a dry run"] = dict(K.FORM_LAUNCHES)
+            ham, e0 = refs["ham_u4"], refs["e0_u4"]
+            for label, solve in (
+                    ("Kronecker", lambda: pmesh.distributed_lowest_states(
+                        ham, mesh, seed=SEED, max_steps=200,
+                        return_info=True)),
+                    ("halo-Kronecker", lambda: halo_lowest_states(
+                        ham, mesh, seed=SEED, max_steps=200,
+                        return_info=True))):
+                K.reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                evals, _, info = solve()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                runs[f"16a 14-site {label}"] = dict(K.FORM_LAUNCHES)
+                err = abs(float(evals[0]) - e0) / abs(e0)
+                say(f"phase 16a 14-site U=4, {label} form, world 1 on NCCL: "
+                    f"dim {ham.dim}, steps {info.steps}, E0 "
+                    f"{float(evals[0])!r} against phase 5's {e0!r}: rel err "
+                    f"{err:.3e} (tol 1e-12), bit-equal "
+                    f"{float(evals[0]) == e0}; wall {wall:.3f} s, peak "
+                    f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+                    f"launches {dict(K.FORM_LAUNCHES)}")
+                check(info.converged, f"16a {label} unconverged")
+                check(err <= 1e-12, f"16a {label} E0 off by {err:.3e}")
+            betas = np.asarray([0.1, 0.5, 1.0, 2.0, 5.0, 20.0])
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res_d = pmesh.distributed_ftlm(ham, mesh, betas, num_vectors=16,
+                                           steps=80, seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            runs["16a 14-site ftlm R=16"] = dict(K.FORM_LAUNCHES)
+            launches = dict(K.FORM_LAUNCHES)
+            res_s = ftlm(ham, betas, num_vectors=16, steps=80, seed=SEED)
+            err = float(np.max(np.abs(res_d.energy - res_s.energy)
+                               / np.abs(res_s.energy)))
+            say(f"phase 16a 14-site U=4 distributed_ftlm R 16, 80 steps, "
+                f"world 1: energies {res_d.energy.tolist()} against the "
+                f"single-process ftlm from the same block: max rel diff "
+                f"{err:.3e} (tol 1e-8); wall {wall:.3f} s, launches "
+                f"{launches}")
+            check(err <= 1e-8, f"16a FTLM energies off by {err:.3e}")
+            del res_d, res_s
+            # the longer source: the 12-site sector's flat form, one rank's
+            # rows of one (the gathered state as its source) and of 4
+            label, text, parts = DIST_SECTORS[0]
+            _, _, she = dist_build(text, parts, dev)
+            x = dist_inputs(she, dev)
+            sham = pmesh.shard_hamiltonian(she, mesh)
+            src = mesh.gather_rows(mesh.local_rows(x, sham.dim))
+            shard_ell_case(results, "f64 12-site SuperHubbardExtended flat "
+                           "row shard, world 1, gathered source", sham,
+                           mesh.local_rows(x, sham.dim), src, 0)
+            quarter = pmesh.shard_hamiltonian(
+                she, dataclasses.replace(mesh, size=DIST_RANKS))
+            xq = x.new_zeros(quarter.dim)
+            xq[:she.dim] = x
+            shard_ell_case(results, f"f64 12-site SuperHubbardExtended flat "
+                           f"row shard, rank 0 of {DIST_RANKS}, gathered "
+                           f"source", quarter, xq[:quarter.rows].contiguous(),
+                           xq, 0)
+            del sham, quarter, she, src, xq
+        finally:
+            dist.destroy_process_group()
+
+        # -- 16b: 4 gloo ranks on the one card ---------------------------
+        t = time.perf_counter()
+        single = {}
+        bounds = {}
+        for label, text, parts in DIST_SECTORS:
+            _, _, ham = dist_build(text, parts, dev)
+            x = dist_inputs(ham, dev)
+            inner = ham.inner if hasattr(ham, "inner") else ham
+            y = inner.matvec(x)
+            e0 = (refs["e0_she"] if label == DIST_SECTORS[0][0] else
+                  float(lz.lowest_states(ham, seed=SEED,
+                                         max_steps=200)[0][0]))
+            single[label] = dict(y=y, e0=e0)
+            if label in DIST_ESTIMATOR_SECTORS:
+                bounds[label] = spectral_bounds(inner)
+                single[label]["est"] = dist_estimators(ham, dev,
+                                                       bounds=bounds[label])
+            del ham, inner, x, y
+        say(f"phase 16b single-process references in "
+            f"{time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        outdir = os.path.join(work, "ranks")
+        os.makedirs(outdir)
+        ctx = mp.start_processes(dist_rank, args=(
+            DIST_RANKS, os.path.join(work, "gloo"), outdir, bounds),
+            nprocs=DIST_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + DIST_WORLD_SECONDS
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"the {DIST_RANKS}-rank gloo world did not end within "
+                      f"{DIST_WORLD_SECONDS} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        wall = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DIST_RANKS)]
+        r0 = ranks[0]
+        say(f"phase 16b {DIST_RANKS} ranks on one card: backend "
+            f"{r0['backend']}, transport {r0['transport']}, device "
+            f"{r0['device']}, world wall {wall:.3f} s (spawn included); "
+            f"gloo on CUDA tensors: {r0['probe']}")
+        check(all(r["transport"] == "gloo" for r in ranks),
+              "16b transport")
+        check(all(set(r["probe"].values()) == {"exact"} for r in ranks),
+              f"16b gloo on CUDA tensors: {[r['probe'] for r in ranks]}")
+        say(f"  dry run on {DIST_RANKS} ranks: worst deviation "
+            f"{max(max(r['dryrun'].values()) for r in ranks):.3e}, wall "
+            f"{max(r['walls']['dryrun'] for r in ranks):.3f} s, launches "
+            f"(all ranks) {[r['sector_launches']['dry run'] for r in ranks]}")
+        total = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+        for label, _, _ in DIST_SECTORS:
+            ref = single[label]
+            e0s = {k: v for k, v in r0["e0"].items()
+                   if k.startswith(f"{label}, ")}
+            check(all(r["e0"] == r0["e0"] for r in ranks),
+                  f"16b {label}: the ranks' E0s differ")
+            for key, e0 in e0s.items():
+                form = key[len(label) + 2:]
+                y_err = rel_err(r0["y"][key].to(dev), ref["y"])[1]
+                e_err = abs(e0 - ref["e0"]) / abs(ref["e0"])
+                say(f"  {key}: matvec against the single process "
+                    f"{y_err:.3e} of max|y| (tol 1e-12), E0 {e0!r} against "
+                    f"{ref['e0']!r}: rel {e_err:.3e} (tol 1e-10); solve "
+                    f"{max(r['walls'][f'{key} solve'] for r in ranks):.3f} s"
+                    + ("" if r0["halo"][key] is None else
+                       f", halo fraction {r0['halo'][key]:.4f}"))
+                check(y_err <= 1e-12, f"16b {key}: matvec off by {y_err:.3e}")
+                check(e_err <= 1e-10, f"16b {key}: E0 off by {e_err:.3e}")
+            say(f"  {label}: build {max(r['walls'][f'{label} build'] for r in ranks):.3f}"
+                f" s a rank, launches (all ranks) "
+                f"{[r['sector_launches'][label] for r in ranks]}")
+            if label in DIST_ESTIMATOR_SECTORS:
+                got, want = r0["est"][label], ref["est"]
+                errs = {
+                    "ftlm": float(np.max(np.abs(got["ftlm"] - want["ftlm"])
+                                         / np.abs(want["ftlm"]))),
+                    "fleet": float(np.max(np.abs(got["fleet"]
+                                                 - want["fleet"]))),
+                    "kpm": float(np.max(np.abs(got["kpm"] - want["kpm"]))
+                                 / abs(want["kpm"][0])),
+                    "dynamic": float(np.max(np.abs(got["dynamic"]
+                                                   - want["dynamic"])))}
+                say(f"  {label} estimators against the single process: FTLM "
+                    f"energies {errs['ftlm']:.3e} (tol 1e-8), first 10 "
+                    f"fleet coefficients {errs['fleet']:.3e} (tol 1e-9), KPM "
+                    f"moments {errs['kpm']:.3e} of mu_0 (tol 1e-10), FTLM "
+                    f"dynamics pole moments {errs['dynamic']:.3e} (tol "
+                    f"1e-10); wall "
+                    f"{max(r['walls'][f'{label} estimators'] for r in ranks):.3f} s")
+                for name, tol in (("ftlm", 1e-8), ("fleet", 1e-9),
+                                  ("kpm", 1e-10), ("dynamic", 1e-10)):
+                    check(errs[name] <= tol,
+                          f"16b {label} {name} off by {errs[name]:.3e}")
+        say(f"  scatter plan (c_up at site 0, 12-site sector): "
+            f"{max(r['scatter_err'] for r in ranks):.3e} against "
+            f"apply_operator_map (tol 1e-12), wall "
+            f"{max(r['walls']['scatter plan'] for r in ranks):.3f} s")
+        check(max(r["scatter_err"] for r in ranks) <= 1e-12,
+              "16b scatter plan")
+        say(f"  shard-local ell_spmv with the gathered source (12-site flat "
+            f"form, {DIST_RANKS} processes sharing one card): "
+            f"{[round(r['shard_ell_ms'], 4) for r in ranks]} ms a rank, "
+            f"nonzero entries {[r['shard_ell_nnz'] for r in ranks]}")
+        say(f"  peak device memory a rank "
+            f"{[round(r['peak_gb'], 2) for r in ranks]} GB, rank walls "
+            f"{[round(r['walls']['rank'], 1) for r in ranks]} s; launches "
+            f"by form, all ranks: {total}")
+        runs[f"16b {DIST_RANKS} gloo ranks"] = total
+        shard_ell_ms = [r["shard_ell_ms"] for r in ranks]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    forms = {}
+    for counts in runs.values():
+        for k, n in counts.items():
+            forms[k] = forms.get(k, 0) + n
+    say(f"phase 16 launches by form: {forms}; phase wall "
+        f"{time.perf_counter() - started:.1f} s")
+    for kernel in ("factor_matmul", "ell_spmv", "perm_gather"):
+        check(sum(n for k, n in forms.items()
+                  if k.split(" ")[0] == kernel) > 0,
+              f"{kernel} was not launched in phase 16")
+    return dict(forms=forms, runs=runs, shard_ell_ms=shard_ell_ms)
+
+
 def main() -> None:
     started = time.perf_counter()
     # -- 1. environment -------------------------------------------------
@@ -4553,6 +5125,8 @@ def main() -> None:
     say(f"phase 15 starts at {time.perf_counter() - started:.1f} s")
     f32_runs, f32_batched = float32_paths_phase(dev, gen, results, refs,
                                                 ell_case)
+    # what phase 16 holds its runs against; the rest is freed
+    dist_refs = {key: refs[key] for key in ("ham_u4", "e0_u4", "e0_she")}
     del refs
     f32_forms = {}
     for counts in f32_runs.values():
@@ -4561,6 +5135,10 @@ def main() -> None:
     say(f"phase 15 kernel launches by form: {f32_forms}")
     fleets = (f32_batched["15a 14-site U=4 DOS"]
               + f32_batched["15a 14-site U=0 DOS"])
+
+    # -- 16. distribution ---------------------------------------------------
+    say(f"phase 16 starts at {time.perf_counter() - started:.1f} s")
+    dist16 = distributed_phase(dev, results, dist_refs)
 
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
@@ -4736,7 +5314,14 @@ def main() -> None:
         ("factor_matmul (float32 projected Kitaev)",
          "float32 projection (15d)", "f32 22-site Kitaev left half",
          f32_runs["15d 22-site Kitaev ring, projected translation"][
-             "factor_matmul f32"]))
+             "factor_matmul f32"]),
+        # distribution (phase 16): a row shard's ell_spmv with the gathered
+        # state as its source, over every sharded ELL apply of the phase
+        ("ell_spmv (row shard, longer source)",
+         "distribution: flat, halo and remainder row shards (16)",
+         "f64 12-site SuperHubbardExtended flat row shard, rank 0 of 4",
+         sum(n for form, n in dist16["forms"].items()
+             if form.split(" ")[0] == "ell_spmv")))
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
@@ -4771,6 +5356,9 @@ def main() -> None:
                                       if form.split(" ")[0] == kernel),
                 launches_phase_15={form: n for form, n in f32_forms.items()
                                    if form.split(" ")[0] == kernel},
+                launches_phase_16={form: n for form, n
+                                   in dist16["forms"].items()
+                                   if form.split(" ")[0] == kernel},
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(
@@ -4778,7 +5366,10 @@ def main() -> None:
                        "column's tables read once for them")
         if name == "perm_gather":
             kernels_line[-1].update(cross_term_cases=cross)
-    say(f"phases 1-15 done at {time.perf_counter() - started:.1f} s")
+        if name.startswith("ell_spmv (row shard"):
+            kernels_line[-1].update(
+                ms_4_processes_sharing_one_card=dist16["shard_ell_ms"])
+    say(f"phases 1-16 done at {time.perf_counter() - started:.1f} s")
     print(json.dumps({"native": native_line}))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

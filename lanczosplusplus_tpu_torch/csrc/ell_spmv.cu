@@ -1,8 +1,11 @@
-// ell_spmv: y[b, r] = diag[r] * x[b, r] + sum_k vals[r, k] * x[b, cols[r, k]]
+// ell_spmv: y[b, r] = diag[r] * x[b, r] + sum_k vals[r, k] * src[b, cols[r, k]]
 // for a batch-major (batch, dim) block of vectors, one vector being the
 // case batch = 1, in float64, float32, complex128 and complex64 (diag,
-// values, x and y of the one type, indices int32), read from the sliced
-// form of the padded (dim, K) ELL matrix (ops/kernels.py slice_ell).
+// values, x, src and y of the one type, indices int32), read from the
+// sliced form of the padded (dim, K) ELL matrix (ops/kernels.py
+// slice_ell).  src is x itself (src_pitch = dim), or for a row shard of a
+// distributed matrix a longer source, member b's row at b * src_pitch:
+// the all-gathered state, or the shard's rows followed by its halo.
 //
 // Replaces the Pallas TPU kernel lanczosplusplus_tpu/ops/pallas_kernels.py
 // ell_spmv_pallas (body _ell_kernel).  It is the diagonal plus the
@@ -56,7 +59,7 @@
 // registers and serve all batch members, so the matrix is read once
 // however many vectors it multiplies; a wider slice goes chunk by chunk of
 // U entries and is re-read per pair of members, from the caches.  Member
-// b's gathers go to x + b * dim.  Two members are taken at a time
+// b's gathers go to src + b * src_pitch.  Two members are taken at a time
 // (MEMBERS), so a lane has 2 U gathers in flight before its first
 // multiply.  Offsets are 64-bit: slots and b * dim pass 2^31 at sizes the
 // card holds.  Each member's sum is formed in the same order whatever the
@@ -147,9 +150,10 @@ __device__ __forceinline__ void load_entries(int (&ci)[U], T (&vi)[U],
 // entries are started before the first multiply.
 template <typename T, int U, int B>
 __device__ __forceinline__ void apply_members(
-    const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ c,
-    const T* __restrict__ v, int (&ci)[U], T (&vi)[U], bool once, T d,
-    long long r, int dim, int w, int b) {
+    const T* __restrict__ x, const T* __restrict__ src, long long src_pitch,
+    T* __restrict__ y, const int* __restrict__ c, const T* __restrict__ v,
+    int (&ci)[U], T (&vi)[U], bool once, T d, long long r, int dim, int w,
+    int b) {
   T acc[B];
 #pragma unroll
   for (int j = 0; j < B; ++j) acc[j] = T(0);
@@ -158,7 +162,7 @@ __device__ __forceinline__ void apply_members(
     T xi[B][U];
 #pragma unroll
     for (int j = 0; j < B; ++j) {
-      const T* xb = x + static_cast<long long>(b + j) * dim;
+      const T* xb = src + static_cast<long long>(b + j) * src_pitch;
 #pragma unroll
       for (int u = 0; u < U; ++u)
         xi[j][u] = nonzero(vi[u]) ? ld(xb + ci[u]) : T(0);
@@ -180,8 +184,8 @@ __device__ __forceinline__ void slice_rows(
     const T* __restrict__ diag, const int* __restrict__ perm,
     const long long* __restrict__ offsets, const int* __restrict__ widths,
     const int* __restrict__ cols, const T* __restrict__ vals,
-    const T* __restrict__ x, T* __restrict__ y, int dim, int slices,
-    int batch) {
+    const T* __restrict__ x, const T* __restrict__ src, long long src_pitch,
+    T* __restrict__ y, int dim, int slices, int batch) {
   const int s = blockIdx.x * (THREADS / C) + threadIdx.x / C;
   const int lane = threadIdx.x % C;
   const long long p = static_cast<long long>(s) * C + lane;
@@ -198,23 +202,25 @@ __device__ __forceinline__ void slice_rows(
   if (once) load_entries<T, U>(ci, vi, c, v, 0, w);
   int b = 0;
   for (; b + MEMBERS <= batch; b += MEMBERS)
-    apply_members<T, U, MEMBERS>(x, y, c, v, ci, vi, once, d, r, dim, w, b);
+    apply_members<T, U, MEMBERS>(x, src, src_pitch, y, c, v, ci, vi, once, d,
+                                 r, dim, w, b);
   for (; b < batch; ++b)
-    apply_members<T, U, 1>(x, y, c, v, ci, vi, once, d, r, dim, w, b);
+    apply_members<T, U, 1>(x, src, src_pitch, y, c, v, ci, vi, once, d, r,
+                           dim, w, b);
 }
 
 #define ELL_SPMV_PARAMS(T)                                                  \
   const T *__restrict__ diag, const int *__restrict__ perm,                \
       const long long *__restrict__ offsets, const int *__restrict__ widths, \
       const int *__restrict__ cols, const T *__restrict__ vals,             \
-      const T *__restrict__ x, T *__restrict__ y, int dim, int slices,      \
-      int batch
+      const T *__restrict__ x, const T *__restrict__ src,                    \
+      long long src_pitch, T *__restrict__ y, int dim, int slices, int batch
 
 template <typename T, int U>
 __global__ void __launch_bounds__(THREADS)
 ell_spmv_kernel(ELL_SPMV_PARAMS(T)) {
-  slice_rows<T, U>(diag, perm, offsets, widths, cols, vals, x, y, dim,
-                   slices, batch);
+  slice_rows<T, U>(diag, perm, offsets, widths, cols, vals, x, src,
+                   src_pitch, y, dim, slices, batch);
 }
 
 // complex128: the compiler's own choice of registers at 8 entries spills;
@@ -222,8 +228,8 @@ ell_spmv_kernel(ELL_SPMV_PARAMS(T)) {
 template <int U>
 __global__ void __launch_bounds__(THREADS, 2)
 ell_spmv_kernel(ELL_SPMV_PARAMS(Cplx<double>)) {
-  slice_rows<Cplx<double>, U>(diag, perm, offsets, widths, cols, vals, x, y,
-                              dim, slices, batch);
+  slice_rows<Cplx<double>, U>(diag, perm, offsets, widths, cols, vals, x,
+                              src, src_pitch, y, dim, slices, batch);
 }
 
 // The kernel of a type and unroll: the complex128 one of its own, so that
@@ -241,8 +247,8 @@ auto kernel_of() {
 template <typename T, int U>
 int launch_unrolled(const void* diag, const void* perm, const void* offsets,
                     const void* widths, const void* cols, const void* vals,
-                    const void* x, void* y, int dim, int slices, int batch,
-                    void* stream) {
+                    const void* x, const void* src, long long src_pitch,
+                    void* y, int dim, int slices, int batch, void* stream) {
   const int blocks = (slices + THREADS / C - 1) / (THREADS / C);
   kernel_of<T, U>()<<<blocks, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -250,7 +256,8 @@ int launch_unrolled(const void* diag, const void* perm, const void* offsets,
       static_cast<const long long*>(offsets),
       static_cast<const int*>(widths), static_cast<const int*>(cols),
       static_cast<const T*>(vals), static_cast<const T*>(x),
-      static_cast<T*>(y), dim, slices, batch);
+      static_cast<const T*>(src), src_pitch, static_cast<T*>(y), dim, slices,
+      batch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,29 +266,31 @@ int launch_unrolled(const void* diag, const void* perm, const void* offsets,
 template <typename T>
 int launch(const void* diag, const void* perm, const void* offsets,
            const void* widths, const void* cols, const void* vals,
-           const void* x, void* y, int dim, int slices, int width, int batch,
-           void* stream) {
+           const void* x, const void* src, long long src_pitch, void* y,
+           int dim, int slices, int width, int batch, void* stream) {
   auto go = width <= 4 ? launch_unrolled<T, 4> : launch_unrolled<T, 8>;
   // the 16-entry kernel is not even compiled for a type that caps at 8
   if constexpr (Tuning<T>::MAX_U >= 16) {
     if (width > 8) go = launch_unrolled<T, 16>;
   }
-  return go(diag, perm, offsets, widths, cols, vals, x, y, dim, slices, batch,
-            stream);
+  return go(diag, perm, offsets, widths, cols, vals, x, src, src_pitch, y, dim,
+            slices, batch, stream);
 }
 
 }  // namespace
 
 // The sliced form (ops/kernels.py SlicedEll): perm (dim,) int32, offsets
 // (slices,) int64, widths (slices,) int32, cols and vals by slot; width
-// is its typical width; x and y contiguous (batch, dim).
+// is its typical width; x and y contiguous (batch, dim); src member b's
+// row at b * src_pitch (x and dim for a matrix's own rows).
 #define LPP_ELL_SPMV(suffix, T)                                              \
   extern "C" int lpp_ell_spmv_##suffix(                                      \
       const void* diag, const void* perm, const void* offsets,               \
       const void* widths, const void* cols, const void* vals, const void* x, \
-      void* y, int dim, int slices, int width, int batch, void* stream) {    \
-    return launch<T>(diag, perm, offsets, widths, cols, vals, x, y, dim,     \
-                     slices, width, batch, stream);                          \
+      const void* src, long long src_pitch, void* y, int dim, int slices,    \
+      int width, int batch, void* stream) {                                  \
+    return launch<T>(diag, perm, offsets, widths, cols, vals, x, src,        \
+                     src_pitch, y, dim, slices, width, batch, stream);       \
   }
 
 LPP_ELL_SPMV(f64, double)

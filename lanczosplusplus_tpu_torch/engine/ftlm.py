@@ -52,7 +52,10 @@ def _ftlm_recurrence(ham, V0: torch.Tensor, Yops: torch.Tensor,
     the Krylov dots D[m, o, r] = <v_m | Yops[o, r, :]>, (M, O, R), needed
     for operator estimators.  Yops may be (0, R, dim) when only the
     H-moments are wanted.  A row whose beta is 0 carries zeros onward.
-    Nothing is read to the host inside the loop."""
+    Nothing is read to the host inside the loop.  On a row-sharded form
+    (``parallel/``) V0 and Yops hold this rank's rows, and the dots sum
+    over the ranks."""
+    mesh = lz._mesh(ham)
     rows = V0.shape[0]
     rdt = real_dtype_of(V0.dtype)
     alphas = torch.empty((steps, rows), dtype=rdt, device=V0.device)
@@ -63,13 +66,15 @@ def _ftlm_recurrence(ham, V0: torch.Tensor, Yops: torch.Tensor,
     beta_prev = torch.zeros((rows, 1), dtype=rdt, device=V0.device)
     for j in range(steps):
         W = apply_block_t(ham, V)
-        alpha = torch.linalg.vecdot(V, W, dim=1).real[:, None]
+        alpha = lz._allsum(torch.linalg.vecdot(V, W, dim=1),
+                           mesh).real[:, None]
         W.addcmul_(V, alpha.to(W.dtype), value=-1)
         W.addcmul_(V_prev, beta_prev.to(W.dtype), value=-1)
-        beta = torch.linalg.vector_norm(W, dim=1, keepdim=True)
+        beta = lz._allnorm(W, mesh, dim=1, keepdim=True)
         alphas[j] = alpha[:, 0]
         betas[j] = beta[:, 0]
-        dots[j] = torch.einsum("rd,ord->or", V.conj(), Yops)
+        dots[j] = lz._allsum(torch.einsum("rd,ord->or", V.conj(), Yops),
+                             mesh)
         alive = beta > 0
         W.div_(torch.where(alive, beta, 1.0).to(W.dtype))
         W.mul_(alive.to(W.dtype))
@@ -115,18 +120,20 @@ def _apply_operator(op, X: torch.Tensor, name: str) -> torch.Tensor:
     return diag * X
 
 
-def _projected(op, Vm: torch.Tensor, chunk: int, name: str) -> np.ndarray:
+def _projected(op, Vm: torch.Tensor, chunk: int, name: str,
+               mesh=None) -> np.ndarray:
     """G[i, j] = <v_i|A|v_j> over the rows of Vm (m, dim), on the host.
     The image of A is made `chunk` rows at a time, so it never holds more
     than `chunk` rows; each chunk's columns of G are (Y_c . Vm^H)^T, which
-    reads the basis as its adjoint without a conjugated copy."""
+    reads the basis as its adjoint without a conjugated copy.  With a mesh
+    Vm holds this rank's rows and G sums over the ranks."""
     m = Vm.shape[0]
     G = torch.empty((m, m), dtype=Vm.dtype, device=Vm.device)
     for i in range(0, m, chunk):
         Y = _apply_operator(op, Vm[i:i + chunk], name)
         G[:, i:i + chunk] = (Y @ Vm.mH).T
         del Y    # gone before the next chunk's image is made
-    return G.cpu().numpy()
+    return lz._allsum(G, mesh).cpu().numpy()
 
 
 def start_block(ham, start_vectors, num_vectors: int,
@@ -188,7 +195,7 @@ def ftlm(ham, beta_grid, num_vectors: int = 32, steps: int = 80,
 
     Yops = torch.stack([_apply_operator(operators[n], V0, n)
                         for n in names]) if names else \
-        V0.new_zeros((0, num_vectors, dim))
+        V0.new_zeros((0, *V0.shape))
 
     alphas, betas_l, dots = _ftlm_recurrence(ham, V0, Yops, steps)
     del V0, Yops
@@ -295,7 +302,8 @@ def ltlm(ham, beta_grid, operators: Dict[str, object],
         e0 = min(e0, float(evals[0]))
         residual = max(residual, abs(res.betas[res.m - 1] * evecs[-1, 0]))
         Vm = res.V[:res.m]                      # (m, dim)
-        ritz = {name: evecs.T @ _projected(operators[name], Vm, chunk, name)
+        ritz = {name: evecs.T @ _projected(operators[name], Vm, chunk, name,
+                                           lz._mesh(ham))
                 @ evecs for name in names}
         per_run.append((evals, evecs[0].copy(), ritz))
         del res, Vm

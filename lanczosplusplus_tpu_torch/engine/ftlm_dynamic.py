@@ -137,7 +137,8 @@ def ftlm_dynamic(ham_src, ham_dst, apply_b, num_vectors: int = 16,
                   f"ftlm_dynamic: a destination run of {steps_dst} steps at "
                   f"dim {ham_dst.dim} and its operator rows", device)
     Y = apply_b(V0.T.contiguous())                     # (R, dim_dst)
-    ynorms = torch.linalg.vector_norm(Y, dim=1).cpu().numpy()
+    mesh = lz._mesh(ham_dst)
+    ynorms = lz._allnorm(Y, mesh, dim=1).cpu().numpy()
 
     runs = []
     e0 = np.inf
@@ -158,7 +159,8 @@ def ftlm_dynamic(ham_src, ham_dst, apply_b, num_vectors: int = 16,
         evals2, evecs2 = lz.tridiag_eigh(res2.alphas, res2.betas)
         # cross coupling <psi_j|A^+|phi_l> = (A V1^T u_j)^+ (V2^T w_l)
         AV1 = apply_a(res1.V[:res1.m])                 # (m1, dim_dst)
-        G = (AV1.conj() @ res2.V[:res2.m].T).cpu().numpy()   # (m1, m2)
+        G = lz._allsum(AV1.conj() @ res2.V[:res2.m].T,
+                       mesh).cpu().numpy()                     # (m1, m2)
         del AV1, res2
         C = evecs1.T @ G @ evecs2
         runs.append(FTLMDynamicRun(

@@ -62,18 +62,25 @@ def _moment_recurrence(ham, phi0: torch.Tensor, a: float, b: float,
     """Chebyshev moments of the batch-major block phi0 (R, dim) for the
     rescaled Ht = (H - b)/a, by the product rule: a (num_pairs, 2, R)
     tensor on phi0's device, [k, 0] = mu_{2k} and [k, 1] = mu_{2k+1}.
-    One ``apply_block_t`` a moment pair; nothing is read to the host."""
+    One ``apply_block_t`` a moment pair; nothing is read to the host.  On
+    a row-sharded form phi0 holds this rank's rows and the dots sum over
+    the ranks."""
+    mesh = lz._mesh(ham)
+
     def ht(x):
         return apply_block_t(ham, x).sub_(x, alpha=b).mul_(1.0 / a)
+
+    def dot(u, v):
+        return lz._allsum(torch.linalg.vecdot(u, v), mesh).real
 
     out = torch.empty((num_pairs, 2, phi0.shape[0]),
                       dtype=real_dtype_of(phi0.dtype), device=phi0.device)
     tk, tk1 = phi0, ht(phi0)           # T_0 |phi>, T_1 |phi>
-    mu0 = torch.linalg.vecdot(tk, tk).real
-    mu1 = torch.linalg.vecdot(tk, tk1).real
+    mu0 = dot(tk, tk)
+    mu1 = dot(tk, tk1)
     for k in range(num_pairs):
-        out[k, 0] = 2.0 * torch.linalg.vecdot(tk, tk).real - mu0
-        out[k, 1] = 2.0 * torch.linalg.vecdot(tk1, tk).real - mu1
+        out[k, 0] = 2.0 * dot(tk, tk) - mu0
+        out[k, 1] = 2.0 * dot(tk1, tk) - mu1
         if k + 1 < num_pairs:
             tk, tk1 = tk1, ht(tk1).mul_(2.0).sub_(tk)
     return out

@@ -228,8 +228,11 @@ class GrandCanonicalFTLM:
     FTLM's random-vector trace is pure overhead).  Each larger sector's
     recurrence runs on `device`; with `factored` a model's factored form
     runs in its inner (block) order.  Betas are fixed at construction; mu
-    stays a free parameter of every query, as in ``GrandCanonical``.  A
-    `mesh` (the JAX package's row-sharded recurrence) raises."""
+    stays a free parameter of every query, as in ``GrandCanonical``.  With
+    a `mesh` (``parallel.mesh.make_mesh``) each larger sector is built on
+    the mesh's device and its recurrence row-sharded over the ranks
+    (``parallel.mesh.distributed_ftlm``); every rank gets the same
+    estimates."""
 
     def __init__(self, model, nsite: int, beta_grid,
                  kind: str = "hubbard",
@@ -240,11 +243,7 @@ class GrandCanonicalFTLM:
                  mesh=None, device="cuda"):
         from lanczosplusplus_tpu_torch.engine.ftlm import ftlm
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "GrandCanonicalFTLM(mesh=...): the sharded recurrence is "
-                "not ported yet (ROADMAP Queue 1 item 15, distribution)")
-        device = resolve_device(device)
+        device = resolve_device(device if mesh is None else mesh.device)
         self.beta_grid = np.asarray(beta_grid, dtype=np.float64)
         self.model = model
         self.nsite = nsite
@@ -280,8 +279,15 @@ class GrandCanonicalFTLM:
                                             device=device)
                     if device.type == "cuda":
                         ham = ham.densify_factors()
-                res = ftlm(ham, self.beta_grid, num_vectors=num_vectors,
-                           steps=steps, seed=seed)
+                if mesh is not None:
+                    from lanczosplusplus_tpu_torch.parallel.mesh import \
+                        distributed_ftlm
+                    res = distributed_ftlm(ham, mesh, self.beta_grid,
+                                           num_vectors=num_vectors,
+                                           steps=steps, seed=seed)
+                else:
+                    res = ftlm(ham, self.beta_grid, num_vectors=num_vectors,
+                               steps=steps, seed=seed)
                 log_z = res.log_z
                 energy = res.energy
                 energy2 = res.energy2

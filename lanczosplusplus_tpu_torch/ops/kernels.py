@@ -38,10 +38,12 @@ forms.  ``REPACKS["factor_matmul bf16"]`` counts the bf16 operands the
 wrapper copied into a padded layout TMA can address before a launch (no
 path's operand needs one), ``SLICINGS["ell_spmv"]`` the sliced forms the
 path made (``core/sparse.EllPart.sliced``: once per ELL on the card).
+``uncounted()`` leaves a block's launches out of all three.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from collections.abc import Mapping
 from typing import NamedTuple
@@ -100,6 +102,21 @@ def reset_launches() -> None:
     SLICINGS.clear()
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Within this block launches, repacks and slicings go uncounted: the
+    counts are as they were before it once it ends.  For the single-device
+    references a run holds its path against, so that the counts read after
+    the run are the path's alone."""
+    saved = [(d, dict(d)) for d in (FORM_LAUNCHES, REPACKS, SLICINGS)]
+    try:
+        yield
+    finally:
+        for d, before in saved:
+            d.clear()
+            d.update(before)
+
+
 def _launched(name: str, form: str) -> None:
     key = f"{name} {form}"
     FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
@@ -117,10 +134,12 @@ def factor_matmul_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 
 def ell_spmv_ref(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, src: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Plain version of ``ell_spmv``, for one (dim,) vector or a
-    batch-major (batch, dim) block."""
-    return diag * x + (vals * x[..., cols]).sum(-1)
+    batch-major (batch, dim) block, the gathers from `src` where one is
+    given (x otherwise)."""
+    return diag * x + (vals * (x if src is None else src)[..., cols]).sum(-1)
 
 
 class SlicedEll(NamedTuple):
@@ -158,7 +177,9 @@ def slice_ell(cols: torch.Tensor, vals: torch.Tensor) -> SlicedEll:
     are sorted, stably, by their count of entries, the longest first,
     within windows of ``SLICE_WINDOW`` rows, and cut into slices of
     ``SLICE_ROWS``, each as wide as its longest row and stored
-    column-major (``SlicedEll``)."""
+    column-major (``SlicedEll``).  The columns index whatever the kernel
+    gathers from: x, or a longer source (``ell_spmv(..., src=)``), so a
+    row shard's entries may point past its own rows."""
     dim, k = cols.shape
     dev = cols.device
     c = SLICE_ROWS
@@ -205,16 +226,19 @@ def _typical_width(widths: torch.Tensor) -> int:
 
 
 def ell_spmv_sliced_ref(diag: torch.Tensor, sliced: SlicedEll,
-                        x: torch.Tensor) -> torch.Tensor:
+                        x: torch.Tensor, src: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """Plain version of ``ell_spmv`` on the sliced form, for one (dim,)
-    vector or a batch-major (batch, dim) block: each slot's product summed
-    into its lane's row in slot order, the diagonal term added."""
+    vector or a batch-major (batch, dim) block: each slot's product, its
+    gather from `src` where one is given (x otherwise), summed into its
+    lane's row in slot order, the diagonal term added."""
     c = SLICE_ROWS
     slices = sliced.widths.numel()
     lane = torch.arange(slices * c, device=x.device).view(slices, c)
     lane = lane.repeat_interleave(sliced.widths.long(), 0).view(-1)
     acc = x.new_zeros((*x.shape[:-1], slices * c))
-    acc.index_add_(-1, lane, sliced.vals * x[..., sliced.cols.long()])
+    gathered = (x if src is None else src)[..., sliced.cols.long()]
+    acc.index_add_(-1, lane, sliced.vals * gathered)
     y = diag * x
     rows = sliced.perm.long()
     y[..., rows] = y[..., rows] + acc[..., :diag.shape[0]]
@@ -644,19 +668,24 @@ def _factor_matmul_planes(x: torch.Tensor, a: torch.Tensor,
 
 
 def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor, sliced: SlicedEll | None = None) -> torch.Tensor:
-    """``y = diag * x + sum_k vals[:, k] * x[cols[:, k]]``, for one vector
-    x: (dim,) or, in a single launch, for every row of a batch-major
-    block x: (batch, dim); y has x's shape.
+             x: torch.Tensor, sliced: SlicedEll | None = None,
+             src: torch.Tensor | None = None) -> torch.Tensor:
+    """``y = diag * x + sum_k vals[:, k] * src[cols[:, k]]``, for one
+    vector x: (dim,) or, in a single launch, for every row of a batch-major
+    block x: (batch, dim); y has x's shape.  Without `src` the gathers read
+    x itself.  A row shard of a distributed matrix (``parallel/``) gathers
+    from a longer source: src of x's leading batch and at least dim
+    entries a row, its rows at a pitch of their own (the all-gathered
+    state, or the shard's rows followed by its halo).
 
-    cols: (dim, K) int32 with every entry in [0, dim) (padding points at
-    its own row with value 0), vals: (dim, K), diag: (dim,); cols, vals,
-    diag and x contiguous.  On the CPU the plain version computes it from
-    (cols, vals).  The CUDA kernel reads `sliced`, the matrix's sliced
-    form (``slice_ell(cols, vals)``, made once per matrix: the Hamiltonian
-    keeps it, ``EllPart.sliced``), and raises without one; it takes
-    float64, float32, complex128 or complex64 operands, all of the one
-    dtype.
+    cols: (dim, K) int32 with every entry in [0, len(src)) (padding points
+    at its own row with value 0), vals: (dim, K), diag: (dim,); cols,
+    vals, diag and x contiguous, src contiguous along a row.  On the CPU
+    the plain version computes it from (cols, vals).  The CUDA kernel
+    reads `sliced`, the matrix's sliced form (``slice_ell(cols, vals)``,
+    made once per matrix: the Hamiltonian keeps it, ``EllPart.sliced``),
+    and raises without one; it takes float64, float32, complex128 or
+    complex64 operands, all of the one dtype.
     """
     if cols.dim() != 2 or vals.shape != cols.shape:
         raise ValueError(f"ell_spmv: cols {tuple(cols.shape)} and vals "
@@ -675,13 +704,25 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     if not (diag.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_spmv: diag and x must be contiguous")
     x = x.resolve_conj()
+    if src is not None:
+        if src.dim() != x.dim() or src.shape[:-1] != x.shape[:-1] or \
+                src.shape[-1] < dim:
+            raise ValueError(f"ell_spmv: src {tuple(src.shape)} must have "
+                             f"x's leading batch {tuple(x.shape[:-1])} and "
+                             f"at least {dim} entries a row")
+        src = src.resolve_conj()
+        if src.stride(-1) != 1 or (src.dim() == 2 and src.stride(0) <
+                                   src.shape[-1]):
+            raise ValueError(f"ell_spmv: src (strides {src.stride()}) must "
+                             f"be contiguous along a row, rows apart")
 
     if x.device.type == "cpu":
-        return ell_spmv_ref(diag, cols, vals, x)
+        return ell_spmv_ref(diag, cols, vals, x, src)
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv: no kernel for device {x.device}")
 
-    _check_cuda_operands("ell_spmv", diag, vals, x)
+    _check_cuda_operands("ell_spmv", diag, vals, x,
+                         *(() if src is None else (src,)))
     if cols.device != x.device:
         raise ValueError(f"ell_spmv: cols on {cols.device}, x on {x.device}")
     if sliced is None:
@@ -700,6 +741,12 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     y = torch.empty_like(x)
     if dim == 0 or batch == 0:
         return y
+    # the gathers' source and its batch pitch: x itself, or src
+    if src is None:
+        src_ptr, pitch = x.data_ptr(), dim
+    else:
+        src_ptr = src.data_ptr()
+        pitch = src.stride(0) if src.dim() == 2 else src.shape[0]
     from lanczosplusplus_tpu_torch.ops.build import load_library
     form = _SUFFIX[x.dtype]
     fn = getattr(load_library(), f"lpp_ell_spmv_{form}")
@@ -707,7 +754,7 @@ def ell_spmv(diag: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         err = fn(diag.data_ptr(), sliced.perm.data_ptr(),
                  sliced.offsets.data_ptr(), sliced.widths.data_ptr(),
                  sliced.cols.data_ptr(), sliced.vals.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), dim, slices,
+                 x.data_ptr(), src_ptr, pitch, y.data_ptr(), dim, slices,
                  sliced.typical_width, batch, _stream(x))
     _launched("ell_spmv", form)
     if err != 0:

@@ -13,7 +13,11 @@ to resume from (``checkpoint``, ``chunk``),
 reckoning against the Krylov budget).
 Every entry point takes any operator with ``dim``, ``dtype``, ``device``
 and ``matvec`` (``matmat_t`` for the batched recurrence): a sector
-``Hamiltonian`` or a block-Kronecker form.  ``lowest_states`` solves a
+``Hamiltonian`` or a block-Kronecker form.  A row-sharded form of
+``parallel/`` carries its ``mesh``: its vectors are this rank's rows, and
+every dot, norm and Gram-Schmidt coefficient sums its partial sums over
+the ranks through the mesh (``_allsum``, ``_allnorm``); without a mesh
+none of that runs.  ``lowest_states`` solves a
 ``PermutedHamiltonian`` in its inner block order.
 It replaces PsimagLite::LanczosSolver as the reference uses it
 (reference: src/Engine/Engine.h:601-657).
@@ -119,11 +123,30 @@ def random_start_block(dim: int, num: int, seed: int, dtype: torch.dtype,
     return (v / torch.linalg.vector_norm(v, dim=1, keepdim=True)).T
 
 
+def _mesh(ham):
+    """The mesh of a row-sharded form (``parallel/``), or None."""
+    return getattr(ham, "mesh", None)
+
+
+def _allsum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Partial sums of a sharded dot summed over the mesh's ranks, the same
+    bits on every rank; t itself without a mesh."""
+    return t if mesh is None else mesh.sum(t)
+
+
+def _allnorm(t: torch.Tensor, mesh, dim=None, keepdim=False) -> torch.Tensor:
+    """``vector_norm`` of a sharded vector (or of the rows of a sharded
+    block, `dim`), over all its ranks' rows."""
+    if mesh is None:
+        return torch.linalg.vector_norm(t, dim=dim, keepdim=keepdim)
+    return mesh.norm(t, dim=dim, keepdim=keepdim)
+
+
 def _normalized(ham, v0) -> torch.Tensor:
     """v0 (array or tensor) as a unit vector of the Hamiltonian's dtype on
-    its device."""
+    its device (this rank's rows of one, for a sharded form)."""
     v0 = torch.as_tensor(v0, device=ham.device).to(ham.dtype)
-    return v0 / torch.linalg.vector_norm(v0)
+    return v0 / _allnorm(v0, _mesh(ham))
 
 
 def _start_vector(ham, v0, seed: int) -> torch.Tensor:
@@ -132,12 +155,12 @@ def _start_vector(ham, v0, seed: int) -> torch.Tensor:
     return _normalized(ham, v0)
 
 
-def _norm(w: torch.Tensor) -> float:
-    return torch.linalg.vector_norm(w).item()
+def _norm(w: torch.Tensor, mesh=None) -> float:
+    return _allnorm(w, mesh).item()
 
 
-def _alpha(v: torch.Tensor, w: torch.Tensor) -> float:
-    return torch.vdot(v, w).real.item()
+def _alpha(v: torch.Tensor, w: torch.Tensor, mesh=None) -> float:
+    return _allsum(torch.vdot(v, w), mesh).real.item()
 
 
 def _column_chunks(V: torch.Tensor):
@@ -146,7 +169,7 @@ def _column_chunks(V: torch.Tensor):
     return [slice(c, c + step) for c in range(0, V.shape[1], step)]
 
 
-def _reorth_pass(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _reorth_pass(V: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     """One classical Gram-Schmidt pass of w against the rows of V.
 
     V may be stored below w's type (bfloat16): the two GEMVs then read
@@ -155,30 +178,30 @@ def _reorth_pass(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     package's ``dot_general(..., preferred_element_type=w.dtype)`` sees
     them, w and then the coefficients are rounded to V's type and the
     products summed in w's; V is widened a column chunk at a time, never
-    whole."""
+    whole.  With a mesh the coefficients sum over the ranks' rows."""
     if V.dtype == w.dtype:
-        coeffs = V.conj() @ w
+        coeffs = _allsum(V.conj() @ w, mesh)
         return w - coeffs @ V
     wq = w.to(V.dtype).to(w.dtype)
     coeffs = torch.zeros(V.shape[0], dtype=w.dtype, device=w.device)
     chunks = _column_chunks(V)
     for c in chunks:
         coeffs += V[:, c].to(w.dtype).conj() @ wq[c]
-    cq = coeffs.to(V.dtype).to(w.dtype)
+    cq = _allsum(coeffs, mesh).to(V.dtype).to(w.dtype)
     out = w.clone()
     for c in chunks:
         out[c] -= cq @ V[:, c].to(w.dtype)
     return out
 
 
-def _reorth(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _reorth(V: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     """DGKS: one pass, and a second one only when the first collapsed the
     norm (eta = 1/sqrt(2)), which is when classical Gram-Schmidt loses
     orthogonality."""
-    n0 = _norm(w)
-    w = _reorth_pass(V, w)
-    if _norm(w) < 0.7071 * n0:
-        w = _reorth_pass(V, w)
+    n0 = _norm(w, mesh)
+    w = _reorth_pass(V, w, mesh)
+    if _norm(w, mesh) < 0.7071 * n0:
+        w = _reorth_pass(V, w, mesh)
     return w
 
 
@@ -226,21 +249,22 @@ def _lanczos_chunk(ham, V: torch.Tensor, carry: _Carry, js: range,
     eps1 = 10.0 * eps             # per-step noise floor of the estimate
     idx = np.arange(steps)
     c = carry
+    mesh = _mesh(ham)
     alphas, betas, reorthed = [], [], 0
     for j in js:
         V[j] = c.v
         w = ham.matvec(c.v)
-        alpha = _alpha(c.v, w)
+        alpha = _alpha(c.v, w, mesh)
         alphas.append(alpha)
         if not selective:
-            w = _reorth(V[:j + 1], w)
-            betas.append(_norm(w))
+            w = _reorth(V[:j + 1], w, mesh)
+            betas.append(_norm(w, mesh))
             reorthed += 1
             c.v_prev, c.v = c.v, _next_vector(w, betas[-1])
             continue
         w.sub_(c.v, alpha=alpha).sub_(c.v_prev, alpha=c.beta_prev)
         c.a_hist[j] = alpha
-        beta0 = _norm(w)
+        beta0 = _norm(w, mesh)
 
         # beta_k omega_{k+1,i} = b_i omega_{k,i+1} + (a_i - a_k) omega_{k,i}
         #   + b_{i-1} omega_{k,i-1} - b_{k-1} omega_{k-1,i}
@@ -258,12 +282,12 @@ def _lanczos_chunk(ham, V: torch.Tensor, carry: _Carry, js: range,
 
         need = c.force or np.abs(om_new).max() > eta
         if need:
-            w = _reorth(V[:j + 1], w)
+            w = _reorth(V[:j + 1], w, mesh)
             om_new = np.where(idx <= j, eps1, 0.0)
             reorthed += 1
         c.force = need and not c.force
 
-        beta = _norm(w)
+        beta = _norm(w, mesh)
         c.b_hist[j] = beta
         betas.append(beta)
         c.v_prev, c.v = c.v, _next_vector(w, beta)
@@ -371,7 +395,7 @@ def tridiagonalize(ham, v0, steps: int, checkpoint=None, chunk=None,
     stored below the compute type (`reorth_dtype`, e.g. torch.bfloat16:
     orthogonality degrades to about 1e-3, for throughput runs)."""
     v = _normalized(ham, v0)
-    steps = int(min(steps, v.shape[0]))
+    steps = int(min(steps, ham.dim))
     V, alphas, betas, _ = _lanczos_scan(ham, v, steps, checkpoint=checkpoint,
                                         chunk=chunk,
                                         reorth_dtype=reorth_dtype,
@@ -446,13 +470,14 @@ def _plain_pass(ham, v0: torch.Tensor, steps: int, weights=None):
     v, v_prev, beta_prev = v0.clone(), torch.zeros_like(v0), 0.0
     alphas, betas = [], []
     acc = None if weights is None else torch.zeros_like(v0)
+    mesh = _mesh(ham)
     for j in range(steps):
         if acc is not None:
             acc.add_(v, alpha=float(weights[j]))
         w = ham.matvec(v)
-        alpha = _alpha(v, w)
+        alpha = _alpha(v, w, mesh)
         w.sub_(v, alpha=alpha).sub_(v_prev, alpha=beta_prev)
-        beta = _norm(w)
+        beta = _norm(w, mesh)
         alphas.append(alpha)
         betas.append(beta)
         v_prev, v = v, _next_vector(w, beta)
@@ -465,7 +490,7 @@ def tridiagonalize_plain(ham, v0, steps: int) -> LanczosResult:
     vectors: enough for a continued fraction, which never needs the
     Krylov basis."""
     v = _normalized(ham, v0)
-    steps = int(min(steps, v.shape[0]))
+    steps = int(min(steps, ham.dim))
     alphas, betas, m = trim_at_breakdown(*_plain_pass(ham, v, steps))
     return LanczosResult(alphas=alphas[:m], betas=betas[:m], V=None, m=m)
 
@@ -486,18 +511,19 @@ def tridiagonalize_plain_batched(ham, v0s, steps: int) -> list[LanczosResult]:
     from lanczosplusplus_tpu_torch.core.sparse import apply_block_t
 
     V = torch.as_tensor(v0s, device=ham.device).to(ham.dtype).contiguous()
-    rows, dim = V.shape
-    steps = int(min(steps, dim))
+    rows = V.shape[0]
+    steps = int(min(steps, ham.dim))
+    mesh = _mesh(ham)
     V_prev = torch.zeros_like(V)
     beta_prev = torch.zeros((rows, 1), dtype=real_dtype_of(V.dtype),
                             device=V.device)
     coeffs = np.zeros((steps, 2, rows))   # [step, alpha or beta, row]
     for j in range(steps):
         W = apply_block_t(ham, V)
-        alpha = torch.linalg.vecdot(V, W, dim=1).real[:, None]
+        alpha = _allsum(torch.linalg.vecdot(V, W, dim=1), mesh).real[:, None]
         W.addcmul_(V, alpha.to(W.dtype), value=-1)
         W.addcmul_(V_prev, beta_prev.to(W.dtype), value=-1)
-        beta = torch.linalg.vector_norm(W, dim=1, keepdim=True)
+        beta = _allnorm(W, mesh, dim=1, keepdim=True)
         coeffs[j] = torch.cat([alpha, beta], dim=1).T.cpu().numpy()
         alive = coeffs[j, 1] > 0
         if not alive.any():

@@ -226,6 +226,55 @@ def test_ell_spmv_batched_kernel(cuda, dtype, tol, dim, k, rows):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype,tol", ELL_DTYPES)
+@pytest.mark.parametrize("dim,k,extra", [(5003, 7, 3 * 5003), (257, 12, 40),
+                                         (300, 17, 1), (1000, 96, 3000)])
+@pytest.mark.parametrize("rows", [0, 1, 3, 14])
+def test_ell_spmv_longer_source_kernel(cuda, dtype, tol, dim, k, extra,
+                                       rows):
+    """A row shard's apply: the gathers read a source longer than the
+    rows (the all-gathered state of a distributed form, or its rows with
+    their halo), at its own batch pitch; against both plain versions,
+    each member of a batch equal to its single launch bit for bit.  rows
+    0 is a single vector."""
+    g = torch.Generator(device=cuda).manual_seed(dim + k + rows)
+    diag, cols, vals = _random_ell(g, dim, k, dtype, cuda)
+    length = dim + extra
+    far = torch.randint(0, length, cols.shape, generator=g, device=cuda,
+                        dtype=torch.int32)
+    cols = torch.where(vals != 0, far, cols).contiguous()
+    sliced = kernels.slice_ell(cols, vals)
+    lead = (rows,) if rows else ()
+    x = torch.randn(*lead, dim, generator=g, device=cuda, dtype=dtype)
+    # a pitch longer than a row: the source is a view of a wider block
+    wide = torch.randn(*lead, length + 5, generator=g, device=cuda,
+                       dtype=dtype)
+    src = wide[..., :length]
+    before = kernels.LAUNCHES["ell_spmv"]
+    got = kernels.ell_spmv(diag, cols, vals, x, sliced=sliced, src=src)
+    assert kernels.LAUNCHES["ell_spmv"] == before + 1
+    assert got.shape == x.shape
+    assert _rel(got, kernels.ell_spmv_ref(diag, cols, vals, x, src)) <= tol
+    assert _rel(got, kernels.ell_spmv_sliced_ref(diag, sliced, x,
+                                                 src)) <= tol
+    if rows:
+        for b in {0, rows - 1}:
+            assert torch.equal(got[b], kernels.ell_spmv(
+                diag, cols, vals, x[b], sliced=sliced, src=src[b]))
+    torch.cuda.synchronize()
+
+
+def test_ell_spmv_own_source_is_the_default(cuda):
+    """src=x itself gives the call without a source bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    diag, cols, vals = _random_ell(g, 2003, 17, torch.float64, cuda)
+    sliced = kernels.slice_ell(cols, vals)
+    x = torch.randn(5, 2003, generator=g, device=cuda, dtype=torch.float64)
+    assert torch.equal(kernels.ell_spmv(diag, cols, vals, x, sliced=sliced),
+                       kernels.ell_spmv(diag, cols, vals, x, sliced=sliced,
+                                        src=x))
+
+
 def test_ell_spmv_without_sliced_form_raises(cuda):
     """On the card the kernel reads the sliced form alone: a call without
     one is refused before any launch, never computed another way."""

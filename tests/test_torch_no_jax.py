@@ -2,7 +2,8 @@
 every module of the port and running its CLI with every measurement flag
 (the estimators' --kpm and --ftlm-dos too), ed --ftlm, thermal --ftlm,
 consistency --tinf, spin_orbital, the sector-file writer and the native
-host runtime loads no jax module, and
+host runtime loads no jax module, nor does a gloo world of 2 fresh
+interpreters running the distributed dry run, and
 chip_smoke.py imports none either and refuses to run without a card."""
 
 import ast
@@ -76,6 +77,19 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert "LAPACK energy=" in proc.stdout
     assert open(tmp_path / "sectors.dat").read().startswith(
         "#TotalSectors=25\n")
+
+
+def test_distributed_dry_run_loads_no_jax(tmp_path):
+    """Two fresh interpreters, ranks of one gloo group on the CPU, run
+    ``parallel.dryrun.dryrun(mesh)``: every path agrees with the
+    single-device port and neither interpreter holds a jax module."""
+    from torch_world import run_world
+
+    for errs, jax_mods, transport in run_world(
+            2, "torch_parallel_paths:dryrun_no_jax", tmp_path):
+        assert not jax_mods, jax_mods
+        assert transport == "gloo"
+        assert max(errs.values()) <= 1e-10
 
 
 def test_chip_smoke_imports_no_jax():

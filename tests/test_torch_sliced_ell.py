@@ -13,6 +13,8 @@ permutation sorted within its windows, the padding and the slice offsets
 where they belong, and the padded matrix's nonzeros given back by
 unslicing."""
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,6 +241,27 @@ def test_cpu_apply_makes_no_sliced_form_and_the_part_keeps_one():
     assert kernels.SLICINGS == {}
 
 
+@pytest.mark.parametrize("raises", [False, True], ids=["ends", "raises"])
+def test_uncounted_leaves_the_counts_as_they_were(raises):
+    """Launches, repacks and slicings counted inside ``uncounted()`` are
+    gone when it ends, whether it ends or raises; those before it stay."""
+    kernels.reset_launches()
+    kernels._launched("ell_spmv", "f64")
+    kernels.SLICINGS["ell_spmv"] = 1
+    with pytest.raises(ValueError) if raises else contextlib.nullcontext():
+        with kernels.uncounted():
+            kernels._launched("ell_spmv", "f64")
+            kernels._launched("perm_gather", "c128")
+            kernels.REPACKS["factor_matmul bf16"] = 2
+            kernels.SLICINGS["ell_spmv"] = 2
+            if raises:
+                raise ValueError
+    assert kernels.FORM_LAUNCHES == {"ell_spmv f64": 1}
+    assert kernels.LAUNCHES["perm_gather"] == 0
+    assert (kernels.REPACKS, kernels.SLICINGS) == ({}, {"ell_spmv": 1})
+    kernels.reset_launches()
+
+
 def test_plain_kernels_take_a_sliced_form():
     """chip_smoke's plain-kernel swap takes the sliced form the card path
     passes and computes the plain version from the padded arrays."""
@@ -248,3 +271,93 @@ def test_plain_kernels_take_a_sliced_form():
     with chip_smoke.plain_kernels():
         got = kernels.ell_spmv(diag, cols, vals, x, sliced=sliced)
     assert torch.equal(got, kernels.ell_spmv_ref(diag, cols, vals, x))
+
+
+def _shard(dim, k, extra, seed, dtype):
+    """A row shard's ELL: rows `dim`, columns into a source of dim + extra
+    entries (an all-gathered state, or the shard's rows and its halo),
+    half its entries padding (own row, value 0)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, dim + extra, size=(dim, k)).astype(np.int32)
+    vals = rng.standard_normal((dim, k))
+    diag = rng.standard_normal(dim)
+    if np.dtype(dtype).kind == "c":
+        vals = vals + 1j * rng.standard_normal((dim, k))
+        diag = diag + 1j * rng.standard_normal(dim)
+    pad = rng.random((dim, k)) < 0.5
+    cols[pad] = np.broadcast_to(np.arange(dim, dtype=np.int32)[:, None],
+                                (dim, k))[pad]
+    vals[pad] = 0
+    return (torch.from_numpy(diag.astype(dtype)),
+            torch.from_numpy(cols), torch.from_numpy(vals.astype(dtype)))
+
+
+SRC_DTYPES = [(np.float64, 1e-13), (np.float32, 1e-5),
+              (np.complex128, 1e-13), (np.complex64, 1e-5)]
+
+
+@pytest.mark.parametrize("dtype,tol", SRC_DTYPES)
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("dim,k,extra", [(257, 7, 3 * 257), (100, 1, 5)])
+def test_longer_source_against_dense(dtype, tol, batch, dim, k, extra):
+    """y = diag x + A src with A the shard's (rows, len(src)) matrix: both
+    plain versions, from the padded arrays and from the sliced form,
+    against the dense product in float64 or complex128, for one vector
+    and a batch whose source rows sit at a pitch longer than a row."""
+    diag, cols, vals = _shard(dim, k, extra, dim + k, dtype)
+    rng = np.random.default_rng(7)
+    lead = () if batch is None else (batch,)
+    x = rng.standard_normal((*lead, dim))
+    wide = rng.standard_normal((*lead, dim + extra + 4))
+    if np.dtype(dtype).kind == "c":
+        x = x + 1j * rng.standard_normal(x.shape)
+        wide = wide + 1j * rng.standard_normal(wide.shape)
+    xt = torch.from_numpy(x.astype(dtype))
+    src = torch.from_numpy(wide.astype(dtype))[..., :dim + extra]
+    dense = np.zeros((dim, dim + extra), dtype=np.complex128)
+    np.add.at(dense, (np.repeat(np.arange(dim), k), cols.numpy().ravel()),
+              vals.numpy().astype(np.complex128).ravel())
+    want = diag.numpy().astype(np.complex128) * xt.numpy() + \
+        src.numpy().astype(np.complex128) @ dense.T
+    if np.dtype(dtype).kind != "c":
+        want = want.real
+    sliced = kernels.slice_ell(cols, vals)
+    for got in (kernels.ell_spmv(diag, cols, vals, xt, src=src),
+                kernels.ell_spmv_ref(diag, cols, vals, xt, src),
+                kernels.ell_spmv_sliced_ref(diag, sliced, xt, src)):
+        assert got.shape == xt.shape and got.dtype == xt.dtype
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=tol * np.abs(want).max())
+
+
+def test_sliced_form_of_columns_beyond_its_rows():
+    """A shard's columns run past its rows: the sliced form keeps them,
+    each row's nonzeros in k order, and its padding points at its own
+    rows; unsliced it gives back the padded matrix's nonzeros."""
+    diag, cols, vals = _shard(300, 9, 900, 3, np.float64)
+    sliced = kernels.slice_ell(cols, vals)
+    nz = vals != 0
+    assert sliced.nnz == int(nz.sum())
+    assert int(sliced.cols.max()) >= 300
+    assert bool((sliced.cols[sliced.vals == 0] < 300).all())
+    got = {}
+    lane = torch.arange(sliced.widths.numel() * C).view(-1, C)
+    lane = lane.repeat_interleave(sliced.widths.long(), 0).view(-1)
+    rows = sliced.perm.long()[lane[sliced.vals != 0]]
+    for r, c, v in zip(rows.tolist(), sliced.cols[sliced.vals != 0].tolist(),
+                       sliced.vals[sliced.vals != 0].tolist()):
+        got.setdefault(r, []).append((c, v))
+    for r in range(300):
+        assert got.get(r, []) == list(zip(cols[r][nz[r]].tolist(),
+                                          vals[r][nz[r]].tolist()))
+
+
+def test_source_of_the_wrong_shape_raises():
+    diag, cols, vals = _shard(50, 3, 20, 1, np.float64)
+    x = torch.zeros(2, 50, dtype=torch.float64)
+    for bad in (torch.zeros(2, 49, dtype=torch.float64),
+                torch.zeros(3, 70, dtype=torch.float64),
+                torch.zeros(70, dtype=torch.float64),
+                torch.zeros(70, 2, dtype=torch.float64).T):
+        with pytest.raises(ValueError, match="src"):
+            kernels.ell_spmv(diag, cols, vals, x, src=bad)

@@ -151,11 +151,25 @@ def test_grand_canonical_ftlm_sectors_match_jax(monkeypatch, factored):
                              getattr(jgf, q)(beta, mu)), q
 
 
-def test_grand_canonical_ftlm_mesh_raises():
-    _, model, _, _ = models(hubbard_chain_text(2, periodic=False))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tthermal.GrandCanonicalFTLM(model, 2, [1.0], mesh=object(),
-                                    device="cpu")
+def test_grand_canonical_ftlm_mesh_raises(tmp_path):
+    """``GrandCanonicalFTLM(mesh=...)`` once raised; it now row-shards
+    each large sector's FTLM recurrence over the mesh.  On a gloo world
+    of 2 ranks, every rank's sweep equals the single-device sweep from the
+    same blocks (the JAX package's own bar, tests/test_distributed.py:
+    629-660: 1e-8, the specific heat 1e-6)."""
+    from lanczosplusplus_tpu_torch.parallel.dryrun import hubbard_text
+    from torch_world import run_world
+
+    ranks = run_world(2, "torch_parallel_paths:grand_canonical", tmp_path)
+    _, model, _, _ = models(hubbard_text(4, 2, 2, periodic=0))
+    gf = tthermal.GrandCanonicalFTLM(model, 4, [0.5, 2.0], dense_cutoff=8,
+                                     num_vectors=8, steps=24, device="cpu")
+    for got in ranks:
+        for (beta, mu), values in got.items():
+            for q, value in values.items():
+                want = getattr(gf, q)(beta, mu)
+                tol = 1e-6 if q == "specific_heat" else 1e-8
+                assert abs(value - want) <= tol * max(abs(want), 1e-4), q
 
 
 def test_cuda_without_card_raises(monkeypatch):
