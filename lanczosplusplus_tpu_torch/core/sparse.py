@@ -5,7 +5,8 @@ ground-state and spectral paths: ``coo_to_ell``, ``one_spin_ell``,
 ``EllPart``, ``SpinFactorizedPart`` in its gather and dense forms,
 ``Hamiltonian`` with ``matvec``, the batched ``matmat_t`` and ``matmat``,
 ``densify_factors``, ``flatten_to_ell``, ``padded`` and ``to_dense``, and
-``flatten_to_ell_host``, ``apply_block_t`` and ``ell_spgemm``.  The
+``flatten_to_ell_host``, ``apply_block_t`` (and ``apply_vec``, its
+one-state form, for the solvers) and ``ell_spgemm``.  The
 reference stores each sector Hamiltonian as a CRS matrix (reference:
 src/Engine/DefaultSymmetry.h:54-57, src/Models/HubbardOneOrbital/
 HubbardHelper.h:75-103).
@@ -45,6 +46,7 @@ from lanczosplusplus_tpu_torch.config import numpy_dtype
 from lanczosplusplus_tpu_torch.core.basis import OneSpinBasis
 from lanczosplusplus_tpu_torch.core.combinatorics import binomial_table
 from lanczosplusplus_tpu_torch.ops import kernels
+from lanczosplusplus_tpu_torch.utils.progress import count, span
 
 DEFAULT_DENSE_FACTOR_BYTES = 2 << 30
 # one-spin hop maps at least this long build natively (the JAX package's
@@ -483,12 +485,24 @@ def flatten_to_ell_host(ham: Hamiltonian, multiple: int = 1):
     return diag, cols.astype(np.int32), vals
 
 
+def apply_vec(ham, x: torch.Tensor) -> torch.Tensor:
+    """H x for one (dim,) state, at the solver-to-apply boundary: a
+    ``hamiltonian.apply`` span, one row counted in ``hamiltonian.rows``."""
+    with span("hamiltonian.apply"):
+        count("hamiltonian.rows")
+        return ham.matvec(x)
+
+
 def apply_block_t(ham, xk: torch.Tensor) -> torch.Tensor:
     """Apply a Hamiltonian-like object to a batch-major (R, dim) block:
-    its ``matmat_t`` when it has one, else its ``matvec`` row by row."""
-    if hasattr(ham, "matmat_t"):
-        return ham.matmat_t(xk)
-    return torch.stack([ham.matvec(row) for row in xk])
+    its ``matmat_t`` when it has one, else its ``matvec`` row by row.  A
+    ``hamiltonian.apply`` span; the block's rows (1 for a (dim,) state)
+    are counted in ``hamiltonian.rows``."""
+    with span("hamiltonian.apply"):
+        count("hamiltonian.rows", xk.shape[0] if xk.dim() == 2 else 1)
+        if hasattr(ham, "matmat_t"):
+            return ham.matmat_t(xk)
+        return torch.stack([ham.matvec(row) for row in xk])
 
 
 def ell_spgemm(a_cols: torch.Tensor, a_vals: torch.Tensor,

@@ -50,7 +50,7 @@ from lanczosplusplus_tpu_torch.engine.spectral import (
     ContinuedFraction, ContinuedFractionCollection)
 from lanczosplusplus_tpu_torch.ops.refine import solve_pair
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
-from lanczosplusplus_tpu_torch.utils.progress import ProgressIndicator
+from lanczosplusplus_tpu_torch.utils.progress import ProgressIndicator, span
 
 
 def in_precision(t: torch.Tensor, real_dtype: torch.dtype) -> torch.Tensor:
@@ -91,7 +91,8 @@ class Engine:
         self.config = config or Config.from_input(inp)
         self.excited = inp.integer("Excited", default=0)
         self.parts = model.default_parts(inp)
-        self.basis = model.create_basis(self.parts)
+        with span("build.basis"):
+            self.basis = model.create_basis(self.parts)
         self._flat_ham = None
         # the float64 form the target sector's float32 form was cast from,
         # held for the ground state's refinement and dropped after it
@@ -319,9 +320,11 @@ class Engine:
         if "bf16cross" in self.inp.solver_options() \
                 and not self.config.use_complex:
             cross_dtype = torch.bfloat16
-        return factored_hamiltonian_or_none(
-            self.model, basis, parts, self._table_dtype,
-            device=self.config.device, warn=warn, cross_dtype=cross_dtype)
+        with span("build"), span("build.tables"):
+            return factored_hamiltonian_or_none(
+                self.model, basis, parts, self._table_dtype,
+                device=self.config.device, warn=warn,
+                cross_dtype=cross_dtype)
 
     def _log_solve(self, info):
         """Reference-style convergence report (Engine.h:624-639 prints
@@ -346,11 +349,16 @@ class Engine:
         densified where they fit a quarter of the free memory, so the
         matvec runs them as ``factor_matmul`` GEMMs; a factor too large
         stays in gather form, applied by ``perm_gather``.  The CPU keeps
-        the gather form.  The form taken is logged."""
-        ham = self.model.hamiltonian(basis, dtype=self._table_dtype,
-                                     device=self.config.device)
-        if self.config.device.type == "cuda":
-            ham = ham.densify_factors()
+        the gather form.  The form taken is logged.  The build is a
+        ``build`` span holding ``build.tables`` and ``build.densify``
+        (the basis is ``build.basis``, where it is made)."""
+        with span("build"):
+            with span("build.tables"):
+                ham = self.model.hamiltonian(basis, dtype=self._table_dtype,
+                                             device=self.config.device)
+            if self.config.device.type == "cuda":
+                with span("build.densify"):
+                    ham = ham.densify_factors()
         f = ham.factorized
         if f is not None:
             pairs = [(cols.shape[0], d is not None) for cols, d in
@@ -395,7 +403,8 @@ class Engine:
         if not hasattr(self, "_basis_cache"):
             self._basis_cache = {self.parts: self.basis}
         if parts not in self._basis_cache:
-            self._basis_cache[parts] = self.model.create_basis(parts)
+            with span("build.basis"):
+                self._basis_cache[parts] = self.model.create_basis(parts)
         return self._basis_cache[parts]
 
     def _cached_hamiltonian(self, parts):

@@ -26,6 +26,12 @@ read.  The tridiagonal eigensolves and the Boltzmann sums run on the host
 in float64, as in JAX.  The blocks are reckoned against the Krylov budget
 (half of the card's free memory) before they are made: R vectors, or an
 LTLM run's stored basis, that do not fit raise ``MemoryError``.
+
+An FTLM estimate is an ``ftlm.estimate`` span holding ``ftlm.recurrence``
+(the batched loop's launches), ``ftlm.read`` (the copies to the host,
+which wait for the card) and ``ftlm.host`` (the eigensolves and sums);
+``_schedule_ham``'s build is a ``build`` span holding ``build.basis``,
+``build.tables`` and ``build.densify`` (``utils/progress``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from lanczosplusplus_tpu_torch.config import real_dtype_of
 from lanczosplusplus_tpu_torch.core.sparse import apply_block_t
 from lanczosplusplus_tpu_torch.solver import lanczos as lz
+from lanczosplusplus_tpu_torch.utils.progress import span
 
 # rows of an operator's image LTLM makes at a time
 LTLM_CHUNK_ROWS = 16
@@ -162,7 +169,13 @@ def ftlm(ham, beta_grid, num_vectors: int = 32, steps: int = 80,
     `start_vectors` (dim, R), in flat order, replaces the random block: a
     complete orthonormal set makes the estimator exact.
     """
-    operators = operators or {}
+    with span("ftlm.estimate"):
+        return _ftlm(ham, beta_grid, num_vectors, steps, operators or {},
+                     seed, start_vectors, trace_dim)
+
+
+def _ftlm(ham, beta_grid, num_vectors, steps, operators, seed,
+          start_vectors, trace_dim) -> FTLMResult:
     if hasattr(ham, "inner") and hasattr(ham, "perm") and all(
             not (hasattr(op, "matmat") or hasattr(op, "matmat_t"))
             for op in operators.values()):
@@ -197,13 +210,23 @@ def ftlm(ham, beta_grid, num_vectors: int = 32, steps: int = 80,
                         for n in names]) if names else \
         V0.new_zeros((0, *V0.shape))
 
-    alphas, betas_l, dots = _ftlm_recurrence(ham, V0, Yops, steps)
+    with span("ftlm.recurrence"):
+        alphas, betas_l, dots = _ftlm_recurrence(ham, V0, Yops, steps)
     del V0, Yops
-    alphas = alphas.cpu().numpy().astype(np.float64)   # (M, R)
-    betas_l = betas_l.cpu().numpy().astype(np.float64)  # (M, R)
-    dots = dots.cpu().numpy()                           # (M, O, R)
+    with span("ftlm.read"):
+        alphas = alphas.cpu().numpy().astype(np.float64)   # (M, R)
+        betas_l = betas_l.cpu().numpy().astype(np.float64)  # (M, R)
+        dots = dots.cpu().numpy()                           # (M, O, R)
+    with span("ftlm.host"):
+        return _estimates(alphas, betas_l, dots, beta_grid, names, dim,
+                          num_vectors, steps, trace_dim)
 
-    # host: per-vector tridiagonal eigensolve + Boltzmann accumulation
+
+def _estimates(alphas, betas_l, dots, beta_grid, names, dim, num_vectors,
+               steps, trace_dim) -> FTLMResult:
+    """The thermal averages on the host from the recurrence's (M, R)
+    coefficients and (M, O, R) dots: per-vector tridiagonal eigensolve
+    and Boltzmann accumulation."""
     T = beta_grid.shape[0]
     nops = len(names)
     num_e = np.zeros(T)
@@ -354,19 +377,24 @@ def _schedule_ham(model, inp, device):
 
     device = resolve_device(device)
     parts = model.default_parts(inp)
-    basis = model.create_basis(parts)
     dtype = torch.complex128 if "useComplex" in inp.solver_options() \
         else torch.float64
-    ham = None
-    if "factored" in inp.solver_options():
-        from lanczosplusplus_tpu_torch.models.factored import (
-            factored_hamiltonian_or_none)
-        ham = factored_hamiltonian_or_none(model, basis, parts, dtype,
-                                           device=device)
-    if ham is None:
-        ham = model.hamiltonian(basis, dtype=dtype, device=device)
-        if device.type == "cuda":
-            ham = ham.densify_factors()
+    with span("build"):
+        with span("build.basis"):
+            basis = model.create_basis(parts)
+        ham = None
+        if "factored" in inp.solver_options():
+            from lanczosplusplus_tpu_torch.models.factored import (
+                factored_hamiltonian_or_none)
+            with span("build.tables"):
+                ham = factored_hamiltonian_or_none(model, basis, parts,
+                                                   dtype, device=device)
+        if ham is None:
+            with span("build.tables"):
+                ham = model.hamiltonian(basis, dtype=dtype, device=device)
+            if device.type == "cuda":
+                with span("build.densify"):
+                    ham = ham.densify_factors()
     return ham
 
 

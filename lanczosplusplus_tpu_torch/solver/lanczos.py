@@ -29,7 +29,14 @@ omega recurrence of selective reorthogonalization runs in float64 (the
 JAX package's runs in the state's real type).  The Krylov basis V is a
 (steps, dim) tensor; Gram-Schmidt passes run against its filled rows
 only.  Vectors are updated in place where that saves a dim-sized
-allocation.
+allocation.  The steps apply H through ``core/sparse.apply_vec`` and
+``apply_block_t``, the solver-to-apply boundary.
+
+Spans and counters (``utils/progress``): a solve is a ``lanczos.solve``
+span, a step of the single-vector loops a ``lanczos.step`` span (its
+omega recurrence ``lanczos.omega``) and one ``lanczos.steps``; every
+alpha or norm read to the host is one ``lanczos.host_reads``, every
+Gram-Schmidt pass one ``lanczos.reorth_passes``.
 
 Precision.  A float32 or complex64 solve floors its tolerance at 1e-6
 and comes back with its energies refined to the float64 bar
@@ -55,6 +62,8 @@ import scipy.linalg
 import torch
 
 from lanczosplusplus_tpu_torch.config import real_dtype_of
+from lanczosplusplus_tpu_torch.core.sparse import apply_block_t, apply_vec
+from lanczosplusplus_tpu_torch.utils.progress import count, span
 
 CPU_KRYLOV_BUDGET_BYTES = 6 << 30
 # elements of a basis stored below the compute type widened at a time
@@ -156,10 +165,12 @@ def _start_vector(ham, v0, seed: int) -> torch.Tensor:
 
 
 def _norm(w: torch.Tensor, mesh=None) -> float:
+    count("lanczos.host_reads")
     return _allnorm(w, mesh).item()
 
 
 def _alpha(v: torch.Tensor, w: torch.Tensor, mesh=None) -> float:
+    count("lanczos.host_reads")
     return _allsum(torch.vdot(v, w), mesh).real.item()
 
 
@@ -179,6 +190,7 @@ def _reorth_pass(V: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
     them, w and then the coefficients are rounded to V's type and the
     products summed in w's; V is widened a column chunk at a time, never
     whole.  With a mesh the coefficients sum over the ranks' rows."""
+    count("lanczos.reorth_passes")
     if V.dtype == w.dtype:
         coeffs = _allsum(V.conj() @ w, mesh)
         return w - coeffs @ V
@@ -252,47 +264,51 @@ def _lanczos_chunk(ham, V: torch.Tensor, carry: _Carry, js: range,
     mesh = _mesh(ham)
     alphas, betas, reorthed = [], [], 0
     for j in js:
-        V[j] = c.v
-        w = ham.matvec(c.v)
-        alpha = _alpha(c.v, w, mesh)
-        alphas.append(alpha)
-        if not selective:
-            w = _reorth(V[:j + 1], w, mesh)
-            betas.append(_norm(w, mesh))
-            reorthed += 1
-            c.v_prev, c.v = c.v, _next_vector(w, betas[-1])
-            continue
-        w.sub_(c.v, alpha=alpha).sub_(c.v_prev, alpha=c.beta_prev)
-        c.a_hist[j] = alpha
-        beta0 = _norm(w, mesh)
+        with span("lanczos.step"):
+            count("lanczos.steps")
+            V[j] = c.v
+            w = apply_vec(ham, c.v)
+            alpha = _alpha(c.v, w, mesh)
+            alphas.append(alpha)
+            if not selective:
+                w = _reorth(V[:j + 1], w, mesh)
+                betas.append(_norm(w, mesh))
+                reorthed += 1
+                c.v_prev, c.v = c.v, _next_vector(w, betas[-1])
+                continue
+            w.sub_(c.v, alpha=alpha).sub_(c.v_prev, alpha=c.beta_prev)
+            c.a_hist[j] = alpha
+            beta0 = _norm(w, mesh)
 
-        # beta_k omega_{k+1,i} = b_i omega_{k,i+1} + (a_i - a_k) omega_{k,i}
-        #   + b_{i-1} omega_{k,i-1} - b_{k-1} omega_{k-1,i}
-        omega_k = c.omega.copy()
-        omega_k[j] = 1.0
-        om_plus = np.append(omega_k[1:], 0.0)
-        om_minus = np.insert(omega_k[:-1], 0, 0.0)
-        b_minus = np.insert(c.b_hist[:-1], 0, 0.0)
-        num = (c.b_hist * om_plus + (c.a_hist - alpha) * omega_k
-               + b_minus * om_minus - c.beta_prev * c.omega_prev)
-        om_new = num / max(beta0, 1e-30)
-        om_new = om_new + np.where(om_new >= 0, eps1, -eps1)
-        om_new = np.where(idx < j, om_new, 0.0)
-        om_new[j] = eps1
+            with span("lanczos.omega"):
+                # beta_k omega_{k+1,i} = b_i omega_{k,i+1}
+                #   + (a_i - a_k) omega_{k,i} + b_{i-1} omega_{k,i-1}
+                #   - b_{k-1} omega_{k-1,i}
+                omega_k = c.omega.copy()
+                omega_k[j] = 1.0
+                om_plus = np.append(omega_k[1:], 0.0)
+                om_minus = np.insert(omega_k[:-1], 0, 0.0)
+                b_minus = np.insert(c.b_hist[:-1], 0, 0.0)
+                num = (c.b_hist * om_plus + (c.a_hist - alpha) * omega_k
+                       + b_minus * om_minus - c.beta_prev * c.omega_prev)
+                om_new = num / max(beta0, 1e-30)
+                om_new = om_new + np.where(om_new >= 0, eps1, -eps1)
+                om_new = np.where(idx < j, om_new, 0.0)
+                om_new[j] = eps1
+                need = c.force or np.abs(om_new).max() > eta
 
-        need = c.force or np.abs(om_new).max() > eta
-        if need:
-            w = _reorth(V[:j + 1], w, mesh)
-            om_new = np.where(idx <= j, eps1, 0.0)
-            reorthed += 1
-        c.force = need and not c.force
+            if need:
+                w = _reorth(V[:j + 1], w, mesh)
+                om_new = np.where(idx <= j, eps1, 0.0)
+                reorthed += 1
+            c.force = need and not c.force
 
-        beta = _norm(w, mesh)
-        c.b_hist[j] = beta
-        betas.append(beta)
-        c.v_prev, c.v = c.v, _next_vector(w, beta)
-        c.beta_prev = beta
-        c.omega_prev, c.omega = omega_k, om_new
+            beta = _norm(w, mesh)
+            c.b_hist[j] = beta
+            betas.append(beta)
+            c.v_prev, c.v = c.v, _next_vector(w, beta)
+            c.beta_prev = beta
+            c.omega_prev, c.omega = omega_k, om_new
     return c, alphas, betas, reorthed
 
 
@@ -472,16 +488,18 @@ def _plain_pass(ham, v0: torch.Tensor, steps: int, weights=None):
     acc = None if weights is None else torch.zeros_like(v0)
     mesh = _mesh(ham)
     for j in range(steps):
-        if acc is not None:
-            acc.add_(v, alpha=float(weights[j]))
-        w = ham.matvec(v)
-        alpha = _alpha(v, w, mesh)
-        w.sub_(v, alpha=alpha).sub_(v_prev, alpha=beta_prev)
-        beta = _norm(w, mesh)
-        alphas.append(alpha)
-        betas.append(beta)
-        v_prev, v = v, _next_vector(w, beta)
-        beta_prev = beta
+        with span("lanczos.step"):
+            count("lanczos.steps")
+            if acc is not None:
+                acc.add_(v, alpha=float(weights[j]))
+            w = apply_vec(ham, v)
+            alpha = _alpha(v, w, mesh)
+            w.sub_(v, alpha=alpha).sub_(v_prev, alpha=beta_prev)
+            beta = _norm(w, mesh)
+            alphas.append(alpha)
+            betas.append(beta)
+            v_prev, v = v, _next_vector(w, beta)
+            beta_prev = beta
     return (alphas, betas) if acc is None else acc
 
 
@@ -508,8 +526,6 @@ def tridiagonalize_plain_batched(ham, v0s, steps: int) -> list[LanczosResult]:
     (beta = 0) carries zeros onward, so its trailing coefficients are
     zero; when every row has, the remaining steps are not run.  Returns R
     ``LanczosResult`` (V None), each trimmed at its own breakdown."""
-    from lanczosplusplus_tpu_torch.core.sparse import apply_block_t
-
     V = torch.as_tensor(v0s, device=ham.device).to(ham.dtype).contiguous()
     rows = V.shape[0]
     steps = int(min(steps, ham.dim))
@@ -639,8 +655,18 @@ def lowest_states(ham, num_states: int = 1, seed: int = 7239443,
     The vectors stay in the form's type.
 
     Returns (evals, vecs) with vecs a (k, dim) tensor on the Hamiltonian's
-    device, or (evals, vecs, SolveInfo) with `return_info=True`.
+    device, or (evals, vecs, SolveInfo) with `return_info=True`.  The
+    solve is one ``lanczos.solve`` span.
     """
+    with span("lanczos.solve"):
+        return _lowest_states(ham, num_states, seed, max_steps, tol,
+                              krylov_budget_bytes, reorth, return_info,
+                              dense_fallback_dim, strict, refine, v0)
+
+
+def _lowest_states(ham, num_states, seed, max_steps, tol,
+                   krylov_budget_bytes, reorth, return_info,
+                   dense_fallback_dim, strict, refine, v0):
     def ret(evals, vecs, info):
         return (evals, vecs, info) if return_info else (evals, vecs)
 
@@ -652,12 +678,10 @@ def lowest_states(ham, num_states: int = 1, seed: int = 7239443,
             v0 = ham.to_inner(torch.as_tensor(v0, device=ham.device))
         if hasattr(refine, "inner"):
             refine = refine.inner
-        evals, vecs, info = lowest_states(
-            ham.inner, num_states=num_states, seed=seed,
-            max_steps=max_steps, tol=tol,
-            krylov_budget_bytes=krylov_budget_bytes, reorth=reorth,
-            return_info=True, dense_fallback_dim=dense_fallback_dim,
-            strict=strict, refine=refine, v0=v0)
+        evals, vecs, info = _lowest_states(
+            ham.inner, num_states, seed, max_steps, tol,
+            krylov_budget_bytes, reorth, True, dense_fallback_dim, strict,
+            refine, v0)
         return ret(evals, ham.to_flat(vecs), info)
 
     dim = ham.dim
