@@ -293,16 +293,20 @@ class Hamiltonian:
         generic ELL part are one batched ``ell_spmv`` launch (on the card
         from the part's sliced form), each dense one-spin factor one
         ``factor_matmul`` launch over the whole block; batched recurrences
-        keep their states in this layout."""
-        if self.ell is not None:
-            sliced = self.ell.sliced() if xk.is_cuda else None
-            y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals, xk,
-                                 sliced=sliced)
-        else:
-            y = self.diag * xk
+        keep their states in this layout.  The diagonal and ELL part run
+        in a ``hamiltonian.ell`` span, the factors in a
+        ``hamiltonian.factors`` span."""
+        with span("hamiltonian.ell"):
+            if self.ell is not None:
+                sliced = self.ell.sliced() if xk.is_cuda else None
+                y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals,
+                                     xk, sliced=sliced)
+            else:
+                y = self.diag * xk
         if self.factorized is not None:
             shape = (*xk.shape[:-1], *self.spin_shape)
-            self.factorized.apply_(xk.view(shape), y.view(shape))
+            with span("hamiltonian.factors"):
+                self.factorized.apply_(xk.view(shape), y.view(shape))
         return y
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:

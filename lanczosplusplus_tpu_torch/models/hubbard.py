@@ -31,6 +31,7 @@ from lanczosplusplus_tpu_torch.core import bits
 from lanczosplusplus_tpu_torch.core.basis import HubbardBasis
 from lanczosplusplus_tpu_torch.core.sparse import (
     Hamiltonian, hamiltonian_from_numpy, one_spin_ell)
+from lanczosplusplus_tpu_torch.utils.progress import count, span
 
 
 def directed_bonds(tmat: np.ndarray):
@@ -313,7 +314,9 @@ class HubbardModel:
     def hamiltonian(self, basis: HubbardBasis,
                     dtype: torch.dtype = torch.float64,
                     device="cpu") -> Hamiltonian:
-        """The sector Hamiltonian in gather form on `device`."""
+        """The sector Hamiltonian in gather form on `device`.  The
+        exchange's build is a ``build.exchange`` span, and its nonzero
+        entries (0 without J) are counted in ``build.exchange_entries``."""
         np_dtype = numpy_dtype(dtype)
         bonds = directed_bonds(self.hoppings)
         up_cols, up_vals = one_spin_ell(basis.up.words, basis.up.rank,
@@ -322,8 +325,11 @@ class HubbardModel:
                                         bonds, np_dtype)
         j_ell = None
         if self.jmat is not None:
-            j_ell = self._j_offdiagonal_coo(basis, np_dtype)
+            with span("build.exchange"):
+                j_ell = self._j_offdiagonal_coo(basis, np_dtype)
         ell_cols, ell_vals = j_ell if j_ell is not None else (None, None)
+        count("build.exchange_entries",
+              0 if ell_vals is None else int(np.count_nonzero(ell_vals)))
         return hamiltonian_from_numpy(
             self.diagonal(basis).astype(np_dtype), ell_cols, ell_vals,
             up_cols, up_vals, dn_cols, dn_vals, basis.spin_shape,
