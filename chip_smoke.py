@@ -8,7 +8,7 @@ Run from the repository root, with one CUDA card:
 Phases, each printing one line with its numbers:
 
 1. environment: the card, its power limit, torch and CUDA versions;
-2. build: the three hand-written CUDA kernels compiled from csrc/, with
+2. build: the four hand-written CUDA kernels compiled from csrc/, with
    each kernel's registers, shared memory and spills (which must be 0, for
    the complex, float32 and bf16-source instantiations of ell_spmv and
    perm_gather and the float32 and bf16 factor_matmul too) and the counts
@@ -92,7 +92,7 @@ Phases, each printing one line with its numbers:
    cuSPARSE; perm_gather carries P (b, r) pairs a thread, their sums in
    registers, and reads a column's tables once for all P), the
    20-site chain with 10 up and 2 down electrons (dim 35 103 640, the
-   184 756^2 up factor in gather form beside the dense 190^2 dn one; U=0
+   184 756^2 up factor and the 190^2 dn one in gather form; U=0
    against free fermions, U=4 against the plain versions), and under
    SolverOptions=factored, each against its flat form's E0 (phase 9's
    where phase 9 solved it) with the factored build timed apart from the
@@ -234,6 +234,15 @@ Phases, each printing one line with its numbers:
    single-device references a run is held against (the dry run's among
    them) and the timing of a kernel alone go uncounted
    (``kernels.uncounted``).
+17. spin_hop (``spin_hop_phase``), the one-spin hops of a real sector in
+   gather form, the path's kernel for them since the card keeps every
+   real factor in that form: the 14-site chain's 3432^2 maps in float64
+   and float32 at R = 1 and 16 and the 8-site chain's 70^2 ones (the
+   diagonal written in the same pass), the 12-site t-U-J ring's 924^2
+   maps and the 8-site FeAs sector's 1820^2 ones added into ell_spmv's y,
+   each against its plain version bit for bit, timed beside its bytes
+   bound, its plain version, and perm_gather's and factor_matmul's two
+   launches each.
 
 Every check raises on failure, so the exit code is non-zero.  Without a
 card, or without the package beside this script, it exits non-zero and
@@ -509,7 +518,7 @@ def plain_kernels():
     kernel path is held against on the card (the forms call the wrappers
     through the module).  No kernel launches in it."""
     from lanczosplusplus_tpu_torch.ops import kernels as K
-    saved = K.factor_matmul, K.ell_spmv, K.perm_gather
+    saved = K.factor_matmul, K.ell_spmv, K.perm_gather, K.spin_hop
 
     def factor_matmul(x, a, out=None, accumulate=False):
         y = K.factor_matmul_ref(x, a)
@@ -523,12 +532,12 @@ def plain_kernels():
 
     def ell_spmv(diag, cols, vals, x, sliced=None, src=None):
         return K.ell_spmv_ref(diag, cols, vals, x, src)
-    K.factor_matmul, K.ell_spmv, K.perm_gather = (
-        factor_matmul, ell_spmv, K.perm_gather_ref)
+    K.factor_matmul, K.ell_spmv, K.perm_gather, K.spin_hop = (
+        factor_matmul, ell_spmv, K.perm_gather_ref, K.spin_hop_ref)
     try:
         yield
     finally:
-        K.factor_matmul, K.ell_spmv, K.perm_gather = saved
+        K.factor_matmul, K.ell_spmv, K.perm_gather, K.spin_hop = saved
 
 
 class PlainForm:
@@ -573,8 +582,7 @@ def recurrence_both_ways(lz, K, ham, v0s, steps):
     both ways on the same block: (results through the kernels, results
     through the plain versions, wall seconds by path, worst difference of
     one apply of max |y|).  A plain turn must launch no kernel, a kernel
-    turn one batched launch a step of each factor_matmul form and, where
-    the operator has an ELL part, of ell_spmv."""
+    turn a step the launches of one batched apply (``apply_launches``)."""
     results, walls = {}, {"kernel": [], "plain": []}
     both = CheckedOperator(ham)
     for label in ("plain", "kernel", "both"):
@@ -587,9 +595,7 @@ def recurrence_both_ways(lz, K, ham, v0s, steps):
         torch.cuda.synchronize()
         walls.setdefault(label, []).append(time.perf_counter() - t)
         went = {n: K.LAUNCHES[n] - before[n] for n in before}
-        expect = {"factor_matmul": 2 * count,
-                  "ell_spmv": count if ham.ell is not None else 0,
-                  "perm_gather": 0}
+        expect = {n: count * k for n, k in apply_launches(ham).items()}
         check(went == (dict.fromkeys(went, 0) if label == "plain" else expect),
               f"a {label} recurrence of {count} steps launched {went}")
     return results["kernel"], results["plain"], walls, both.worst
@@ -822,6 +828,24 @@ def batched_factor_cases(results, gen, dev, sms, rows, szd, szu,
     del got, ref, y1, xb, yb, xf, yf, xt, yt, a_up, a_dn
 
 
+def apply_launches(ham) -> dict:
+    """The kernel launches one apply of a sector Hamiltonian makes, one
+    state or a block, by kernel, read off its form: one ell_spmv for an
+    ELL part; a factor_matmul for each dense one-spin factor (three for a
+    complex factor, whose planes the real kernel takes apart); one
+    spin_hop for its real factors in gather form; a perm_gather for each
+    complex factor in gather form."""
+    f = ham.factorized
+    dense = [] if f is None else [d for d in (f.up_dense, f.dn_dense)
+                                  if d is not None]
+    return {"factor_matmul": sum(3 if d.is_complex() else 1 for d in dense),
+            "ell_spmv": int(ham.ell is not None),
+            "perm_gather": 0 if f is None else
+            (f.up_gather is not None) + (f.dn_gather is not None),
+            "spin_hop": int(f is not None and (f.up_hop is not None
+                                               or f.dn_hop is not None))}
+
+
 def form_launches(form) -> dict:
     """The kernel launches predicted for one single-state matvec of a
     factored form, read off its structure, by form (the names
@@ -862,9 +886,9 @@ def launches_by_site():
     block-Kronecker apply's own products, within-block and CrossTerm
     ('within'), and its perm_gathers, the PermCrossTerms ('cross term');
     a tier's products ('tier'); a Kitaev apply's products ('kitaev'); a
-    one-spin apply's gathers ('one-spin up', the rows the identity, or
-    'one-spin dn') and dense factors ('one-spin dense'); any other
-    ('elsewhere').  Yields (launches by form, outermost calls by apply:
+    one-spin apply's perm_gathers ('one-spin up', the rows the identity,
+    or 'one-spin dn'), its spin_hop ('one-spin hop') and its dense
+    factors ('one-spin dense'); any other ('elsewhere').  Yields (launches by form, outermost calls by apply:
     'blockkron', 'tier', 'kitaev', 'one-spin')."""
     from lanczosplusplus_tpu_torch.core import blockkron, sparse
     from lanczosplusplus_tpu_torch.models import kitaev_factored
@@ -874,7 +898,8 @@ def launches_by_site():
              ("blockkron", "perm_gather"): "cross term",
              ("tier", "factor_matmul"): "tier",
              ("kitaev", "factor_matmul"): "kitaev",
-             ("one-spin", "factor_matmul"): "one-spin dense"}
+             ("one-spin", "factor_matmul"): "one-spin dense",
+             ("one-spin", "spin_hop"): "one-spin hop"}
 
     def apply(fn, site):
         def wrapped(*args, **kwargs):
@@ -911,7 +936,8 @@ def launches_by_site():
                 "kitaev"),
                (sparse.SpinFactorizedPart, "apply_", apply, "one-spin"),
                (K, "factor_matmul", kernel, "factor_matmul"),
-               (K, "perm_gather", kernel, "perm_gather"))
+               (K, "perm_gather", kernel, "perm_gather"),
+               (K, "spin_hop", kernel, "spin_hop"))
     saved = [(owner, attr, getattr(owner, attr))
              for owner, attr, _, _ in patches]
     for owner, attr, wrap, arg in patches:
@@ -1008,14 +1034,18 @@ def one_spin_gather_cases(gen, form, label):
     """perm_gather's cases on a float64 sector's one-spin factors in
     gather form (`form`: a Hamiltonian after
     ``densify_factors(max_bytes=0)``; `label`: its size, as "14-site"),
-    up form (rows the identity) and dn form (columns the identity), on
+    through the padded maps transposed (perm_gather's tables, which a
+    complex sector's gather form keeps; a real one takes spin_hop), up
+    form (rows the identity) and dn form (columns the identity), on
     random states, one (R = 1) and a block of 14 (R = 14): yields (case
     label, x, y0, tables), made one at a time."""
     f = form.factorized
     szd, szu = form.spin_shape
-    dev = f.up_gather[0].device
+    dev = f.up_cols.device
     for side in ("up", "dn"):
-        idx, amp = f.up_gather if side == "up" else f.dn_gather
+        cols, vals = ((f.up_cols, f.up_vals) if side == "up"
+                      else (f.dn_cols, f.dn_vals))
+        idx, amp = cols.T.contiguous(), vals.T.contiguous()
         tables = ({"cs": idx, "beta": amp} if side == "up"
                   else {"rs": idx, "a": amp})
         for rows in (1, 14):
@@ -1075,7 +1105,8 @@ def factored_phase(dev, gen, results, refs):
         say(f"  {label}: launches by form, counted at their call sites, "
             f"{forms}; applies {applies}")
         check(sum(forms.values()) == counts["factor_matmul"]
-              + counts["perm_gather"] and "elsewhere" not in forms
+              + counts["perm_gather"] + counts["spin_hop"]
+              and "elsewhere" not in forms
               and counts["ell_spmv"] == 0,
               f"{label}: launches {counts}, by form {forms}")
         if want_forms is not None:
@@ -1119,7 +1150,10 @@ def factored_phase(dev, gen, results, refs):
     model = build_model(inp, Geometry(inp))
     basis = model.create_basis(model.default_parts(inp))
     ham = model.hamiltonian(basis, dtype=f64, device=dev)
-    gform, dform = ham.densify_factors(max_bytes=0), ham.densify_factors()
+    # the dense form by an explicit budget: the card's own choice is the
+    # gather form
+    gform = ham.densify_factors(max_bytes=0)
+    dform = ham.densify_factors(max_bytes=1 << 40)
     f = gform.factorized
     check(f.up_dense is None and f.dn_dense is None
           and dform.factorized.up_dense is not None, "14-site forms")
@@ -1140,10 +1174,10 @@ def factored_phase(dev, gen, results, refs):
         f"{info.steps}, matvecs {matvecs}, solve {wall:.3f} s, launches "
         f"{counts}")
     run_record("14-site gather form", counts, forms, applies,
-               {"one-spin up": matvecs, "one-spin dn": matvecs})
+               {"one-spin hop": matvecs})
     check(matvecs > 0 and info.converged, "14-site gather form: no apply "
                                           "or unconverged")
-    agree("14-site gather form against phase 5's dense form",
+    agree("14-site gather form against phase 5's E0",
           float(evals[0]), refs["e0_u4"])
     step_ms("14-site, dense factors against gather form",
             (("dense", dform), ("gather", gform)), vecs[0].contiguous())
@@ -1170,17 +1204,19 @@ def factored_phase(dev, gen, results, refs):
         fz = eng.hamiltonian.factorized
         matvecs = applies.get("one-spin", 0)
         say(f"phase 10 20-site U={u}, N_up {nup}, N_dn {ndn}: dim "
-            f"{eng.basis.size}, up factor {(fz.up_cols.shape[0],) * 2} in "
-            f"gather form, dn "
-            f"factor {tuple(fz.dn_dense.shape)} dense, steps "
+            f"{eng.basis.size}, up factor {(fz.up_cols.shape[0],) * 2} and "
+            f"dn factor {(fz.dn_cols.shape[0],) * 2} in gather form (the "
+            f"up rows read in place: too long to stage), steps "
             f"{eng.solve_info.steps}, matvecs {matvecs}, E0 "
             f"{eng.ground_energy!r}, time to E0 {wall:.3f} s, launches "
             f"{counts}, peak device memory "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         check(eng.basis.size == 35_103_640 and fz.up_dense is None
-              and fz.dn_dense is not None, "20-site forms")
+              and fz.dn_dense is None
+              and not K.spin_hop_plan(fz.up_cols.shape[0], 8, True).stage,
+              "20-site forms")
         run_record(f"20-site U={u}", counts, forms, applies,
-                   {"one-spin up": matvecs, "one-spin dense": matvecs})
+                   {"one-spin hop": matvecs})
         check(matvecs > 0, "20-site: no apply")
         if u == 0:
             agree("20-site U=0 against free fermions", eng.ground_energy,
@@ -1547,7 +1583,8 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
         say(f"  E0 against {want!r}: rel err {err_e0:.3e}")
         check(err_e0 <= TOL_E0, f"{label}: E0 off by {err_e0:.3e}")
         check(counts == {"factor_matmul": 0, "ell_spmv": seen["applies"],
-                         "perm_gather": 0} and seen["applies"] > 0,
+                         "perm_gather": 0, "spin_hop": 0}
+              and seen["applies"] > 0,
               f"{label}: launches {counts}, block matvecs {seen['applies']}")
         check(eng.eigenvector(0).device.type == "cuda",
               f"{label}: eigenvector not on the card")
@@ -1578,8 +1615,8 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     text = hubbard_chain_text(14, 4, 4, 4, periodic=0)
     flat = flat_e0(label, text)
     check(flat.basis.size == 1_002_001
-          and tuple(flat.hamiltonian.factorized.up_dense.shape)
-          == (1001, 1001), f"{label}: dim {flat.basis.size}")
+          and flat.hamiltonian.factorized.up_cols.shape[0] == 1001,
+          f"{label}: dim {flat.basis.size}")
     eng, kept = blocks_run(label, "reflection blocks",
                            text + "UseReflectionSymmetry=1\n",
                            flat.ground_energy)
@@ -1651,7 +1688,8 @@ def symmetry_phase(dev, gen, results, refs, ell_case):
     check(eng.projected_purity >= 1 - 1e-8,
           f"{label}: purity {eng.projected_purity!r}")
     check(counts == {"factor_matmul": 4 * seen["applies"], "ell_spmv": 0,
-                     "perm_gather": 0} and seen["applies"] > 0,
+                     "perm_gather": 0, "spin_hop": 0}
+          and seen["applies"] > 0,
           f"{label}: launches {counts}, projected matvecs "
           f"{seen['applies']} (4 products each)")
     half = form.hl.shape[0]
@@ -1775,9 +1813,9 @@ def estimator_phase(dev, gen, results, refs, ell_case):
         res, out, _, _, wall = run_tool(ed_main, text_a, ["--ftlm"], dev)
     counts = counted("12a ed --ftlm 14-site")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    check(counts == {"factor_matmul": 2 * steps, "ell_spmv": 0,
-                     "perm_gather": 0},
-          f"12a launches {counts}, predicted factor_matmul {2 * steps}")
+    check(counts == {"factor_matmul": 0, "ell_spmv": 0, "perm_gather": 0,
+                     "spin_hop": steps},
+          f"12a launches {counts}, predicted spin_hop {steps}")
     check(res.num_vectors == rows and res.steps == steps
           and f"method=FTLM R={rows} M={steps}" in out,
           f"12a ran R={res.num_vectors}, M={res.steps}")
@@ -1832,7 +1870,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
         f"weigh nothing)")
     check(e0 - 1e-9 * abs(e0) <= e_cold <= e0 + bound + 1e-9 * abs(e0),
           f"12b LTLM energy {e_cold!r} outside [E0, E0 + {bound:.3e}]")
-    check(counts["factor_matmul"] > 0, f"12b launches {counts}")
+    check(counts["spin_hop"] > 0, f"12b launches {counts}")
 
     # -- 12c: lanczos -g c --kpm, 14 sites, 512 moments ----------------------
     moments = 512
@@ -1848,7 +1886,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
         f"{wall:.3f} s, host operator maps and scatters {maps_s} s, moment "
         f"loops (bounds, {moments // 2} applies, host read) {loop_s} s, "
         f"launches {counts}")
-    check(len(maps_s) == len(loop_s) == 2 and counts["factor_matmul"] > 0,
+    check(len(maps_s) == len(loop_s) == 2 and counts["spin_hop"] > 0,
           f"12c: {len(loop_s)} moment loops, launches {counts}")
     kpmdos = np.loadtxt(files["input.inp0.kpmdos"].splitlines())
     coll = files["input.inp0.comb"]
@@ -1972,7 +2010,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
         f"source runs {src_s} s, destination runs and operator rows on the "
         f"card {dst_s} s; launches {counts}, peak device memory {peak:.2f} "
         f"GB")
-    check(counts["ell_spmv"] > 0 and counts["factor_matmul"] > 0,
+    check(counts["ell_spmv"] > 0 and counts["spin_hop"] > 0,
           f"12e launches {counts}")
     check(len(maps_s) == len(dst_s) == 2 and len(src_s) == 1,
           f"12e phases {maps_s}, {src_s}, {dst_s}")
@@ -2071,7 +2109,7 @@ def estimator_phase(dev, gen, results, refs, ell_case):
     (gf, _, _, _, _), (gf_cpu, _, _, _, _), counts = both(
         "thermal --ftlm 6 sites", thermal_main,
         hub6 + "FTLMVectors=8\nFTLMSteps=30\n", ["-b", "1.3", "--ftlm"],
-        ("factor_matmul",))
+        ("spin_hop",))
     agree("thermal --ftlm 6 sites (ln Z, density, energy, Cv)",
           [gf.log_partition(1.3, 0.0), gf.density(1.3, 0.0),
            gf.energy(1.3, 0.0), gf.specific_heat(1.3, 0.0)],
@@ -2087,12 +2125,12 @@ def estimator_phase(dev, gen, results, refs, ell_case):
     feas = feas_ring_text(4, 2, 2)
     (cf1, _, _, _, _), (cf1_cpu, _, _, _, _), counts = both(
         "dynamics1 4-site FeAs", dynamics1_main, feas, ["-r", "1"],
-        ("factor_matmul", "ell_spmv"))
+        ("spin_hop", "ell_spmv"))
     omegas = np.linspace(-2.0, 8.0, 201)
     agree("dynamics1 4-site FeAs G(omega + 0.1i)",
           cf1.evaluate(omegas, 0.1), cf1_cpu.evaluate(omegas, 0.1), 1e-8)
     (qz, _, _, _, _), (qz_cpu, _, _, _, _), counts = both(
-        "qpz 6-site chain", qpz_main, hub6, ["--ratio"], ("factor_matmul",))
+        "qpz 6-site chain", qpz_main, hub6, ["--ratio"], ("spin_hop",))
     # both ground states are Lanczos vectors converged to a 1e-10 residual
     agree("qpz 6-site chain Z(k)", [z for _, z in qz],
           [z for _, z in qz_cpu], 1e-8)
@@ -2248,7 +2286,7 @@ def cli_phase(dev, refs, ell_case):
     # -- 13a, 13b: consistency --tinf past the dense branch ----------------
     for label, text, e0, tinf, kernel in (
             ("13a consistency --tinf 14-site U=4", hubbard_chain_text(14, 4),
-             refs["e0_u4"], 4.0 * 7 * 7 / 14, "factor_matmul"),
+             refs["e0_u4"], 4.0 * 7 * 7 / 14, "spin_hop"),
             ("13b consistency --tinf 24-site Heisenberg",
              heisenberg_ring_text(24), refs["24-site Heisenberg ring"],
              24 * (0 - 24) / (4.0 * 24 * 23), "ell_spmv")):
@@ -2342,7 +2380,7 @@ def cli_phase(dev, refs, ell_case):
         f"{wall:.3f} s, launches {runs[label]}")
     check(same, "13e: the Ainur form parses to other labels")
     check(e_err <= 1e-12, f"13e E0 rel err {e_err:.3e}")
-    check(runs[label]["factor_matmul"] > 0, f"13e launches {runs[label]}")
+    check(runs[label]["spin_hop"] > 0, f"13e launches {runs[label]}")
     del eng
 
     # -- 13f: sector files, card against CPU ---------------------------------
@@ -2507,7 +2545,7 @@ def cli_phase(dev, refs, ell_case):
         f"(tolerance 1e-8, plain {plain_s:.3f} s)")
     check(peak <= reckoned, f"13h peak {peak} above the reckoning {reckoned}")
     check(diff <= 1e-8, f"13h kernel vs plain energies {diff:.3e}")
-    check(runs[label]["factor_matmul"] > 0, f"13h launches {runs[label]}")
+    check(runs[label]["spin_hop"] > 0, f"13h launches {runs[label]}")
     del ham_h, block
     torch.cuda.empty_cache()
     return runs, native_line
@@ -2680,14 +2718,15 @@ def lowprec_phase(dev, gen, results, refs, ell_case):
         f"{[float(a) for a in alphas[:5]]!r}, beta "
         f"{[float(b) for b in betas[:5]]!r}; {len(alphas)} steps")
     forms = runs["a"]
-    check(forms.get("factor_matmul f32", 0) > 0
-          and forms.get("factor_matmul f64", 0) > 0,
+    check(forms.get("spin_hop f32", 0) > 0
+          and forms.get("spin_hop f64", 0) > 0,
           f"14a: the float32 solve and its float64 refinement launched "
           f"{forms}")
     ham14 = eng.hamiltonian
-    dense = getattr(ham14.factorized.up_dense, "dtype", None)
-    check(ham14.dtype == f32 and dense == f32,
-          f"14a: the solved form is {ham14.dtype}, its dense factors {dense}")
+    hop = getattr(ham14.factorized.up_hop, "vals", None)
+    check(ham14.dtype == f32 and getattr(hop, "dtype", None) == f32,
+          f"14a: the solved form is {ham14.dtype}, its hop tables "
+          f"{getattr(hop, 'dtype', None)}")
     check(eng._ham64 is None, "14a: the float64 form outlived the solve")
     model14, basis14 = eng.model, eng.basis
     del eng
@@ -3229,8 +3268,8 @@ def float32_paths_phase(dev, gen, results, refs, ell_case):
     check(len(combs) == nsite and len(rec) == 2 and batched[label]
           == 2 * steps8, f"{label}: {len(combs)} .comb files, {len(rec)} "
                          f"recurrences, {batched[label]} batched applies")
-    check(forms.get("factor_matmul f32", 0) >= 2 * batched[label]
-          and forms.get("factor_matmul f64", 0) > 0
+    check(forms.get("spin_hop f32", 0) >= batched[label]
+          and forms.get("spin_hop f64", 0) > 0
           and not any(k.startswith("ell_spmv") for k in forms),
           f"{label}: launches {forms}")
     e0_err = max(abs(x - e0) for x in cf_energies(combs)) / abs(e0)
@@ -3356,9 +3395,9 @@ def float32_paths_phase(dev, gen, results, refs, ell_case):
     beside(label, wall, peak, ref["wall"], None, "phase 12c")
     check(dos_err <= density_bar, f"{label}: .kpmdos off by {dos_err:.3e}")
     check(mom_err <= 1e-3, f"{label}: moments off by {mom_err:.3e}")
-    check(runs[label].get("factor_matmul f32", 0) > 0
-          and "factor_matmul f64" in runs[label], f"{label}: launches "
-                                                  f"{runs[label]}")
+    check(runs[label].get("spin_hop f32", 0) > 0
+          and "spin_hop f64" in runs[label], f"{label}: launches "
+                                             f"{runs[label]}")
     del eng, gs, phi, ham
     torch.cuda.empty_cache()
 
@@ -3391,7 +3430,7 @@ def float32_paths_phase(dev, gen, results, refs, ell_case):
     beside(label, wall32, peak32, wall64, peak64, "this phase")
     check(ftlm_err <= density_bar, f"--ftlm-dos float32 off by "
                                    f"{ftlm_err:.3e}")
-    check(runs[label].get("factor_matmul f32", 0) > 0,
+    check(runs[label].get("spin_hop f32", 0) > 0,
           f"{label}: launches {runs[label]}")
 
     # the batched FTLM recurrence on the 14-site form, R = 16, 80 steps
@@ -3425,7 +3464,7 @@ def float32_paths_phase(dev, gen, results, refs, ell_case):
     beside(label, *recs["f32"][1], *recs["f64"][1], "this phase")
     check(e_err <= 1e-4 and lz_err <= 1e-4, f"ftlm float32: energies "
                                             f"{e_err:.3e}, ln Z {lz_err:.3e}")
-    check(runs[label] == {"factor_matmul f32": 2 * steps_f},
+    check(runs[label] == {"spin_hop f32": steps_f},
           f"{label}: launches {runs[label]}")
     del block, res
     torch.cuda.empty_cache()
@@ -4154,6 +4193,95 @@ def distributed_phase(dev, results, refs) -> dict:
     return dict(forms=forms, runs=runs, shard_ell_ms=shard_ell_ms)
 
 
+def spin_hop_phase(dev, gen, results):
+    """17. spin_hop (``csrc/spin_hop.cu``) against its plain version on
+    the card, bit for bit, on the main path's one-spin maps: the 14-site
+    chain's 3432^2 maps in float64 and float32 at R = 1 and 16 and the
+    8-site chain's 70^2 ones, the diagonal written in the same pass, and
+    the 12-site t-U-J ring's 924^2 maps and the 8-site FeAs sector's
+    1820^2 ones added into ell_spmv's y of the diagonal and the exchange
+    or interaction ELL (R = 1).  Each is
+    timed beside its bytes bound (x read and y written once a member, the
+    diagonal or y read once), its plain version and the two forms the
+    sector took before: perm_gather's two launches over the padded maps
+    and factor_matmul's two over the dense factors, each after the
+    diagonal's elementwise pass where spin_hop writes the diagonal."""
+    from lanczosplusplus_tpu_torch.geometry import Geometry
+    from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
+    from lanczosplusplus_tpu_torch.models import build_model
+    from lanczosplusplus_tpu_torch.ops import kernels as K
+
+    f64, f32 = torch.float64, torch.float32
+    for text, label, cases in (
+            (hubbard_chain_text(14, 4), "14-site",
+             ((f64, 1), (f64, 16), (f32, 1), (f32, 16))),
+            (hubbard_chain_text(8, 4), "8-site", ((f64, 1),)),
+            (super_hubbard_text(12), "12-site t-U-J", ((f64, 1),)),
+            (feas_ring_text(8, 4, 4), "8-site FeAs", ((f64, 1),))):
+        inp = parse_input(text)
+        model = build_model(inp, Geometry(inp))
+        basis = model.create_basis(model.default_parts(inp))
+        for dtype, rows in cases:
+            ham = model.hamiltonian(basis, dtype=dtype, device=dev)
+            f = ham.factorized
+            dense = ham.densify_factors(max_bytes=1 << 40).factorized
+            szd, szu = ham.spin_shape
+            x = torch.randn((rows, szd, szu), generator=gen, device=dev,
+                            dtype=dtype)
+            diag = ham.diag if ham.ell is None else None
+            if diag is None:
+                y0 = K.ell_spmv(ham.diag, ham.ell.cols, ham.ell.vals,
+                                x.view(rows, -1),
+                                sliced=ham.ell.sliced()).view_as(x)
+            else:
+                y0 = torch.zeros_like(x)
+            got = K.spin_hop(x, y0.clone(), diag=diag, up=f.up_hop,
+                             dn=f.dn_hop)
+            ref = K.spin_hop_ref(x, y0.clone(), diag, f.up_hop, f.dn_hop)
+            y1 = y0.clone()
+            gathers = ((f.up_cols.T.contiguous(), f.up_vals.T.contiguous()),
+                       (f.dn_cols.T.contiguous(), f.dn_vals.T.contiguous()))
+
+            def diag_pass():
+                if diag is not None:
+                    torch.mul(diag.view(szd, szu), x, out=y1)
+
+            def by_perm_gather():
+                diag_pass()
+                K.perm_gather(x, y1, cs=gathers[0][0], beta=gathers[0][1])
+                K.perm_gather(x, y1, rs=gathers[1][0], a=gathers[1][1])
+
+            def by_factor_matmul():
+                diag_pass()
+                K.factor_matmul(x.reshape(-1, szu), dense.up_dense,
+                                out=y1.view(-1, szu), accumulate=True)
+                K.factor_matmul(x.transpose(-1, -2), dense.dn_dense,
+                                out=y1.transpose(-1, -2), accumulate=True)
+            reps = 5 if rows > 1 else 20
+            pg_ms = median_ms(by_perm_gather, reps)
+            fm_ms = median_ms(by_factor_matmul, reps)
+            case = (f"{DTYPE_TAGS[dtype]} {label} one-spin hops {szd}x{szu}, "
+                    f"R={rows}" + ("" if diag is not None
+                                   else ", added to ell_spmv's y"))
+            nbytes = x.element_size() * ham.dim * (2 * rows + 1)
+            record(results, "spin_hop", case, got, ref, 0.0,
+                   (lambda: K.spin_hop(x, y1, diag=diag, up=f.up_hop,
+                                       dn=f.dn_hop),
+                    lambda: K.spin_hop_ref(x, y1, diag, f.up_hop, f.dn_hop),
+                    None),
+                   1e3 * nbytes / PEAK_BYTES, "bytes",
+                   perm_gather_pair_ms=pg_ms, factor_matmul_pair_ms=fm_ms,
+                   nnz_up=f.up_hop.nnz, nnz_dn=f.dn_hop.nnz,
+                   plan=K.spin_hop_plan(szu, x.element_size(), True)._asdict())
+            say(f"  spin_hop {case}: bit-equal {torch.equal(got, ref)}; "
+                f"the forms it replaces: perm_gather's two launches "
+                f"{pg_ms:.4f} ms, factor_matmul's two {fm_ms:.4f} ms (with "
+                f"the diagonal's pass where spin_hop writes the diagonal); "
+                f"nonzero entries up {f.up_hop.nnz}, dn {f.dn_hop.nnz}")
+            del ham, f, dense, x, y0, y1, got, ref, gathers
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     started = time.perf_counter()
     # -- 1. environment -------------------------------------------------
@@ -4201,7 +4329,16 @@ def main() -> None:
         # tile rows and columns, X k-major, A k-major
         f32 = re.search(r"factor_matmul_simt_kernelILi(\d+)ELi(\d+)ELb(\d)"
                         r"ELb(\d)E", r["name"])
-        if gather:
+        # the type, rows a block, the diagonal written, the rows staged
+        hop = re.search(r"spin_hop_kernelI([df])Li(\d+)ELb(\d)ELb(\d)E",
+                        r["name"])
+        if hop:
+            tag = {"d": "f64", "f": "f32"}[hop.group(1)]
+            label = (f"spin_hop {tag}, {hop.group(2)} rows a block, the "
+                     f"diagonal {'written' if hop.group(3) == '1' else 'added to'}"
+                     f", rows {'staged' if hop.group(4) == '1' else 'in place'}")
+            built.add(f"spin_hop {tag}")
+        elif gather:
             tag = GATHER_TAGS[gather.group(1)]
             side = ("row tables" if gather.group(2) == "1"
                     else "rows the identity")
@@ -4247,11 +4384,11 @@ def main() -> None:
               f"{r['name']} spills registers")
     check({"ell_spmv f64", "ell_spmv f32", "ell_spmv c128",
            "ell_spmv c64", "factor_matmul f32", "factor_matmul bf16 f32",
-           "factor_matmul bf16 f64"} | {
+           "factor_matmul bf16 f64", "spin_hop f64", "spin_hop f32"} | {
                f"perm_gather {t} {side}" for t in GATHER_TAGS.values()
                for side in ("row tables", "rows the identity")} <= built,
-          f"ell_spmv, perm_gather and float32 and bf16 factor_matmul "
-          f"instantiations: {built}")
+          f"ell_spmv, perm_gather, spin_hop and float32 and bf16 "
+          f"factor_matmul instantiations: {built}")
     for opcode, what in (("DMMA", "the float64 factor_matmul"),
                          ("HGMMA", "the bf16 factor_matmul")):
         found = build.sass_opcode_counts(lib, opcode)
@@ -4266,7 +4403,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     say("phase 3 kernels: torch.backends.cuda.matmul.allow_tf32 = False")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {"factor_matmul": [], "ell_spmv": [], "perm_gather": []}
+    results = {"factor_matmul": [], "ell_spmv": [], "perm_gather": [],
+               "spin_hop": []}
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt, tol, shapes in (
@@ -4546,13 +4684,16 @@ def main() -> None:
         inp = parse_input(text)
         model = build_model(inp, Geometry(inp))
         config = Config.from_input(inp, device=dev)
-        launches = K.LAUNCHES["factor_matmul"]
+        launches = K.LAUNCHES["spin_hop"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         engine = Engine(model, inp, config=config, v0=v0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        matvecs = (K.LAUNCHES["factor_matmul"] - launches) // 2
+        # the sector's one-spin factors take one spin_hop launch a matvec
+        check(apply_launches(engine.hamiltonian)["spin_hop"] == 1,
+              f"the main path's form: {apply_launches(engine.hamiltonian)}")
+        matvecs = K.LAUNCHES["spin_hop"] - launches
         return engine, wall, matvecs
 
     nsite = 14
@@ -4583,7 +4724,7 @@ def main() -> None:
     # what phase 10 holds the factored forms and the gather apply against
     refs = {"e0_u4": eng_u4.ground_energy, "v0_u4": v0_u4,
             "ham_u4": eng_u4.hamiltonian}
-    check(K.LAUNCHES["factor_matmul"] > 0, "factor_matmul never launched")
+    check(K.LAUNCHES["spin_hop"] > 0, "spin_hop never launched")
 
     v0_she = lz.random_start_vector(she_basis.size, SEED, torch.float64,
                                     dev)
@@ -4598,14 +4739,14 @@ def main() -> None:
     launches = dict(K.LAUNCHES)
     say(f"main path kernel launches: {launches}; sliced forms made "
         f"{dict(K.SLICINGS)}")
-    for name in ("factor_matmul", "ell_spmv"):
+    for name in ("spin_hop", "ell_spmv"):
         check(launches[name] > 0, f"{name} was not launched on the main "
                                   f"path")
     # one ELL on the path (the SuperHubbardExtended J-ELL), sliced once
     check(K.SLICINGS == {"ell_spmv": 1},
           f"sliced forms made on the main path: {K.SLICINGS}")
     check(launches["perm_gather"] == 0,
-          "the dense one-spin factors' path launched perm_gather")
+          "the one-spin factors' path launched perm_gather")
 
     # -- 7. the same solves with the plain versions ------------------------
     say(f"phase 7 starts at {time.perf_counter() - started:.1f} s")
@@ -4668,12 +4809,12 @@ def main() -> None:
             f"memory {peak:.2f} GB")
         check(len(combs) == nsite and len(rec) == 2,
               f"{len(combs)} .comb files, {len(rec)} recurrences")
-        # ground state: two GEMMs a matvec; fleet: two sectors, two
-        # batched GEMMs a step, no ELL part in this model
-        expect = 2 * gs_matvecs + 2 * 2 * steps8
-        check(counts == {"factor_matmul": expect, "ell_spmv": 0,
-                         "perm_gather": 0},
-              f"U={u} DOS launches {counts}, predicted factor_matmul "
+        # ground state: one spin_hop a matvec; fleet: two sectors, one
+        # batched spin_hop a step, no ELL part in this model
+        expect = gs_matvecs + 2 * steps8
+        check(counts == {"factor_matmul": 0, "ell_spmv": 0,
+                         "perm_gather": 0, "spin_hop": expect},
+              f"U={u} DOS launches {counts}, predicted spin_hop "
               f"{expect}, ell_spmv 0")
         # what phase 15 holds its float32 fleets against
         refs[f"dos_u{u}"] = dict(combs=combs, wall=wall, peak=peak, rec=rec)
@@ -4768,7 +4909,7 @@ def main() -> None:
                 for c in (combs[0], serial))
         diffs[delta] = np.abs(a - b).max() / np.abs(b).max()
     say(f"phase 8 U=4 site 0, batched against serial spectral_function "
-        f"({K.LAUNCHES['factor_matmul']} factor_matmul launches): weights "
+        f"({K.LAUNCHES['spin_hop']} spin_hop launches): weights "
         f"{[cf.weight for cf in serial.items]}, first 6 alphas max abs diff "
         f"{lead:.3e}, -Im G/pi max diff of its maximum: {diffs[1.0]:.3e} at "
         f"delta 1, {diffs[0.1]:.3e} at delta 0.1")
@@ -4777,7 +4918,7 @@ def main() -> None:
           "serial and batched weights differ")
     check(lead <= 1e-8 and diffs[1.0] <= 1e-8 and diffs[0.1] <= 1e-6,
           f"batched vs serial: alphas {lead:.3e}, function {diffs}")
-    check(K.LAUNCHES["factor_matmul"] == 2 * 2 * steps8,
+    check(K.LAUNCHES["spin_hop"] == 2 * steps8,
           f"serial launches {dict(K.LAUNCHES)}")
     del eng8, combs, serial, gs
     torch.cuda.empty_cache()
@@ -4805,8 +4946,8 @@ def main() -> None:
         f"{wall:.3f} s, batched recurrences {rec} s = "
         f"{[round(1e3 * t / steps_she, 3) for t in rec]} ms per batched "
         f"step, launches {counts}")
-    expect = {"factor_matmul": 2 * mv_she + 2 * 2 * steps_she,
-              "ell_spmv": mv_she + 2 * steps_she, "perm_gather": 0}
+    expect = {"factor_matmul": 0, "ell_spmv": mv_she + 2 * steps_she,
+              "perm_gather": 0, "spin_hop": mv_she + 2 * steps_she}
     check("TSPCenter=0" in out8 and len(combs) == 12 and rows8 == [23, 23],
           f"TSPCenter fleet: {len(combs)} files, rows {rows8}")
     check(counts == expect, f"TSPCenter launches {counts}, predicted "
@@ -4893,7 +5034,7 @@ def main() -> None:
             check(abs(trace - 6) <= 1e-10, f"trace of <c^dag_j c_i> {trace!r}")
     check(dict(K.LAUNCHES) == before, "two_point launched a kernel")
     say(f"spectral path kernel launches: {spectral_launches}")
-    for name in ("factor_matmul", "ell_spmv"):
+    for name in ("spin_hop", "ell_spmv"):
         check(spectral_launches[name] > 0,
               f"{name} was not launched on the spectral path")
 
@@ -4903,10 +5044,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     flat_launches = {}   # run label -> launches of that run
 
-    def solve_flat(label, text, gemms, ells, golden=None, cases=()):
-        """One flat model through the Engine on the card: launches set to
-        0 before and read after and held against `gemms` and `ells`
-        launches a matvec, the host's build timed apart, E0 against
+    def solve_flat(label, text, factors, ells, golden=None, cases=()):
+        """One flat model through the Engine on the card, with `factors`
+        one-spin factors and `ells` ELL parts: launches set to 0 before
+        and read after and held against one apply's (``apply_launches``)
+        a matvec, the host's build timed apart, E0 against
         `golden` and against the plain versions from the same start
         vector; then ell_spmv on the model's own arrays for each
         (case label, batch) of `cases`.  Returns the engine."""
@@ -4949,9 +5091,14 @@ def main() -> None:
         matvecs = 0 if info.used_dense_fallback else 2 * info.steps - first
         width = ham.ell.cols.shape[1] if ham.ell is not None else 0
         solve_s = wall - sum(build_s) - basis_s
+        per = apply_launches(ham)
+        f = ham.factorized
+        sides = [] if f is None else [c.shape[0] for c in (f.up_cols,
+                                                          f.dn_cols)
+                                      if c is not None]
         say(f"phase 9 {label}: dim {dim}, {ham.dtype}, ELL K {width}, "
-            f"one-spin factors "
-            f"{None if ham.factorized is None else tuple(ham.factorized.up_dense.shape)}"
+            f"one-spin factors {sides} ({per['factor_matmul']} dense, "
+            f"{per['spin_hop']} spin_hop launch a matvec)"
             f", steps {info.steps}, matvecs {matvecs}, E0 "
             f"{engine.ground_energy!r}, time to E0 {wall:.3f} s = basis "
             f"{basis_s:.3f} + host build and transfer of the arrays "
@@ -4964,10 +5111,12 @@ def main() -> None:
         check(slicings == (1 if ells * matvecs else 0),
               f"{label}: {slicings} sliced forms made")
         refs[label] = engine.ground_energy
-        check(counts == {"factor_matmul": gemms * matvecs,
-                         "ell_spmv": ells * matvecs, "perm_gather": 0},
-              f"{label}: launches {counts}, predicted factor_matmul "
-              f"{gemms * matvecs}, ell_spmv {ells * matvecs}")
+        check(len(sides) == factors and per["ell_spmv"] == ells,
+              f"{label}: {len(sides)} one-spin factors, {per['ell_spmv']} "
+              f"ELL parts")
+        check(counts == {n: k * matvecs for n, k in per.items()},
+              f"{label}: launches {counts}, predicted "
+              f"{ {n: k * matvecs for n, k in per.items()} }")
         check(engine.eigenvector(0).device.type == "cuda"
               and engine.eigenvector(0).dtype == ham.dtype,
               f"{label}: eigenvector {engine.eigenvector(0).dtype}")
@@ -5087,9 +5236,9 @@ def main() -> None:
     eng9 = solve_flat("8-site two-orbital FeAs sector, 4 up 4 down",
                       feas_ring_text(8, 4, 4), 2, 1,
                       cases=(("f64 8-site FeAs interaction ELL", 1),))
-    check(eng9.basis.size == 3_312_400 and tuple(
-        eng9.hamiltonian.factorized.up_dense.shape) == (1820, 1820),
-        f"8-site FeAs: dim {eng9.basis.size}")
+    check(eng9.basis.size == 3_312_400
+          and eng9.hamiltonian.factorized.up_cols.shape[0] == 1820,
+          f"8-site FeAs: dim {eng9.basis.size}")
     del eng9
     torch.cuda.empty_cache()
     say(f"flat models' kernel launches: {flat_launches}")
@@ -5140,6 +5289,10 @@ def main() -> None:
     say(f"phase 16 starts at {time.perf_counter() - started:.1f} s")
     dist16 = distributed_phase(dev, results, dist_refs)
 
+    # -- 17. spin_hop at the main path's shapes -----------------------------
+    say(f"phase 17 starts at {time.perf_counter() - started:.1f} s")
+    spin_hop_phase(dev, gen, results)
+
     sources = {"factor_matmul": ("lanczosplusplus_tpu_torch/csrc/"
                                  "factor_matmul.cu",
                                  "lanczosplusplus_tpu/ops/pallas_kernels.py:47"),
@@ -5150,14 +5303,20 @@ def main() -> None:
                "perm_gather": ("lanczosplusplus_tpu_torch/csrc/perm_gather.cu",
                                "none: no TPU kernel; the JAX package's bond "
                                "loops lanczosplusplus_tpu/core/blockkron.py:"
-                               "169 and core/sparse.py:126")}
+                               "169 and core/sparse.py:126"),
+               # no TPU kernel: the JAX package applies the one-spin maps
+               # as dense GEMMs or as gathers outside Pallas
+               "spin_hop": ("lanczosplusplus_tpu_torch/csrc/spin_hop.cu",
+                            "none: no TPU kernel; the JAX package's one-spin "
+                            "GEMMs lanczosplusplus_tpu/ops/pallas_kernels.py:"
+                            "47 and gathers core/sparse.py:126")}
     # One entry for each kernel and form of a path.  The counts of the
     # spectral runs were checked against the code's prediction above, so
     # their batched share is known: two DOS runs and the fleet, two sectors
-    # each, one launch a step of the up form, the dn form and (the fleet's)
-    # ell_spmv; the rest of those runs' launches are their ground states'
-    # and the serial spectral_function's, at the ground-state path's shapes.
-    batched = {"factor_matmul": 2 * (2 * 2 * steps8 + 2 * steps_she),
+    # each, one launch a step of spin_hop and (the fleet's) ell_spmv; the
+    # rest of those runs' launches are their ground states' and the serial
+    # spectral_function's, at the ground-state path's shapes.
+    batched = {"spin_hop": 2 * (2 * steps8 + steps_she),
                "ell_spmv": 2 * steps_she}
     unbatched = "ground state, and the unbatched launches of the spectral runs"
 
@@ -5187,14 +5346,12 @@ def main() -> None:
                       cross_cases[r["case"]]]["applies"]["blockkron"])
              for r in results["perm_gather"] if r["case"] in cross_cases]
     cross.sort(key=lambda c: -c["device_ms_on_run"])
-    entries = (  # name, path, the phase 3 case of its shape, launches
-        ("factor_matmul", unbatched, "f64 3432x3432.3432x3432^T",
-         launches["factor_matmul"] + spectral_launches["factor_matmul"]
-         - batched["factor_matmul"]),
-        ("factor_matmul (batched, up form)", "spectral",
-         "f64 batched up form (14*3432)", batched["factor_matmul"] // 2),
-        ("factor_matmul (batched, dn form)", "spectral",
-         "f64 batched dn form R=14", batched["factor_matmul"] // 2),
+    entries = (  # name, path, the phase 3 or 17 case of its shape, launches
+        ("spin_hop", unbatched, "f64 14-site one-spin hops 3432x3432, R=1",
+         launches["spin_hop"] + spectral_launches["spin_hop"]
+         - batched["spin_hop"]),
+        ("spin_hop (batched)", "spectral",
+         "f64 14-site one-spin hops 3432x3432, R=16", batched["spin_hop"]),
         ("ell_spmv", unbatched, "f64 12-site SuperHubbardExtended J-ELL, R=1",
          launches["ell_spmv"] + spectral_launches["ell_spmv"]
          - batched["ell_spmv"]),
@@ -5202,8 +5359,9 @@ def main() -> None:
          "f64 J-ELL of the 12-site N_up = 7 sector, R=23",
          batched["ell_spmv"]),
         # the flat models' forms, with the launches of phase 9's runs
-        ("factor_matmul (FeAs one-spin factors)", "flat models",
-         "f64 1820x1820.1820x1820^T", flat_count("factor_matmul", "FeAs")),
+        ("spin_hop (FeAs one-spin factors)", "flat models",
+         "f64 8-site FeAs one-spin hops 1820x1820, R=1",
+         flat_count("spin_hop", "FeAs")),
         ("factor_matmul (complex planes)", "flat models",
          "c128 planes 220x220.220x220^T, real factor",
          flat_count("factor_matmul", "input100", "input104")),
@@ -5219,12 +5377,9 @@ def main() -> None:
         # the factored forms and the one-spin gather apply (phase 10)
         ("perm_gather", "factored forms: cross terms", cross[0]["case"],
          form_count("cross term")),
-        ("perm_gather (one-spin up)", "one-spin gather apply",
-         "f64 14-site one-spin up gather form, R=1",
-         form_count("one-spin up")),
-        ("perm_gather (one-spin dn)", "one-spin gather apply",
-         "f64 14-site one-spin dn gather form, R=1",
-         form_count("one-spin dn")),
+        ("spin_hop (one-spin gather apply)", "one-spin gather apply",
+         "f64 14-site one-spin hops 3432x3432, R=1",
+         form_count("one-spin hop")),
         ("factor_matmul (factored, within-block)", "factored forms",
          "f64 24-site Heisenberg largest block", form_count("within")),
         ("factor_matmul (factored, tier)", "factored forms",
@@ -5241,15 +5396,12 @@ def main() -> None:
         ("factor_matmul (symmetry, projected Kitaev)",
          "symmetry: projected translation", "f64 22-site Kitaev left half",
          sym_count("factor_matmul", "projected")),
-        # the estimators (phase 12): 12a's batched FTLM recurrence, two
-        # launches a step (the up and the dn form), and 12d's factored and
-        # flat t-J FTLM at R = 16
-        ("factor_matmul (estimators, batched up form R=16)",
-         "estimators: FTLM recurrence", "f64 batched up form (16*3432)",
-         est_runs["12a ed --ftlm 14-site"]["factor_matmul"] // 2),
-        ("factor_matmul (estimators, batched dn form R=16)",
-         "estimators: FTLM recurrence", "f64 batched dn form R=16",
-         est_runs["12a ed --ftlm 14-site"]["factor_matmul"] // 2),
+        # the estimators (phase 12): 12a's batched FTLM recurrence, one
+        # spin_hop a step, and 12d's factored and flat t-J FTLM at R = 16
+        ("spin_hop (estimators, R=16)",
+         "estimators: FTLM recurrence",
+         "f64 14-site one-spin hops 3432x3432, R=16",
+         est_runs["12a ed --ftlm 14-site"]["spin_hop"]),
         ("ell_spmv (estimators, batched R=16)", "estimators: flat t-J FTLM",
          "f64 18-site t-J ELL, R=16",
          est_runs["12d the flat form's FTLM"]["ell_spmv"]),
@@ -5259,8 +5411,9 @@ def main() -> None:
          est_runs["12d ed --ftlm factored 18-site t-J"]["perm_gather"]),
         # float32 and complex64 solves with their refinement, the bf16
         # forms (phase 14), by the form each launch took
-        ("factor_matmul (float32 solves)", "float32 solves",
-         "f32 3432x3432.3432x3432^T", low_forms.get("factor_matmul f32", 0)),
+        ("spin_hop (float32 solves)", "float32 solves",
+         "f32 14-site one-spin hops 3432x3432, R=1",
+         low_forms.get("spin_hop f32", 0)),
         ("factor_matmul (bf16 factors, float32 out)",
          "bf16 factors under a float32 state: 14e's Kitaev ring, 14h's chain",
          "bf16 22-site Kitaev left half",
@@ -5285,19 +5438,15 @@ def main() -> None:
          low_forms.get("perm_gather bf16_f64", 0)),
         # float32 and complex64 on the fleets, the estimators and the
         # symmetry sectors (phase 15): a batched apply of the 14-site
-        # fleet is one launch of each factor_matmul form, of the 12-site
-        # fleet one ell_spmv launch
-        ("factor_matmul (float32 fleets, batched up form)",
-         "float32 spectral fleets (15a)", "f32 batched up form (14*3432)",
-         fleets),
-        ("factor_matmul (float32 fleets, batched dn form)",
-         "float32 spectral fleets (15a)", "f32 batched dn form R=14", fleets),
-        ("factor_matmul (float32 FTLM, batched up form R=16)",
-         "float32 FTLM recurrence (15c)", "f32 batched up form (16*3432)",
-         f32_runs["15c 14-site ftlm R=16 f32"]["factor_matmul f32"] // 2),
-        ("factor_matmul (float32 FTLM, batched dn form R=16)",
-         "float32 FTLM recurrence (15c)", "f32 batched dn form R=16",
-         f32_runs["15c 14-site ftlm R=16 f32"]["factor_matmul f32"] // 2),
+        # fleet is one spin_hop launch, of the 12-site fleet one ell_spmv
+        # launch
+        ("spin_hop (float32 fleets, batched)",
+         "float32 spectral fleets (15a)",
+         "f32 14-site one-spin hops 3432x3432, R=16", fleets),
+        ("spin_hop (float32 FTLM, R=16)",
+         "float32 FTLM recurrence (15c)",
+         "f32 14-site one-spin hops 3432x3432, R=16",
+         f32_runs["15c 14-site ftlm R=16 f32"]["spin_hop f32"]),
         ("ell_spmv (float32 fleet, batched R=23)",
          "float32 TSPCenter fleet (15b)",
          "f32 J-ELL of the 12-site N_up = 7 sector, R=23",
@@ -5325,6 +5474,7 @@ def main() -> None:
     kernels_line = []
     for name, path_name, case_start, count in entries:
         kernel = name.split(" ")[0]
+        first = all(e["name"].split(" ")[0] != kernel for e in kernels_line)
         path_case, = [r for r in results[kernel]
                       if re.match(re.escape(case_start) + r"(\D|$)",
                                   r["case"])]
@@ -5339,8 +5489,8 @@ def main() -> None:
                 "nonzero_bound_ms", "share_of_nonzero_bound",
                 "padded_bound_ms", "sliced_bytes", "slice_s")
                 if key in path_case}))
-        if name == kernel:  # every case of the kernel, once
-            kernels_line[-1].update(
+        if first:  # every case of the kernel, and its launches by phase
+            kernels_line[-1].update(kernel_launches_by_phase=dict(
                 launches_ground_state_path=launches[kernel],
                 launches_spectral_path=spectral_launches[kernel],
                 launches_flat_models=flat_count(kernel, ""),
@@ -5358,18 +5508,23 @@ def main() -> None:
                                    if form.split(" ")[0] == kernel},
                 launches_phase_16={form: n for form, n
                                    in dist16["forms"].items()
-                                   if form.split(" ")[0] == kernel},
+                                   if form.split(" ")[0] == kernel}),
                 cases=results[kernel])
         if kernel == "perm_gather":
             kernels_line[-1].update(
                 design="(b, r) pairs a thread, their sums in registers; a "
                        "column's tables read once for them")
+        if kernel == "spin_hop":
+            kernels_line[-1].update(
+                design="a block owns consecutive rows (b, d), staged in "
+                       "shared memory; a thread a column, the up entries "
+                       "read once for the rows, the dn rows read whole")
         if name == "perm_gather":
             kernels_line[-1].update(cross_term_cases=cross)
         if name.startswith("ell_spmv (row shard"):
             kernels_line[-1].update(
                 ms_4_processes_sharing_one_card=dist16["shard_ell_ms"])
-    say(f"phases 1-16 done at {time.perf_counter() - started:.1f} s")
+    say(f"phases 1-17 done at {time.perf_counter() - started:.1f} s")
     print(json.dumps({"native": native_line}))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)

@@ -17,15 +17,19 @@ own row with value 0 (the kernel reads a sliced form of it without the
 padding, ``EllPart.sliced``).  Terms acting on one spin species are Kronecker
 products I (x) A_up and A_dn (x) I, applied to the state viewed as the
 (size_down, size_up) matrix X: either as gathers of the one-spin ELL
-maps through the hand-written ``perm_gather`` kernel (the CPU form, and
-the card's for a factor too large to densify), or, after
-``densify_factors``, as two GEMMs Y += X . A_up^T and Y += A_dn . X
-through the hand-written ``factor_matmul`` kernel (the card's form where
-the factors fit).  A sector may mix the two.  The diagonal plus the
-generic ELL part go through the ``ell_spmv`` kernel.  A batch of states
-is a batch-major (R, dim) block, viewed as (R, size_down, size_up): the
-up GEMM folds (R, size_down) into its rows, the dn GEMM and the ELL
-kernel take the batch in one launch each (``matmat_t``).
+maps, or, after ``densify_factors``, as two GEMMs Y += X . A_up^T and
+Y += A_dn . X through the hand-written ``factor_matmul`` kernel.  A real
+sector's gathers go through the hand-written ``spin_hop`` kernel, both
+maps compacted to their nonzero entries and the diagonal with them where
+there is no ELL part, in one launch; a complex one's through
+``perm_gather``.  On the card ``densify_factors`` keeps a real factor in
+``spin_hop``'s form and makes a complex one dense where it fits; the CPU
+keeps the gather form.  A sector may mix the two.  The diagonal plus
+the generic ELL part go through the ``ell_spmv`` kernel.  A batch of
+states is a batch-major (R, dim) block, viewed as (R, size_down,
+size_up): the up GEMM folds (R, size_down) into its rows, the dn GEMM,
+``spin_hop`` and the ELL kernel take the batch in one launch each
+(``matmat_t``).
 
 Every form runs in float64, float32, complex128 or complex64.  Dense
 factors may be stored in bfloat16 below a real state's type
@@ -183,11 +187,13 @@ class SpinFactorizedPart:
 
     x is viewed as X[size_down, size_up]; `up` acts along axis 1
     (I_down (x) A_up), `dn` along axis 0 (A_dn (x) I_up).  Gather form:
-    the ELL maps `*_cols`/`*_vals`, applied through ``perm_gather`` from
-    their (K, size) transposes, which are made once, on the maps' device,
-    when the part is built, for a factor with no dense form only.  Dense
-    form: `up_dense`/`dn_dense`, the (size, size) one-spin matrices,
-    applied through ``factor_matmul``.
+    the ELL maps `*_cols`/`*_vals`; a real map is applied through
+    ``spin_hop`` from its nonzero entries (``kernels.compact_hops``), a
+    complex one through ``perm_gather`` from its (K, size) transposes.
+    Either table set is made once, on the maps' device, when the part is
+    built, for a factor with no dense form only.  Dense form:
+    `up_dense`/`dn_dense`, the (size, size) one-spin matrices, applied
+    through ``factor_matmul``.
     """
     up_cols: torch.Tensor | None  # (size_up, Ku) int32
     up_vals: torch.Tensor | None
@@ -195,38 +201,70 @@ class SpinFactorizedPart:
     dn_vals: torch.Tensor | None
     up_dense: torch.Tensor | None = None  # (size_up, size_up)
     dn_dense: torch.Tensor | None = None  # (size_down, size_down)
+    # spin_hop's tables (kernels.HopTables), for a real factor in gather
+    # form
+    up_hop: kernels.HopTables | None = dataclasses.field(init=False,
+                                                         default=None)
+    dn_hop: kernels.HopTables | None = dataclasses.field(init=False,
+                                                         default=None)
     # (cols^T, vals^T), each (K, size) contiguous: perm_gather's tables,
-    # for a factor in gather form
+    # for a complex factor in gather form
     up_gather: tuple | None = dataclasses.field(init=False, default=None)
     dn_gather: tuple | None = dataclasses.field(init=False, default=None)
+    # set once ``densify_factors`` has counted this part's hop tables in
+    # ``build.hop_form``, so that a second call counts nothing
+    hops_counted: bool = dataclasses.field(init=False, default=False)
 
     def __post_init__(self):
         for side in ("up", "dn"):
             cols = getattr(self, f"{side}_cols")
-            if cols is not None and getattr(self, f"{side}_dense") is None:
+            if cols is None or getattr(self, f"{side}_dense") is not None:
+                continue
+            vals = getattr(self, f"{side}_vals")
+            if vals.is_complex():
                 object.__setattr__(self, f"{side}_gather", (
-                    cols.T.contiguous(),
-                    getattr(self, f"{side}_vals").T.contiguous()))
+                    cols.T.contiguous(), vals.T.contiguous()))
+            else:
+                object.__setattr__(self, f"{side}_hop",
+                                   kernels.compact_hops(cols, vals))
 
-    def apply_(self, x: torch.Tensor, y: torch.Tensor) -> None:
+    @property
+    def takes_diagonal(self) -> bool:
+        """Whether the first map applied is in ``spin_hop``'s form, so that
+        its launch can write the diagonal's product too (``apply_``)."""
+        return self.up_hop is not None or (
+            self.up_cols is None and self.dn_hop is not None)
+
+    def apply_(self, x: torch.Tensor, y: torch.Tensor,
+               diag: torch.Tensor | None = None) -> None:
         """y += (I (x) A_up + A_dn (x) I) x, in place on y, for one state
         viewed as (size_down, size_up) or a block of them viewed as
-        (R, size_down, size_up).  Each factor takes one launch over the
-        whole block: a dense up factor with (R, size_down) folded into the
-        GEMM's rows, a dense dn factor batched over transposed views; a
-        factor in gather form one ``perm_gather``, up with the rows the
-        identity and the columns gathered, dn the other way round.  A
-        bfloat16 dense factor meets the state rounded to bfloat16 once."""
+        (R, size_down, size_up); with `diag` (only where
+        ``takes_diagonal``) y is written, diag * x plus the same.  Each
+        factor takes one launch over the whole block: a dense up factor
+        with (R, size_down) folded into the GEMM's rows, a dense dn factor
+        batched over transposed views; a real factor in gather form
+        ``spin_hop``, one launch for both where both are, the diagonal in
+        it; a complex one one ``perm_gather``, up with the rows the
+        identity and the columns gathered, dn the other way round.  The
+        up factor goes first.  A bfloat16 dense factor meets the state
+        rounded to bfloat16 once."""
         xq = x
         if any(d is not None and d.dtype == torch.bfloat16
                for d in (self.up_dense, self.dn_dense)):
             xq = x.to(torch.bfloat16)
+        dn_done = False
         if self.up_dense is not None:
             # y[b, d, u] += sum_c x[b, d, c] A_up[u, c]
             szu = x.shape[-1]
             xu = xq if self.up_dense.dtype == torch.bfloat16 else x
             kernels.factor_matmul(xu.reshape(-1, szu), self.up_dense,
                                   out=y.view(-1, szu), accumulate=True)
+        elif self.up_hop is not None:
+            # y[b, d, u] (+)= sum_k vu[k, u] x[b, d, cu[k, u]], and the dn
+            # sum with it where the dn map is in the same form
+            kernels.spin_hop(x, y, diag=diag, up=self.up_hop, dn=self.dn_hop)
+            dn_done = self.dn_hop is not None
         elif self.up_gather is not None:
             # y[b, d, u] += sum_k vals[u, k] x[b, d, cols[u, k]]
             cs, beta = self.up_gather
@@ -237,6 +275,10 @@ class SpinFactorizedPart:
             xd = xq if self.dn_dense.dtype == torch.bfloat16 else x
             kernels.factor_matmul(xd.transpose(-1, -2), self.dn_dense,
                                   out=y.transpose(-1, -2), accumulate=True)
+        elif self.dn_hop is not None and not dn_done:
+            # y[b, d, u] (+)= sum_k vd[k, d] x[b, cd[k, d], u]
+            kernels.spin_hop(x, y, diag=diag if self.up_cols is None
+                             else None, dn=self.dn_hop)
         elif self.dn_gather is not None:
             # y[b, d, u] += sum_k vals[d, k] x[b, cols[d, k], u]
             rs, a = self.dn_gather
@@ -291,22 +333,31 @@ class Hamiltonian:
         """Batch-major SpMM: H applied to every row of the contiguous
         block xk (R, dim) (or to one (dim,) state).  The diagonal and the
         generic ELL part are one batched ``ell_spmv`` launch (on the card
-        from the part's sliced form), each dense one-spin factor one
-        ``factor_matmul`` launch over the whole block; batched recurrences
-        keep their states in this layout.  The diagonal and ELL part run
-        in a ``hamiltonian.ell`` span, the factors in a
-        ``hamiltonian.factors`` span."""
-        with span("hamiltonian.ell"):
-            if self.ell is not None:
-                sliced = self.ell.sliced() if xk.is_cuda else None
-                y = kernels.ell_spmv(self.diag, self.ell.cols, self.ell.vals,
-                                     xk, sliced=sliced)
-            else:
-                y = self.diag * xk
-        if self.factorized is not None:
+        from the part's sliced form), in a ``hamiltonian.ell`` span; each
+        dense one-spin factor one ``factor_matmul`` launch over the whole
+        block and the real maps in gather form one ``spin_hop`` launch, in
+        a ``hamiltonian.factors`` span.  Without an ELL part the diagonal
+        goes into ``spin_hop``'s launch where the part takes it
+        (``SpinFactorizedPart.takes_diagonal``), else it is one
+        elementwise pass in the ``hamiltonian.ell`` span.  Batched
+        recurrences keep their states in this layout."""
+        f = self.factorized
+        fused = self.ell is None and f is not None and f.takes_diagonal
+        if fused:
+            y = torch.empty_like(xk)
+        else:
+            with span("hamiltonian.ell"):
+                if self.ell is not None:
+                    sliced = self.ell.sliced() if xk.is_cuda else None
+                    y = kernels.ell_spmv(self.diag, self.ell.cols,
+                                         self.ell.vals, xk, sliced=sliced)
+                else:
+                    y = self.diag * xk
+        if f is not None:
             shape = (*xk.shape[:-1], *self.spin_shape)
             with span("hamiltonian.factors"):
-                self.factorized.apply_(xk.view(shape), y.view(shape))
+                f.apply_(xk.view(shape), y.view(shape),
+                         diag=self.diag if fused else None)
         return y
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
@@ -320,17 +371,23 @@ class Hamiltonian:
         """Materialize the Kronecker one-spin factors as dense matrices
         when each fits in `max_bytes`, so matvec runs as GEMMs.  By
         default a factor may take a quarter of the card's free memory
-        (``torch.cuda.mem_get_info``), or 2 GiB on the CPU.  A factor too
-        large stays in gather form, applied through ``perm_gather``, so a
-        sector may mix the two forms; ``max_bytes=0`` keeps both in gather
-        form.  The ELL maps are kept alongside, so ``to_dense`` keeps
-        working.  A Hamiltonian that is densified already comes back as it
-        is.
+        (``torch.cuda.mem_get_info``), or 2 GiB on the CPU, except that on
+        the card a real factor stays in gather form: ``spin_hop`` over its
+        nonzero entries is faster than the GEMM at every factor size the
+        models build (PERF.md §6).  A factor not densified stays in
+        gather form, applied through ``spin_hop`` (real) or
+        ``perm_gather`` (complex), so a sector may mix the two forms;
+        ``max_bytes=0`` keeps both in gather form, and an explicit
+        `max_bytes` alone decides.  Each real factor left in gather form
+        counts one in ``build.hop_form``, once a part.  The ELL maps are
+        kept alongside, so ``to_dense`` keeps working.  A Hamiltonian that
+        is densified already comes back as it is.
 
         `factor_dtype` torch.bfloat16 stores the dense factors in bf16
-        below a real state's type (JAX ``densify_factors(factor_dtype=)``):
-        their GEMMs take ``factor_matmul``'s bf16 form, and the state is
-        rounded to bf16 for them (``quantized``)."""
+        below a real state's type (JAX ``densify_factors(factor_dtype=)``),
+        within the budget alone: their GEMMs take ``factor_matmul``'s bf16
+        form, and the state is rounded to bf16 for them
+        (``quantized``)."""
         f = self.factorized
         if f is None or f.up_dense is not None or f.dn_dense is not None:
             return self
@@ -342,23 +399,35 @@ class Hamiltonian:
             raise ValueError("densify_factors: bfloat16 factors take a real "
                              f"state, not {self.dtype}")
         on_cuda = self.device.type == "cuda"
+        # the card keeps a real factor in spin_hop's form, where no budget
+        # or bf16 store was asked for
+        keep_hops = (on_cuda and max_bytes is None
+                     and factor_dtype != torch.bfloat16)
         if max_bytes is None:
             max_bytes = (torch.cuda.mem_get_info(self.device)[0] // 4
                          if on_cuda else DEFAULT_DENSE_FACTOR_BYTES)
 
-        def densify(cols, vals):
+        def densify(cols, vals, hop):
             if cols is None:
                 return None
             size = cols.shape[0]
             if size * size * vals.element_size() > max_bytes:
                 return None
+            if keep_hops and hop is not None:
+                return None
             dense = _dense_from_ell(cols, vals)
             return dense if factor_dtype is None else dense.to(factor_dtype)
 
-        up_d = densify(f.up_cols, f.up_vals)
-        dn_d = densify(f.dn_cols, f.dn_vals)
+        up_d = densify(f.up_cols, f.up_vals, f.up_hop)
+        dn_d = densify(f.dn_cols, f.dn_vals, f.dn_hop)
         if up_d is None and dn_d is None:
+            if not f.hops_counted:
+                count("build.hop_form",
+                      (f.up_hop is not None) + (f.dn_hop is not None))
+                object.__setattr__(f, "hops_counted", True)
             return self
+        count("build.hop_form", (up_d is None and f.up_hop is not None)
+              + (dn_d is None and f.dn_hop is not None))
         return dataclasses.replace(
             self, factorized=dataclasses.replace(f, up_dense=up_d,
                                                  dn_dense=dn_d))

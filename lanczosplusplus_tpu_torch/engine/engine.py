@@ -345,12 +345,13 @@ class Engine:
     def _build_hamiltonian(self, basis):
         """A sector's flat Hamiltonian on the configured device, in float64
         (complex128; see ``_solve_form`` for a float32 solve).  On CUDA
-        the Kronecker one-spin factors, where the model has any, are
-        densified where they fit a quarter of the free memory, so the
-        matvec runs them as ``factor_matmul`` GEMMs; a factor too large
-        stays in gather form, applied by ``perm_gather``.  The CPU keeps
-        the gather form.  The form taken is logged.  The build is a
-        ``build`` span holding ``build.tables`` and ``build.densify``
+        the Kronecker one-spin factors, where the model has any, take
+        their form in ``densify_factors``: a real factor stays in gather
+        form, applied by ``spin_hop``; a complex one is densified where
+        it fits a quarter of the free memory, so the matvec runs it as
+        ``factor_matmul`` GEMMs, else applied by ``perm_gather``.  The
+        CPU keeps the gather form.  The form taken is logged.  The build
+        is a ``build`` span holding ``build.tables`` and ``build.densify``
         (the basis is ``build.basis``, where it is made)."""
         with span("build"):
             with span("build.tables"):
@@ -366,9 +367,11 @@ class Engine:
                      if cols is not None]
             dense = [(n, n) for n, is_dense in pairs if is_dense]
             gather = [(n, n) for n, is_dense in pairs if not is_dense]
+            kernel = ("spin_hop" if f.up_hop is not None
+                      or f.dn_hop is not None else "perm_gather")
             self.progress(f"one-spin factors on {ham.device}: " + "; ".join(
                 ([f"dense {dense} through factor_matmul"] if dense else [])
-                + ([f"gather form {gather} through perm_gather"] if gather
+                + ([f"gather form {gather} through {kernel}"] if gather
                    else [])))
         return ham
 

@@ -66,6 +66,11 @@ SIGNATURES = {
     **{f"lpp_perm_gather_{suffix}": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P,
                                      _P, _P, _I, _I, _I, _I, _P)
        for suffix in ("f64", "f32", "c128", "c64", "bf16_f64", "bf16_f32")},
+    # x, y, diag (or null), the up map's cols, vals, counts (or nulls), the
+    # dn map's, the dn map's K, szd, szu, batch, group, stage, stream
+    **{f"lpp_spin_hop_{suffix}": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _P)
+       for suffix in ("f64", "f32")},
 }
 
 

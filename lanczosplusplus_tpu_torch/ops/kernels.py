@@ -1,6 +1,6 @@
 """The hot-path kernels, their plain PyTorch versions and the dispatch.
 
-Counterpart of ``lanczosplusplus_tpu/ops/pallas_kernels.py``.  Three
+Counterpart of ``lanczosplusplus_tpu/ops/pallas_kernels.py``.  Four
 kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
 
 - ``factor_matmul``: ``Y[b] (+)= X[b] . A[b]^T`` on strided operands, A
@@ -20,7 +20,13 @@ kernels, each written by hand in CUDA C++ for Hopper (``csrc/``):
   block-Kronecker forms and the one-spin hop maps in gather form, real or
   complex, and from a bfloat16 source block (bf16cross)
   (``csrc/perm_gather.cu``; it has no TPU counterpart: the JAX package
-  runs these gathers outside Pallas).
+  runs these gathers outside Pallas);
+- ``spin_hop``: ``y[b, d, u] = diag * x[b, d, u] + sum_k vu[k, u]
+  x[b, d, cu[k, u]] + sum_k vd[k, d] x[b, cd[k, d], u]`` (or the same
+  sums added into y), a Hubbard-family sector's two one-spin hop maps in
+  gather form, compacted to their nonzero entries (``compact_hops``), and
+  its diagonal, in one pass over a real block (``csrc/spin_hop.cu``; no
+  TPU counterpart: the JAX package runs these maps as dense GEMMs).
 
 Each takes the batch in one launch; a single matrix or vector is the case
 batch = 1 of the same kernel.  A complex state goes through
@@ -59,7 +65,7 @@ class _KernelLaunches(Mapping):
     """Launches by kernel, read from ``FORM_LAUNCHES``: the sum over the
     kernel's forms."""
 
-    _NAMES = ("factor_matmul", "ell_spmv", "perm_gather")
+    _NAMES = ("factor_matmul", "ell_spmv", "perm_gather", "spin_hop")
 
     def __getitem__(self, name: str) -> int:
         if name not in self._NAMES:
@@ -94,6 +100,10 @@ WGMMA_TILE_M, WGMMA_STAGE_K, WGMMA_BOX = 128, 64, 64 * 64 * 2
 SLICE_ROWS, SLICE_WINDOW = 32, 256
 # padded entries a step of slice_ell's scatter takes at most
 _SLICE_CHUNK = 1 << 24
+# spin_hop: the staged rows of x a block holds at most, so that two blocks
+# fit an SM's 228 KB beside their rows' dn entries, and the rows a block
+# owns at most (csrc/spin_hop.cu)
+SPIN_HOP_STAGE_BYTES, SPIN_HOP_MAX_GROUP = 108 * 1024, 2
 
 
 def reset_launches() -> None:
@@ -897,3 +907,149 @@ def perm_gather(x: torch.Tensor, out: torch.Tensor, rs=None, a=None,
         raise RuntimeError(f"perm_gather: kernel launch failed, "
                            f"cudaError {err}")
     return out
+
+
+class HopTables(NamedTuple):
+    """A one-spin hop map's nonzero entries (``compact_hops``): entry k of
+    row i at [k, i] of `cols` and `vals` for k below ``counts[i]``, in the
+    map's bond order; the other slots hold the row's own index and 0."""
+    cols: torch.Tensor    # (K, size) int32, K the most entries of a row
+    vals: torch.Tensor    # (K, size)
+    counts: torch.Tensor  # (size,) int32
+
+    @property
+    def nnz(self) -> int:
+        """The map's nonzero entries."""
+        return int(self.counts.sum())
+
+
+def compact_hops(cols: torch.Tensor, vals: torch.Tensor) -> HopTables:
+    """The nonzero entries of a padded one-spin ELL map (cols, vals), each
+    (size, K), in their k order (the ascending bond order of
+    ``core/sparse.one_spin_ell``), on the map's device, as ``spin_hop``
+    reads them (``HopTables``): every entry of value 0, the map's padding
+    and the bonds a row does not hop along, is dropped."""
+    size = cols.shape[0]
+    nz = vals != 0
+    counts = nz.sum(1)
+    k = int(counts.max()) if size else 0
+    out_cols = torch.arange(size, dtype=torch.int32,
+                            device=cols.device).repeat(k, 1)
+    out_vals = vals.new_zeros((k, size))
+    r, j = nz.nonzero(as_tuple=True)        # row-major: j ascends in a row
+    slot = nz.cumsum(1)[r, j] - 1
+    out_cols[slot, r] = cols[r, j].to(torch.int32)
+    out_vals[slot, r] = vals[r, j]
+    return HopTables(out_cols, out_vals, counts.to(torch.int32))
+
+
+class HopPlan(NamedTuple):
+    """How the ``spin_hop`` kernel runs one apply."""
+    group: int   # consecutive rows (b, d) a block owns
+    stage: bool  # the rows go through shared memory
+
+
+def spin_hop_plan(szu: int, elem_size: int, has_up: bool) -> HopPlan:
+    """The kernel's path from the row length and type alone: the rows are
+    staged where the up map gathers from them and one fits
+    ``SPIN_HOP_STAGE_BYTES``, ``SPIN_HOP_MAX_GROUP`` of them a block where
+    they fit it together (the 14-site chain's 3432-long rows, in float64
+    and float32), else one; a row read in place, one a block."""
+    row = max(szu, 1) * elem_size
+    stage = has_up and row <= SPIN_HOP_STAGE_BYTES
+    group = (SPIN_HOP_MAX_GROUP
+             if stage and SPIN_HOP_MAX_GROUP * row <= SPIN_HOP_STAGE_BYTES
+             else 1)
+    return HopPlan(group, stage)
+
+
+def spin_hop_ref(x: torch.Tensor, y: torch.Tensor,
+                 diag: torch.Tensor | None = None, up: HopTables | None = None,
+                 dn: HopTables | None = None) -> torch.Tensor:
+    """Plain version of ``spin_hop``: y = diag * x where a diagonal is
+    given, then ``perm_gather_ref``'s channel loop over the compacted up
+    map (the columns gathered) and then the dn map (the rows gathered),
+    each term added into y in place."""
+    if diag is not None:
+        torch.mul(diag.view(x.shape[-2:]), x, out=y)
+    if up is not None:
+        perm_gather_ref(x, y, cs=up.cols, beta=up.vals)
+    if dn is not None:
+        perm_gather_ref(x, y, rs=dn.cols, a=dn.vals)
+    return y
+
+
+def spin_hop(x: torch.Tensor, y: torch.Tensor,
+             diag: torch.Tensor | None = None, up: HopTables | None = None,
+             dn: HopTables | None = None) -> torch.Tensor:
+    """``y[b, d, u] = diag[d szu + u] x[b, d, u] + sum_k up.vals[k, u]
+    x[b, d, up.cols[k, u]] + sum_k dn.vals[k, d] x[b, dn.cols[k, d], u]``
+    in place on y, for one state x viewed as (size_down, size_up) or a
+    block of them (batch, size_down, size_up), in a single launch.  Without
+    `diag` the sums are added into y as it is (the diagonal and an ELL part
+    in it already).  `up` and `dn` are compacted hop maps
+    (``compact_hops``) of size_up and size_down rows; either may be None.
+
+    x and y contiguous, of one shape, not overlapping; the CUDA kernel
+    takes float64 or float32 throughout.  A CPU tensor takes the plain
+    version (``spin_hop_ref``), which the kernel equals bit for bit."""
+    if x.dim() not in (2, 3) or tuple(y.shape) != tuple(x.shape):
+        raise ValueError(f"spin_hop: x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)} must be one (size_down, "
+                         f"size_up) shape or a batch of it")
+    szd, szu = x.shape[-2:]
+    if up is None and dn is None:
+        raise ValueError("spin_hop: neither an up nor a dn map")
+    for name, tabs, size in (("up", up, szu), ("dn", dn, szd)):
+        if tabs is None:
+            continue
+        k = tabs.cols.shape[0]
+        if tabs.cols.shape != (k, size) or tabs.vals.shape != (k, size) or \
+                tabs.counts.shape != (size,):
+            raise ValueError(f"spin_hop: the {name} map's tables "
+                             f"{tuple(tabs.cols.shape)}, "
+                             f"{tuple(tabs.vals.shape)}, "
+                             f"{tuple(tabs.counts.shape)} are not (K, {size})"
+                             f" and ({size},)")
+        if tabs.cols.dtype != torch.int32 or tabs.counts.dtype != torch.int32:
+            raise TypeError(f"spin_hop: the {name} map's indices and counts "
+                            f"must be int32")
+    if diag is not None and diag.shape != (szd * szu,):
+        raise ValueError(f"spin_hop: diag {tuple(diag.shape)} for a "
+                         f"({szd}, {szu}) state")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("spin_hop: x and y must be contiguous")
+
+    if x.device.type == "cpu":
+        return spin_hop_ref(x, y, diag, up, dn)
+    if x.device.type != "cuda":
+        raise ValueError(f"spin_hop: no kernel for device {x.device}")
+    tables = [t for tabs in (up, dn) if tabs is not None for t in tabs]
+    _check_cuda_operands("spin_hop", x, y,
+                         *(() if diag is None else (diag,)),
+                         *(t for t in tables if t.dtype != torch.int32),
+                         dtypes=(torch.float64, torch.float32))
+    if any(t.device != x.device for t in tables):
+        raise ValueError("spin_hop: tables on another device")
+    if _overlaps(y, x):
+        raise ValueError("spin_hop: y overlaps x")
+    batch = x.shape[0] if x.dim() == 3 else 1
+    if batch * szd > _INT_MAX or any(t.numel() > _INT_MAX for t in tables):
+        raise ValueError("spin_hop: rows or tables over int32 range")
+    plan = spin_hop_plan(szu, x.element_size(), up is not None)
+    from lanczosplusplus_tpu_torch.ops.build import load_library
+    form = _SUFFIX[x.dtype]
+    fn = getattr(load_library(), f"lpp_spin_hop_{form}")
+
+    def ptrs(tabs):
+        return (None, None, None) if tabs is None else \
+            tuple(t.data_ptr() for t in tabs)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(),
+                 None if diag is None else diag.data_ptr(), *ptrs(up),
+                 *ptrs(dn), 0 if dn is None else dn.cols.shape[0], szd, szu,
+                 batch, plan.group, int(plan.stage), _stream(x))
+    _launched("spin_hop", form)
+    if err != 0:
+        raise RuntimeError(f"spin_hop: kernel launch failed, cudaError {err}")
+    return y

@@ -452,9 +452,10 @@ def test_factor_matmul_complex_planes(cuda, dtype, tol, rows, szd, szu,
 
 
 def test_gather_form_on_card_matches_cpu(cuda):
-    """A one-spin factor kept in gather form (``max_bytes=0``, or only the
-    larger one) runs on the card through ``perm_gather``, one launch per
-    factor, and gives the CPU's matvec, alone or beside a dense factor."""
+    """One-spin factors kept in gather form (``max_bytes=0``, or only the
+    larger one) run on the card through one ``spin_hop`` launch, the
+    diagonal in it, and give the CPU's matvec, alone or beside a dense
+    factor."""
     inp = parse_input(SUPER6.replace("TargetElectronsDown=3",
                                      "TargetElectronsDown=2"))
     model = build_model(inp, Geometry(inp))
@@ -471,7 +472,9 @@ def test_gather_form_on_card_matches_cpu(cuda):
         assert f.up_dense is None and (f.dn_dense is None) == (gathered == 2)
         kernels.reset_launches()
         got = form.matmat_t(x.to(cuda))
-        assert kernels.LAUNCHES["perm_gather"] == gathered
+        assert kernels.LAUNCHES["spin_hop"] == 1
+        assert kernels.LAUNCHES["factor_matmul"] == 2 - gathered
+        assert kernels.LAUNCHES["perm_gather"] == 0
         assert _rel(got.cpu(), want) <= 1e-13
         assert _rel(form.matvec(x[1].to(cuda)).cpu(), want[1]) <= 1e-13
 
@@ -535,6 +538,88 @@ def test_perm_gather_64bit_offsets(cuda):
     assert torch.equal(out.cpu(), x.cpu().flip(1).flip(2))
     del big, x
     torch.cuda.empty_cache()
+
+
+def _random_hops(g, k, size, src, dev, dtype):
+    """Compacted hop tables of `size` rows into `src` columns with 0 to k
+    entries a row (``kernels.HopTables``), on `dev`."""
+    counts = torch.randint(0, k + 1, (size,), generator=g, dtype=torch.int32)
+    cols = torch.randint(0, src, (k, size), generator=g, dtype=torch.int32)
+    vals = torch.randn((k, size), generator=g, dtype=torch.float64)
+    unused = torch.arange(k)[:, None] >= counts[None, :]
+    cols[unused] = torch.arange(size, dtype=torch.int32).expand(k, size)[
+        unused] % src
+    vals[unused] = 0.0
+    return kernels.HopTables(cols.to(dev), vals.to(dtype).to(dev),
+                             counts.to(dev))
+
+
+# (batch, size_down, size_up, up entries, dn entries): rows in no group's
+# multiple, one state, size_down != size_up, a row too long to stage
+# (16 000 doubles, 128 000 bytes), maps absent, a size_down of 1
+SPIN_HOP_CASES = {"ragged": (3, 37, 300, 6, 5),
+                  "one_state": (None, 20, 15, 4, 4),
+                  "unstaged": (2, 5, 16_000, 7, 3),
+                  "up_only": (4, 9, 64, 5, 0),
+                  "dn_only": (2, 33, 40, 0, 6),
+                  "one_row": (5, 1, 77, 3, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(SPIN_HOP_CASES))
+@pytest.mark.parametrize("with_diag", [True, False])
+def test_spin_hop_kernel_bit_equal(cuda, dtype, case, with_diag):
+    """spin_hop equals its plain version on the card bit for bit, one
+    launch, with the diagonal written or the sums added into y."""
+    batch, szd, szu, ku, kd = SPIN_HOP_CASES[case]
+    g = torch.Generator().manual_seed(szd * szu + ku)
+    lead = () if batch is None else (batch,)
+    x = torch.randn((*lead, szd, szu), generator=g,
+                    dtype=torch.float64).to(dtype).to(cuda)
+    y0 = torch.randn(x.shape, generator=g,
+                     dtype=torch.float64).to(dtype).to(cuda)
+    diag = (torch.randn(szd * szu, generator=g, dtype=torch.float64)
+            .to(dtype).to(cuda) if with_diag else None)
+    up = _random_hops(g, ku, szu, szu, cuda, dtype) if ku else None
+    dn = _random_hops(g, kd, szd, szd, cuda, dtype) if kd else None
+    want = kernels.spin_hop_ref(x, y0.clone(), diag, up, dn)
+    got = y0.clone()
+    kernels.reset_launches()
+    kernels.spin_hop(x, got, diag=diag, up=up, dn=dn)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES == {
+        f"spin_hop {kernels._SUFFIX[dtype]}": 1}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("text,ell", [
+    (hubbard_chain_text(10, 4, 6, 3), False),
+    (SUPER6, True)], ids=["hubbard10_6_3", "super6"])
+def test_spin_hop_form_on_card_matches_cpu(cuda, text, ell):
+    """A sector's gather form on the card: one spin_hop launch an apply
+    (after ell_spmv where there is an ELL part), equal to the CPU's plain
+    version bit for bit without one (every term is a product and a sum
+    rounded on its own) and to 1e-13 with one (ell_spmv sums its row in
+    another order than its plain version)."""
+    inp = parse_input(text)
+    model = build_model(inp, Geometry(inp))
+    basis = model.create_basis(model.default_parts(inp))
+    cpu = model.hamiltonian(basis, dtype=torch.float64, device="cpu")
+    ham = model.hamiltonian(basis, dtype=torch.float64,
+                            device=cuda).densify_factors(max_bytes=0)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, ham.dim)))
+    want = cpu.matmat_t(x)
+    kernels.reset_launches()
+    got = ham.matmat_t(x.to(cuda)).cpu()
+    assert dict(kernels.LAUNCHES) == {
+        "factor_matmul": 0, "ell_spmv": int(ell), "perm_gather": 0,
+        "spin_hop": 1}
+    if ell:
+        assert _rel(got, want) <= 1e-13
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(ham.matvec(x[2].to(cuda)).cpu(), want[2])
 
 
 # (batch, rows, cols, nb), for the pairs a thread carries (float64 2,
@@ -863,7 +948,7 @@ def test_bf16_factor_entry_points_on_card_match_cpu(cuda, dtype):
 
 def test_float32_solves_on_card_refine_to_the_float64_bar(cuda):
     """A float32 solve on the card (the flat Hubbard form through the f32
-    GEMMs, the SuperHubbardExtended J-ELL through the f32 ell_spmv, a
+    spin_hop, the SuperHubbardExtended J-ELL through the f32 ell_spmv, a
     bf16cross half-cut Rashba form through the bf16-source perm_gather)
     refines to the float64 energy within 1e-10, as on the CPU."""
     texts = (hubbard_chain_text(8, 4), SUPER6,
@@ -972,16 +1057,19 @@ def test_rashba_block_kron_on_card_matches_cpu(cuda):
 
 
 def test_solve_on_card_matches_cpu(cuda):
-    """The densified kernel path on the card gives the CPU gather path's
-    matvec and ground energy from the same start vector."""
+    """The card's form (both one-spin factors through one spin_hop launch,
+    the exchange through ell_spmv) gives the CPU gather path's matvec and
+    ground energy from the same start vector."""
     inp = parse_input(SUPER6)
     model = build_model(inp, Geometry(inp))
     v0 = np.random.default_rng(0).standard_normal(400)
     cpu = Engine(model, inp, config=Config(device="cpu"), v0=v0)
     kernels.reset_launches()
     gpu = Engine(model, inp, config=Config(device=cuda), v0=v0)
-    assert gpu.hamiltonian.factorized.up_dense is not None
-    assert kernels.LAUNCHES["factor_matmul"] > 0
+    f = gpu.hamiltonian.factorized
+    assert f.up_dense is None and f.dn_dense is None
+    assert kernels.LAUNCHES["spin_hop"] > 0
+    assert kernels.LAUNCHES["factor_matmul"] == 0
     assert kernels.LAUNCHES["ell_spmv"] > 0
     x = torch.from_numpy(v0)
     np.testing.assert_allclose(
@@ -1037,10 +1125,11 @@ def test_spectral_functions_on_card_match_cpu(cuda, text):
     kernels.reset_launches()
     outs = gpu.spectral_functions_batched("c", pairs)
     ell = gpu.hamiltonian.ell is not None
-    # two sectors, 300 steps (the sectors' dim): two GEMMs and, with a J
-    # term, one ELL launch a step
-    assert kernels.LAUNCHES == {"factor_matmul": 2 * 2 * 300,
-                                "ell_spmv": 2 * 300 * ell, "perm_gather": 0}
+    # two sectors, 300 steps (the sectors' dim): one spin_hop launch and,
+    # with a J term, one ELL launch a step
+    assert kernels.LAUNCHES == {"factor_matmul": 0,
+                                "ell_spmv": 2 * 300 * ell, "perm_gather": 0,
+                                "spin_hop": 2 * 300}
     refs = cpu.spectral_functions_batched("c", pairs)
     for (coll, labels), (rcoll, rlabels) in zip(outs, refs):
         assert labels == rlabels
@@ -1099,7 +1188,8 @@ def test_complex_spectral_run_on_card_matches_cpu(cuda):
     # two sectors of dim 300: a step is one launch over the planes for
     # each real factor and one complex ell_spmv
     assert kernels.LAUNCHES == {"factor_matmul": 2 * 2 * 300,
-                                "ell_spmv": 2 * 300, "perm_gather": 0}
+                                "ell_spmv": 2 * 300, "perm_gather": 0,
+                                "spin_hop": 0}
     refs = cpu.spectral_functions_batched("c", pairs)
     for (coll, labels), (rcoll, rlabels) in zip(outs, refs):
         assert labels == rlabels
@@ -1118,28 +1208,30 @@ def test_complex_spectral_run_on_card_matches_cpu(cuda):
         cpu.hamiltonian.matmat_t(z.cpu()).numpy(), rtol=0, atol=1e-12)
 
 
-# name -> (input text, launches a matvec makes of factor_matmul, ell_spmv)
+# name -> (input text, launches a matvec makes of factor_matmul, ell_spmv,
+# spin_hop): a real one-spin pair through spin_hop, a complex one's
+# factors through factor_matmul
 FLAT_MODELS = {
-    "heisenberg": (heisenberg_text(10, 1, 5), 0, 1),
-    "heisenberg_spin_one": (heisenberg_text(6, 2, 6, periodic=0), 0, 1),
+    "heisenberg": (heisenberg_text(10, 1, 5), 0, 1, 0),
+    "heisenberg_spin_one": (heisenberg_text(6, 2, 6, periodic=0), 0, 1, 0),
     "kitaev": (kitaev_text(8, 1.0, 0.6, 0.8, periodic=1,
                            extra="MagneticField 8 0.1 0.2 0 0 0.3 0 0 0\n"),
-               0, 1),
-    "tj": (tj_text(8, 3, 3, periodic=1), 0, 1),
-    "rashba": (rashba_text(5, 4, periodic=1), 0, 1),
+               0, 1, 0),
+    "tj": (tj_text(8, 3, 3, periodic=1), 0, 1, 0),
+    "rashba": (rashba_text(5, 4, periodic=1), 0, 1, 0),
     "rashba_complex": (rashba_text(5, 4, r="(0.3,0.4)", periodic=1,
-                                   options="useComplex"), 0, 1),
+                                   options="useComplex"), 0, 1, 0),
     "feas": (feas_text(3, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1], 2, 2,
-                       extra="AnisotropyD=0.4\n"), 2, 1),
+                       extra="AnisotropyD=0.4\n"), 0, 1, 1),
     "feas_complex": (feas_text(3, 2, "INT_PAPER33", [1.0, 0.6, -0.2, -0.1],
-                               2, 2, options="useComplex"), 2, 1),
-    "feas_kspace": (feas_text(2, 3, "INT_KSPACE", [0.9], 2, 2), 2, 1),
+                               2, 2, options="useComplex"), 2, 1, 0),
+    "feas_kspace": (feas_text(2, 3, "INT_KSPACE", [0.9], 2, 2), 0, 1, 1),
     "feas_int_v": (feas_text(2, 3, "INT_V", [1.0, 0.2, 0.3, 0.2, 0.8, 0.1,
-                                             0.3, 0.1, 0.6], 2, 2), 2, 0),
-    "feas_spinorbit": (feas_so_text(3, 2, 1), 0, 1),
-    "immm": (immm_text(4, 2, 2), 2, 0),
+                                             0.3, 0.1, 0.6], 2, 2), 0, 0, 1),
+    "feas_spinorbit": (feas_so_text(3, 2, 1), 0, 1, 0),
+    "immm": (immm_text(4, 2, 2), 0, 0, 1),
     "immm_complex": (immm_text(4, 2, 2).replace(
-        "SolverOptions=none", "SolverOptions=useComplex"), 2, 0),
+        "SolverOptions=none", "SolverOptions=useComplex"), 2, 0, 0),
 }
 
 
@@ -1149,7 +1241,7 @@ def test_flat_model_on_card_matches_cpu(cuda, name):
     versions: one matvec, a block of three states, and the ground-state
     energy from the same start vector, with the launches a matvec makes
     as the model's form predicts."""
-    text, n_gemm, n_ell = FLAT_MODELS[name]
+    text, n_gemm, n_ell, n_hop = FLAT_MODELS[name]
     inp = parse_input(text)
     model = build_model(inp, Geometry(inp))
     config = Config.from_input(inp, device="cpu")
@@ -1166,14 +1258,14 @@ def test_flat_model_on_card_matches_cpu(cuda, name):
     kernels.reset_launches()
     got = ham.matvec(x.to(cuda))
     assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell,
-                                "perm_gather": 0}
+                                "perm_gather": 0, "spin_hop": n_hop}
     want = ref.matvec(x)
     assert _rel(got.cpu(), want) <= 1e-12
     block = torch.stack([x, 2 * x, x.flip(0)])
     kernels.reset_launches()
     got = ham.matmat_t(block.to(cuda))
     assert kernels.LAUNCHES == {"factor_matmul": n_gemm, "ell_spmv": n_ell,
-                                "perm_gather": 0}
+                                "perm_gather": 0, "spin_hop": n_hop}
     assert _rel(got.cpu(), ref.matmat_t(block)) <= 1e-12
     assert gpu.solve_info.converged and not gpu.solve_info.used_dense_fallback
     assert abs(gpu.ground_energy - cpu.ground_energy) <= \
@@ -1203,7 +1295,7 @@ def test_spin_orbital_chain_on_card(cuda):
     kernels.reset_launches()
     assert _rel(ham.matvec(x.to(cuda)).cpu(), ref.matvec(x)) <= 1e-12
     assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 1,
-                                "perm_gather": 0}
+                                "perm_gather": 0, "spin_hop": 0}
     evals, _ = lz.lowest_states(ham, seed=3)
     want = np.linalg.eigvalsh(ref.to_dense())[0]
     assert abs(evals[0] - want) <= 1e-10 * abs(want)
@@ -1351,8 +1443,8 @@ def test_projected_kitaev_on_card(cuda):
 # -- the estimators on the card against the CPU, one start block ------------
 
 def _sector(text, device, dtype=torch.float64):
-    """The default sector's flat Hamiltonian on `device` (one-spin
-    factors densified on the card, as the estimators build it)."""
+    """The default sector's flat Hamiltonian on `device` (its form chosen
+    by ``densify_factors`` on the card, as the estimators build it)."""
     inp = parse_input(text)
     model = build_model(inp, Geometry(inp))
     ham = model.hamiltonian(model.create_basis(model.default_parts(inp)),
@@ -1366,7 +1458,7 @@ def _rel_max(got, want):
 
 
 @pytest.mark.parametrize("text,kernel", [
-    (hubbard_chain_text(10, 4), "factor_matmul"),
+    (hubbard_chain_text(10, 4), "spin_hop"),
     (tj_text(10, 4, 4, periodic=1), "ell_spmv")], ids=["hubbard10", "tj10"])
 def test_ftlm_on_card_matches_cpu(cuda, text, kernel):
     """FTLM's batched recurrence (R = 12, 40 steps) through the kernels
@@ -1386,7 +1478,7 @@ def test_ftlm_on_card_matches_cpu(cuda, text, kernel):
 
 def test_ltlm_on_card_matches_cpu(cuda):
     """LTLM's stored-V runs and H projection on the 8-site
-    SuperHubbardExtended chain (factor_matmul and ell_spmv)."""
+    SuperHubbardExtended chain (spin_hop and ell_spmv)."""
     from lanczosplusplus_tpu_torch.engine.ftlm import ltlm
     from chip_smoke import super_hubbard_text
     text = super_hubbard_text(8)
@@ -1395,7 +1487,8 @@ def test_ltlm_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     got = ltlm(gpu, [0.5, 4.0], {"energy": gpu}, steps=40,
                start_vectors=block)
-    assert kernels.LAUNCHES["factor_matmul"] > 0
+    assert kernels.LAUNCHES["spin_hop"] > 0
+    assert kernels.LAUNCHES["factor_matmul"] == 0
     assert kernels.LAUNCHES["ell_spmv"] > 0
     want = ltlm(cpu, [0.5, 4.0], {"energy": cpu}, steps=40,
                 start_vectors=block.cpu())
@@ -1633,7 +1726,7 @@ def test_ell_spmv_on_float32_symmetry_blocks_at_r14(cuda, label, dtype):
 
 def test_float32_paths_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     """--dtype float32 on the card against the same on the CPU: the 8-site
-    chain's DOS fleet (the float32 batched GEMMs; densities at delta 0.1
+    chain's DOS fleet (the float32 spin_hop; densities at delta 0.1
     to 1e-4 of their maximum, #CFEnergy= to 1e-10), its complex64 momentum
     blocks (complex64 ell_spmv; refined E0 to 1e-10) and the 8-site Kitaev
     ring by projection (float32 GEMMs; E0 to 1e-10)."""
@@ -1652,7 +1745,7 @@ def test_float32_paths_on_card_match_cpu(cuda, tmp_path, monkeypatch):
         eng = lanczos_main.run(["-f", "in.inp", "--device", device,
                                 "--dtype", "float32", "-g", "c"])
         if device == "cuda":
-            assert kernels.FORM_LAUNCHES.get("factor_matmul f32", 0) > 0
+            assert kernels.FORM_LAUNCHES.get("spin_hop f32", 0) > 0
         colls = [read_collection(str(where / f"in.inp{i}.comb"))
                  for i in range(8)]
         curves[device] = np.stack([-c.evaluate(omegas, 0.1).imag

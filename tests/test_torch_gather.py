@@ -1,8 +1,9 @@
 """The port's perm_gather on the CPU (its plain version) held against the
 JAX package's gathers: the PermCrossTerm bond loop (``_perm_cross_apply``
 and ``_perm_cross_apply_batched``, with shared row maps and shared column
-groups) and the one-spin gather form of ``SpinFactorizedPart.apply``, in
-float64 and complex128 to 1e-13; the gather form kept by
+groups) and the one-spin gather form of ``SpinFactorizedPart.apply``
+(spin_hop's plain version in float64), in float64 and complex128 to
+1e-13; the gather form kept by
 ``densify_factors``, alone and beside a dense factor; and the checks the
 wrapper makes before it dispatches.  The CUDA kernel runs on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -18,6 +19,7 @@ from lanczosplusplus_tpu.io_.input_parser import parse_input as jax_parse
 from lanczosplusplus_tpu.models import build_model as jax_build_model
 from lanczosplusplus_tpu_torch import Config
 from lanczosplusplus_tpu_torch.core.blockkron import make_perm_cross
+from lanczosplusplus_tpu_torch.core.sparse import SpinFactorizedPart
 from lanczosplusplus_tpu_torch.engine import Engine
 from lanczosplusplus_tpu_torch.geometry import Geometry
 from lanczosplusplus_tpu_torch.io_.input_parser import parse_input
@@ -99,16 +101,24 @@ def _both_hubbard(nsite, nup, ndown, u=4.0):
 
 @pytest.mark.parametrize("batch", [None, 3])
 def test_one_spin_gather_form_matches_jax(batch):
-    """The one-spin gather form, up with the rows the identity and dn
-    with the columns the identity, through perm_gather's (K, size)
-    tables, against the JAX package's ``SpinFactorizedPart.apply``."""
+    """The one-spin gather form of a real sector, through spin_hop's
+    tables (each map's nonzero entries, ``kernels.compact_hops``), against
+    the JAX package's ``SpinFactorizedPart.apply``; a complex sector's
+    maps keep perm_gather's (K, size) tables, the maps transposed."""
     ham, jham = _both_hubbard(8, 3, 2)
     f, jf = ham.factorized, jham.factorized
     assert f.up_dense is None and f.dn_dense is None
-    # perm_gather's tables are the maps transposed, made when built
+    # the tables are made when the part is built
     for side in ("up", "dn"):
         cols, vals = getattr(f, f"{side}_cols"), getattr(f, f"{side}_vals")
-        tab, amp = getattr(f, f"{side}_gather")
+        assert getattr(f, f"{side}_gather") is None
+        hop, want = getattr(f, f"{side}_hop"), kernels.compact_hops(cols,
+                                                                   vals)
+        assert all(torch.equal(a, b) for a, b in zip(hop, want))
+        fc = SpinFactorizedPart(up_cols=cols, up_vals=vals.to(
+            torch.complex128), dn_cols=None, dn_vals=None)
+        tab, amp = fc.up_gather
+        assert fc.up_hop is None
         assert tab.is_contiguous() and amp.is_contiguous()
         assert torch.equal(tab, cols.T) and torch.equal(amp, vals.T)
     szd, szu = ham.spin_shape
@@ -137,7 +147,7 @@ def test_gather_form_kept_by_densify_factors(max_bytes, dense_sides):
             if getattr(f, f"{s}_dense") is not None} == set(dense_sides)
     # a dense factor keeps no gather tables
     assert {s for s in ("up", "dn")
-            if getattr(f, f"{s}_gather") is None} == set(dense_sides)
+            if getattr(f, f"{s}_hop") is None} == set(dense_sides)
     x = np.random.default_rng(2).standard_normal(ham.dim)
     expect = np.asarray(jham.matvec(jnp.asarray(x)))
     got = form.matvec(torch.from_numpy(x)).numpy()
@@ -146,12 +156,12 @@ def test_gather_form_kept_by_densify_factors(max_bytes, dense_sides):
 
 
 def test_engine_on_gather_form_reaches_dense_energy():
-    """A CPU solve runs the gather form through perm_gather's plain
-    version and reaches the dense energy."""
+    """A CPU solve runs the gather form through spin_hop's plain version
+    and reaches the dense energy."""
     inp = parse_input(hubbard_chain_text(6))
     engine = Engine(build_model(inp, Geometry(inp)), inp,
                     config=Config(device="cpu"))
-    assert engine.hamiltonian.factorized.up_gather is not None
+    assert engine.hamiltonian.factorized.up_hop is not None
     dense = np.linalg.eigvalsh(engine.hamiltonian.to_dense())
     assert abs(engine.ground_energy - dense[0]) <= 1e-10 * abs(dense[0])
 

@@ -413,8 +413,12 @@ def test_cpu_dispatch_launches_nothing():
     np.testing.assert_array_equal(
         kernels.perm_gather(xb, yb.clone(), rs=rs, a=amp).numpy(),
         kernels.perm_gather_ref(xb, yb.clone(), rs=rs, a=amp).numpy())
+    hops = kernels.compact_hops(rs.T.contiguous(), amp.T.contiguous())
+    np.testing.assert_array_equal(
+        kernels.spin_hop(xb, yb.clone(), dn=hops).numpy(),
+        kernels.spin_hop_ref(xb, yb.clone(), dn=hops).numpy())
     assert kernels.LAUNCHES == {"factor_matmul": 0, "ell_spmv": 0,
-                                "perm_gather": 0}
+                                "perm_gather": 0, "spin_hop": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
@@ -569,6 +573,7 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     assert before.parent == build.BUILD_DIR
     assert {p.name for p in build.sources()} == {"ell_spmv.cu",
                                                  "factor_matmul.cu",
-                                                 "perm_gather.cu"}
+                                                 "perm_gather.cu",
+                                                 "spin_hop.cu"}
     (tmp_path / "ell_spmv.cu").write_text("// edited\n")
     assert build.library_path() != before

@@ -177,8 +177,9 @@ def test_launches_by_site_measures_each_form(text):
 
 @pytest.mark.parametrize("max_bytes", [0, 2000], ids=["gather", "mixed"])
 def test_launches_by_site_one_spin_forms(max_bytes):
-    """A one-spin apply's gathers count as its up or dn form, a dense
-    factor as 'one-spin dense'."""
+    """A one-spin apply's spin_hop counts as 'one-spin hop', one launch
+    for the factors in gather form, a dense factor as 'one-spin
+    dense'."""
     inp = parse_input(chip_smoke.hubbard_chain_text(6, 4, 3, 2))
     model = build_model(inp, Geometry(inp))
     basis = model.create_basis(model.default_parts(inp))
@@ -186,22 +187,28 @@ def test_launches_by_site_one_spin_forms(max_bytes):
                             device="cpu").densify_factors(max_bytes)
     f = ham.factorized
     real, fakes = _card_like_launches()
+    real_hop = kernels.spin_hop
+
+    def hop(*args, **kw):
+        kernels._launched("spin_hop", "f64")
+        return real_hop(*args, **kw)
     counts = dict(kernels.FORM_LAUNCHES)
     kernels.factor_matmul, kernels.perm_gather = fakes
+    kernels.spin_hop = hop
     try:
         with chip_smoke.launches_by_site() as (forms, applies):
             ham.matvec(torch.ones(ham.dim, dtype=torch.float64))
     finally:
         kernels.factor_matmul, kernels.perm_gather = real
+        kernels.spin_hop = real_hop
         kernels.FORM_LAUNCHES.clear()
         kernels.FORM_LAUNCHES.update(counts)
     assert applies == {"one-spin": 1}
     assert (f.up_dense is None, f.dn_dense is None) == (
         (True, True) if max_bytes == 0 else (True, False))
-    want = {}
-    for side, dense in (("up", f.up_dense), ("dn", f.dn_dense)):
-        key = "one-spin dense" if dense is not None else f"one-spin {side}"
-        want[key] = want.get(key, 0) + 1
+    want = {"one-spin hop": 1}
+    if f.dn_dense is not None:
+        want["one-spin dense"] = 1
     assert {k: n for k, n in forms.items() if n} == want
 
 
